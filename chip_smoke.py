@@ -1,0 +1,448 @@
+"""On-card smoke test of tpuasr_torch, the PyTorch + CUDA port (one H100).
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure:
+  1. environment: Python, torch, CUDA, and the card's name and power limit;
+  2. build of the CUDA kernels from tpuasr_torch/csrc, timed;
+  3. each kernel against its plain PyTorch version on the card, at the
+     shapes of the served model (B=128 utterances of 10 s at 8 kHz, C=64,
+     a 512 x 4 BiGRU, beam K=8), with its error, tolerance and timing;
+  4. the full slice through Recognizer: the int8 arm (the default) and the
+     bf16 arm, with launch counts, agreement with the plain path, and
+     x-real-time of the kernel path and of the plain path;
+  5. a few requests through tpuasr_torch.cli.predict on wav files it writes.
+
+Weights are random, made from a seed. The line before the last holds
+{"kernels": [...]}; the last line is {"ok": true, "device": {...}}. Without
+a CUDA device, or if any phase fails, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import io
+import json
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+from unittest import mock
+
+import numpy as np
+import torch
+
+SR = 8000
+SECONDS = 10.0
+B = 128
+NUM_CLASSES = 64
+HIDDEN = 512
+LAYERS = 4
+BEAM = 8
+SEED = 0
+ROOT = Path(__file__).resolve().parent
+
+
+def phase(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
+    """Mean milliseconds per call on the device, from CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def kernel_name(key: str) -> str:
+    """'void (anonymous namespace)::gru_scan_kernel<...>(...)' -> 'gru_scan_kernel'."""
+    key = key.replace("(anonymous namespace)::", "")
+    if key.startswith("void "):
+        key = key[5:]
+    return key.split("<")[0].split("(")[0].split("::")[-1][:48]
+
+
+def device_breakdown(fn, top: int = 6) -> str:
+    """The largest device self times of one call, by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = [(e.self_device_time_total, e.count, e.key)
+            for e in prof.key_averages()
+            if e.self_device_time_total > 0 and not e.key.startswith("aten::")]
+    total = sum(r[0] for r in rows)
+    rows.sort(reverse=True)
+    parts = [f"{us / 1e3:.3f} ms x{n} {kernel_name(name)}"
+             for us, n, name in rows[:top]]
+    return f"total {total / 1e3:.3f} ms; " + "; ".join(parts)
+
+
+def token_error_rate(hyp: dict, ref: dict) -> tuple[float, int]:
+    """Edit distance of hyp's best tokens to ref's over ref's token count,
+    and the number of utterances whose tokens are identical."""
+    errs = total = same = 0
+    ht, hl = hyp["tokens"][:, 0].cpu().numpy(), hyp["token_lens"][:, 0].cpu()
+    rt, rl = ref["tokens"][:, 0].cpu().numpy(), ref["token_lens"][:, 0].cpu()
+    for i in range(len(ht)):
+        a, b = ht[i, :int(hl[i])], rt[i, :int(rl[i])]
+        total += len(b)
+        if len(a) == len(b) and (a == b).all():
+            same += 1
+            continue
+        row = np.arange(len(b) + 1)
+        for x in a:
+            prev, row = row, np.empty_like(row)
+            row[0] = prev[0] + 1
+            sub = prev[:-1] + (b != x)
+            for j in range(1, len(b) + 1):
+                row[j] = min(prev[j] + 1, row[j - 1] + 1, sub[j - 1])
+        errs += int(row[-1])
+    return errs / max(total, 1), same
+
+
+def main() -> int:
+    # ---- 1. environment -------------------------------------------------
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke test needs a "
+             "CUDA device")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else ""
+    if not card:
+        fail(f"nvidia-smi gave no card: {smi.stderr.strip()}")
+    phase(f"[1 env] python {sys.version.split()[0]} torch {torch.__version__}"
+          f" cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    phase(card)
+
+    sys.path.insert(0, str(ROOT))
+    from tpuasr_torch import _build
+    from tpuasr_torch.convert import save_npz, to_jax_variables
+    from tpuasr_torch.decode import BeamSearchConfig
+    from tpuasr_torch.decode import beam as beam_mod
+    from tpuasr_torch.features import FeatureConfig, fbank_power
+    from tpuasr_torch.features import fused as fused_mod
+    from tpuasr_torch.features.reference import feature_tables, num_frames
+    from tpuasr_torch.models import create_model
+    from tpuasr_torch.models import layers as layers_mod
+    from tpuasr_torch.ops import gru as gru_mod
+    from tpuasr_torch.ops.quant import quantize_per_channel
+    from tpuasr_torch.serve.offline import Recognizer
+
+    # ---- 2. build ---------------------------------------------------------
+    t0 = time.perf_counter()
+    lib_path = _build.build()
+    _build.lib()
+    phase(f"[2 build] {time.perf_counter() - t0:.2f} s -> "
+          f"{lib_path.relative_to(ROOT)}")
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED)
+    kernels = {}
+
+    def record(key, name, source, replaces, err, ms=None, plain_ms=None):
+        k = kernels.setdefault(key, dict(name=name, route="cuda",
+                                         source=source, replaces=replaces,
+                                         launches=0, max_abs_err=0.0,
+                                         ms=None, plain_ms=None))
+        k["max_abs_err"] = max(k["max_abs_err"], float(err))
+        if ms is not None:
+            k["ms"], k["plain_ms"] = ms, plain_ms
+
+    # ---- 3. kernels against their plain versions ----------------------------
+    # K1 / K1b: log-mel (after the log floor) within 1e-3, the JAX
+    # featurizer parity tolerance (tests/test_features_pallas.py:36); the
+    # kernel and the plain matmuls are both fp32, summed in other orders.
+    for sr, nb, key in ((8000, B, "K1"), (16000, 32, None)):
+        cfg = FeatureConfig(sample_rate=sr)
+        tabs = feature_tables(cfg, dev)
+        S = int(sr * SECONDS)
+        T = num_frames(cfg, S)
+        wav = (torch.randn(nb, S, generator=gen) * 0.1).to(dev)
+        hop = cfg.hop_length
+        got = fbank_power(wav, tabs, hop, T)
+        ref = fused_mod.fbank_power_plain(wav, tabs, hop, T)
+        err = (torch.log(got.clamp(min=cfg.log_floor))
+               - torch.log(ref.clamp(min=cfg.log_floor))).abs().max().item()
+        tol = 1e-3
+        ms = cuda_ms(lambda: fbank_power(wav, tabs, hop, T), 20)
+        pms = cuda_ms(lambda: fused_mod.fbank_power_plain(wav, tabs, hop, T),
+                      5)
+        phase(f"[3 K1{'' if key else 'b'}] fbank {sr} Hz B={nb} T={T} "
+              f"win={cfg.win_length} hop={hop}: log-mel max_abs_err {err:.3e}"
+              f" (tol {tol}) kernel {ms:.3f} ms plain {pms:.3f} ms")
+        if not err <= tol:
+            fail(f"fbank kernel disagrees at {sr} Hz: {err} > {tol}")
+        if key:
+            record(key, "fbank_power", "tpuasr_torch/csrc/fbank.cu",
+                   "tpuasr/features/pallas_fused.py:109", err, ms, pms)
+
+    # K2 / K4 at the served layer shapes. ys is bf16: one bf16 ulp is
+    # 3.9e-3 near 1, and the kernel sums x@Wx and h@Wh in another order
+    # than the plain matmuls, so a rounding can flip and ride the
+    # recurrence for a few steps: tol 2e-2 (int8 sums are exact).
+    T_out = -(-num_frames(FeatureConfig(), int(SR * SECONDS)) // 2)
+    lens = torch.randint(T_out // 2, T_out + 1, (B,), generator=gen)
+    lens[0] = T_out
+    mask = (torch.arange(T_out)[:, None] < lens[None, :]).float()[:, :, None]
+    mask = mask.to(dev).contiguous()
+    gru_tol = 2e-2
+    H = HIDDEN
+    for D in (512, 1024):
+        x = torch.randn(T_out, B, D, generator=gen).to(dev, torch.bfloat16)
+        wx = (torch.randn(D, 3 * H, generator=gen) / D ** 0.5).to(dev)
+        wh = (torch.randn(H, 3 * H, generator=gen) / H ** 0.5).to(dev)
+        bias = (torch.randn(3 * H, generator=gen) * 0.1).to(dev)
+        wxb, whb = wx.bfloat16(), wh.bfloat16()
+        wxq, sw = quantize_per_channel(wx)
+        whq, swh = quantize_per_channel(wh)
+        cases = (
+            ("K2", "bf16", gru_mod.gru_scan_xfused,
+             gru_mod.gru_scan_xfused_plain, (x, wxb, bias, whb, mask), {}),
+            ("K4", "int8", gru_mod.gru_scan_xfused_q8,
+             gru_mod.gru_scan_xfused_q8_plain,
+             (x, wxq, sw, bias, whb, mask), {}),
+            ("K4", "int8+rec_q8", gru_mod.gru_scan_xfused_q8,
+             gru_mod.gru_scan_xfused_q8_plain,
+             (x, wxq, sw, bias, whq, mask), {"wh_scale": swh}),
+        )
+        for key, label, kern, plain, args, kw in cases:
+            for rev in (False, True):
+                got = kern(*args, reverse=rev, **kw)
+                ref = plain(*args, reverse=rev, **kw)
+                err = (got.float() - ref.float()).abs().max().item()
+                timed = D == 1024 and not rev
+                ms = pms = None
+                if timed:
+                    ms = cuda_ms(lambda: kern(*args, reverse=rev, **kw), 3)
+                    pms = cuda_ms(lambda: plain(*args, reverse=rev, **kw), 1)
+                phase(f"[3 {key}] gru {label} T={T_out} B={B} D={D} H={H} "
+                      f"reverse={rev}: max_abs_err {err:.3e} (tol {gru_tol})"
+                      + (f" kernel {ms:.3f} ms plain {pms:.3f} ms"
+                         if timed else ""))
+                if not err <= gru_tol:
+                    fail(f"{key} {label} D={D} reverse={rev}: {err}")
+                if key == "K2":
+                    record("K2", "gru_scan_xfused (bf16)",
+                           "tpuasr_torch/csrc/gru_scan.cu",
+                           "tpuasr/ops/pallas_gru.py:615", err, ms, pms)
+                else:   # times kept: the served int8 + rec_q8 arm
+                    record("K4", "gru_scan_xfused_q8 (int8, rec_q8)",
+                           "tpuasr_torch/csrc/gru_scan.cu",
+                           "tpuasr/ops/pallas_gru.py:1020", err,
+                           *((ms, pms) if label == "int8+rec_q8" else ()))
+
+    # K3 on identical log-probs: backpointers, final scores, tokens and
+    # lengths must be exactly equal (same float ops in the same order).
+    lp = torch.log_softmax(torch.randn(B, T_out, NUM_CLASSES, generator=gen)
+                           * 2.0, dim=-1).to(dev).contiguous()
+    blens = torch.randint(1, T_out + 1, (B,), generator=gen).to(torch.int32)
+    blens[0], blens[1], blens[2] = T_out, 0, 1
+    blens = blens.to(dev)
+    bcfg = BeamSearchConfig(beam_width=BEAM, max_len=256)
+    got = beam_mod.beam_scan(lp, blens, BEAM, 0, bcfg.max_len)
+    ref = beam_mod.beam_scan_plain(lp, blens, BEAM, 0, bcfg.max_len)
+    same_bp = torch.equal(got[0], ref[0])
+    same_sc = torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
+    out_k = beam_mod.ctc_beam_search(lp, blens, bcfg)
+    with mock.patch.object(beam_mod, "beam_scan", beam_mod.beam_scan_plain):
+        out_p = beam_mod.ctc_beam_search(lp, blens, bcfg)
+    same_tok = (torch.equal(out_k["tokens"], out_p["tokens"])
+                and torch.equal(out_k["token_lens"], out_p["token_lens"]))
+    ms = cuda_ms(lambda: beam_mod.beam_scan(lp, blens, BEAM, 0, 256), 5)
+    pms = cuda_ms(lambda: beam_mod.beam_scan_plain(lp, blens, BEAM, 0, 256),
+                  1)
+    sc_err = (got[1] - ref[1]).abs().max().item()
+    phase(f"[3 K3] beam B={B} T={T_out} C={NUM_CLASSES} K={BEAM}: "
+          f"backpointers equal {same_bp}, final scores equal {same_sc}, "
+          f"tokens+lengths equal {same_tok} (tol: exact) kernel {ms:.3f} ms"
+          f" plain {pms:.3f} ms")
+    if not (same_bp and same_sc and same_tok):
+        fail("beam kernel disagrees with its plain version")
+    record("K3", "ctc_beam (no LM)", "tpuasr_torch/csrc/ctc_beam.cu",
+           "tpuasr/decode/pallas_beam.py:455", sc_err, ms, pms)
+
+    # ---- 4. the full slice through Recognizer ---------------------------------
+    feat_cfg = FeatureConfig(sample_rate=SR, n_mels=64)
+    arms = {
+        "int8": dict(pallas_gru=True, bf16_gru=True, fused_proj=True,
+                     int8_proj=True, int8_rec=True),
+        "bf16": dict(pallas_gru=True, bf16_gru=True, fused_proj=True),
+    }
+    base = dict(num_classes=NUM_CLASSES, rnn_hidden=HIDDEN,
+                rnn_layers=LAYERS, in_features=feat_cfg.n_mels)
+    model0 = create_model("deepspeech_ctc", **base, **arms["int8"],
+                          generator=torch.Generator().manual_seed(SEED))
+    state = model0.state_dict()
+    S = int(SR * SECONDS)
+    wav = (np.random.default_rng(SEED).standard_normal((B, S))
+           * 0.1).astype(np.float32)
+    wav_lens = np.full((B,), S, np.int32)
+    wav_d = torch.as_tensor(wav, device=dev)
+    lens_d = torch.as_tensor(wav_lens, device=dev)
+    audio_s = float(wav_lens.sum()) / SR
+
+    wrappers = {"K1": fused_mod.fbank_power,
+                "K2": gru_mod.gru_scan_xfused,
+                "K4": gru_mod.gru_scan_xfused_q8,
+                "K3": beam_mod.beam_scan}
+    plain_patches = (
+        (fused_mod, "fbank_power", fused_mod.fbank_power_plain),
+        (layers_mod, "gru_scan_xfused", gru_mod.gru_scan_xfused_plain),
+        (layers_mod, "gru_scan_xfused_q8", gru_mod.gru_scan_xfused_q8_plain),
+        (beam_mod, "beam_scan", beam_mod.beam_scan_plain),
+    )
+
+    @contextlib.contextmanager
+    def plain_path():
+        with contextlib.ExitStack() as stack:
+            for mod, name, fn in plain_patches:
+                stack.enter_context(mock.patch.object(mod, name, fn))
+            yield
+
+    recs = {}
+    for arm, flags in arms.items():
+        model = create_model("deepspeech_ctc", **base, **flags, device=dev)
+        model.load_state_dict(state)
+        recs[arm] = Recognizer(model, feat_cfg, bcfg, dev)
+
+    # The counted run of the main path: both arms, one batch each.
+    for w in wrappers.values():
+        w.launches = 0
+    per_arm, outs = {}, {}
+    for arm, rec in recs.items():
+        before = {k: w.launches for k, w in wrappers.items()}
+        outs[arm] = rec(wav_d, lens_d)
+        torch.cuda.synchronize()
+        per_arm[arm] = {k: w.launches - before[k] for k, w in wrappers.items()}
+    launches = {k: w.launches for k, w in wrappers.items()}
+    phase(f"[4 slice] launch counts per batch: {json.dumps(per_arm)}")
+    want = {"int8": {"K1": 1, "K2": 0, "K4": 2 * LAYERS, "K3": 1},
+            "bf16": {"K1": 1, "K2": 2 * LAYERS, "K4": 0, "K3": 1}}
+    if per_arm != want:
+        fail(f"launch counts {per_arm} != {want}")
+    for k, n in launches.items():
+        kernels[k]["launches"] = n
+        if n == 0:
+            fail(f"kernel {k} was not launched on the main path")
+
+    # logp of the kernel path against the plain path: the bf16 stream
+    # rounds at the same places in both, but a one-ulp difference in an
+    # fp32 sum can flip a bf16 (or int8) rounding and move a log-prob by
+    # ~1e-2 after four layers: tol 5e-2, end to end and for the AM alone on
+    # identical features. Tokens: the kernel path's must equal the plain
+    # beam's on the same log-probs (exact). The token error rate between the
+    # two paths is reported: the random-weight model's posteriors are flat,
+    # so those log-prob differences flip near-ties in the search; ter_tol
+    # only catches a gross fault (a broken path decodes at a TER near 1).
+    slice_tol = 5e-2
+    ter_tol = 0.2
+    for arm, rec in recs.items():
+        out = outs[arm]
+        logp, ol = out["log_probs"], out["out_lens"]
+        if not bool(torch.isfinite(logp).all()):
+            fail(f"{arm}: non-finite log-probs")
+        if tuple(logp.shape) != (B, T_out, NUM_CLASSES):
+            fail(f"{arm}: log-probs shape {tuple(logp.shape)}")
+        before = sum(w.launches for w in wrappers.values())
+        with torch.inference_mode():
+            feats, flens = rec.featurizer.featurize(wav_d, lens_d)
+        with plain_path(), torch.inference_mode():
+            pout = rec(wav_d, lens_d)
+            same_lp_dec = beam_mod.ctc_beam_search(logp, ol, bcfg)
+            am_lp, _ = rec.model(feats, flens)
+            am_dec = beam_mod.ctc_beam_search(am_lp, ol, bcfg)
+        if sum(w.launches for w in wrappers.values()) != before + 1:
+            fail("the plain path launched a kernel")
+        err = (logp - pout["log_probs"]).abs().max().item()
+        am_err = (logp - am_lp).abs().max().item()
+        exact = (torch.equal(same_lp_dec["tokens"], out["tokens"])
+                 and torch.equal(same_lp_dec["token_lens"],
+                                 out["token_lens"]))
+        ter, same_rows = token_error_rate(out, pout)
+        am_ter, am_same = token_error_rate(out, am_dec)
+        phase(f"[4 slice {arm}] logp max_abs_err vs plain path {err:.3e}, "
+              f"AM alone on the same features {am_err:.3e} (tol "
+              f"{slice_tol}); tokens == plain beam on the same logp: "
+              f"{exact}; token error rate vs plain path {ter:.5f} "
+              f"({same_rows}/{B} identical; tol {ter_tol}), vs plain AM + "
+              f"beam on the same features {am_ter:.5f} ({am_same}/{B}); "
+              f"out_lens equal {torch.equal(ol, pout['out_lens'])}; "
+              f"mean tokens/utt "
+              f"{out['token_lens'].float().mean().item():.1f}")
+        if not (err <= slice_tol and am_err <= slice_tol and exact
+                and ter <= ter_tol and torch.equal(ol, pout["out_lens"])):
+            fail(f"{arm}: kernel path disagrees with the plain path")
+        rt = cuda_ms(lambda: rec(wav_d, lens_d), 5)
+        with plain_path():
+            prt = cuda_ms(lambda: rec(wav_d, lens_d), 2)
+        phase(f"[4 slice {arm}] B={B} x {SECONDS:.0f} s ({audio_s:.0f} s of "
+              f"audio): kernel path {rt:.2f} ms = "
+              f"{audio_s / (rt / 1e3):.1f}x real time; plain path "
+              f"{prt:.2f} ms = {audio_s / (prt / 1e3):.1f}x real time "
+              f"[{card}]")
+        phase(f"[4 slice {arm}] device time of one batch by kernel "
+              f"(torch.profiler): {device_breakdown(lambda: rec(wav_d, lens_d))}")
+
+    # ---- 5. requests through the CLI --------------------------------------
+    from scipy.io import wavfile
+    from tpuasr_torch.cli import predict
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        meta = dict(model="deepspeech_ctc", num_classes=NUM_CLASSES,
+                    model_kwargs=dict(rnn_hidden=HIDDEN, rnn_layers=LAYERS,
+                                      **arms["int8"]))
+        save_npz(to_jax_variables(state), tmp / "w.npz", meta=meta)
+        (tmp / "units.txt").write_text(
+            "\n".join(["<blank>"] + [f"p{i}" for i in range(1, NUM_CLASSES)]))
+        rng = np.random.default_rng(SEED + 1)
+        paths = []
+        for i, sec in enumerate((2.0, 3.5, 5.0)):
+            p = tmp / f"req{i}.wav"
+            wavfile.write(p, SR, (rng.standard_normal(int(SR * sec))
+                                  * 3000).astype(np.int16))
+            paths.append(str(p))
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = predict.main(["deepspeech_ctc", *paths, "--weights",
+                               str(tmp / "w.npz"), "--units",
+                               str(tmp / "units.txt"), "--beam",
+                               "--beam-width", str(BEAM), "--device", "cuda"])
+        lines = buf.getvalue().strip().splitlines()
+        phase(f"[5 cli] predict rc={rc}, {len(lines)} transcripts in "
+              f"{time.perf_counter() - t0:.2f} s (host clock, load included)")
+        if rc != 0 or len(lines) != len(paths) or not all(
+                ln.startswith(p + "\t") for ln, p in zip(lines, paths)):
+            fail(f"predict output: {lines}")
+        for ln in lines:
+            phase(f"    {Path(ln.split(chr(9))[0]).name}: "
+                  f"{len(ln.split(chr(9))[1].split())} tokens")
+
+    print(json.dumps({"kernels": [kernels[k] for k in ("K1", "K2", "K4", "K3")]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

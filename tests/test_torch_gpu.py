@@ -1,0 +1,94 @@
+"""tpuasr_torch CUDA kernels against their plain versions, on the card.
+
+Marked ``gpu``: skipped where CUDA is absent. The card's machine has no
+jax, so run these without the suite's jax conftest:
+
+    python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
+
+``chip_smoke.py`` checks the same kernels at the served shapes; these keep
+small ragged shapes that a kernel edit can be iterated on.
+"""
+
+import pytest
+import torch
+
+from tpuasr_torch.decode.beam import beam_scan, beam_scan_plain
+from tpuasr_torch.features import FeatureConfig, fbank_power
+from tpuasr_torch.features.fused import fbank_power_plain
+from tpuasr_torch.features.reference import feature_tables, num_frames
+from tpuasr_torch.ops.gru import (gru_scan_xfused, gru_scan_xfused_plain,
+                                  gru_scan_xfused_q8, gru_scan_xfused_q8_plain)
+from tpuasr_torch.ops.quant import quantize_per_channel
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("sr", [8000, 16000])
+def test_fbank(dev, sr):
+    cfg = FeatureConfig(sample_rate=sr)
+    tabs = feature_tables(cfg, dev)
+    S = 3 * sr // 2 + 17
+    T = num_frames(cfg, S)
+    wav = torch.randn(3, S, generator=torch.Generator().manual_seed(0)).to(dev)
+    got = fbank_power(wav, tabs, cfg.hop_length, T)
+    ref = fbank_power_plain(wav, tabs, cfg.hop_length, T)
+    torch.testing.assert_close(torch.log(got.clamp(min=1e-10)),
+                               torch.log(ref.clamp(min=1e-10)),
+                               rtol=0, atol=1e-3)
+
+
+def _gru_case(dev, D, H, dtype):
+    g = torch.Generator().manual_seed(1)
+    T, B = 37, 7
+    x = torch.randn(T, B, D, generator=g).to(dev, dtype)
+    wx = (torch.randn(D, 3 * H, generator=g) / D ** 0.5).to(dev)
+    wh = (torch.randn(H, 3 * H, generator=g) / H ** 0.5).to(dev)
+    b = (torch.randn(3 * H, generator=g) * 0.1).to(dev)
+    lens = torch.tensor([T, 30, 1, 0, 12, T, 5])
+    mask = (torch.arange(T)[:, None] < lens[None, :]).float()[:, :, None]
+    return x, wx, wh, b, mask.to(dev).contiguous()
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_k2(dev, reverse, dtype, tol):
+    x, wx, wh, b, mask = _gru_case(dev, 70, 40, dtype)
+    args = (x, wx.to(dtype), b, wh.to(dtype), mask, reverse)
+    torch.testing.assert_close(gru_scan_xfused(*args).float(),
+                               gru_scan_xfused_plain(*args).float(),
+                               rtol=0, atol=tol)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("rec_q8", [False, True])
+def test_k4(dev, reverse, rec_q8):
+    x, wx, wh, b, mask = _gru_case(dev, 70, 40, torch.bfloat16)
+    wxq, sw = quantize_per_channel(wx)
+    if rec_q8:
+        whq, swh = quantize_per_channel(wh)
+        args, kw = (x, wxq, sw, b, whq, mask, reverse), {"wh_scale": swh}
+    else:
+        args, kw = (x, wxq, sw, b, wh.bfloat16(), mask, reverse), {}
+    torch.testing.assert_close(gru_scan_xfused_q8(*args, **kw).float(),
+                               gru_scan_xfused_q8_plain(*args, **kw).float(),
+                               rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("C,K,max_len", [(5, 8, 40), (30, 4, 6)])
+def test_k3_exact(dev, C, K, max_len):
+    g = torch.Generator().manual_seed(2)
+    lp = torch.log_softmax(torch.randn(6, 40, C, generator=g) * 2, -1)
+    lp = lp.to(dev).contiguous()
+    lens = torch.tensor([40, 0, 1, 17, 40, 3], dtype=torch.int32).to(dev)
+    got = beam_scan(lp, lens, K, 0, max_len)
+    ref = beam_scan_plain(lp, lens, K, 0, max_len)
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r)

@@ -1,0 +1,118 @@
+"""Build the package's CUDA kernels at first use and load them with ctypes.
+
+All sources under ``tpuasr_torch/csrc/`` are compiled by ``nvcc`` (from
+``CUDA_HOME``/``CUDA_PATH``, then ``PATH``, then ``/usr/local/cuda``) into
+one shared library with a plain C interface, for ``sm_90a`` (Hopper). The
+library lands in ``build/tpuasr_torch/`` at the repository root, named by a
+hash of the sources and the flags, so an edit rebuilds and an unchanged tree
+reuses the last build. A file lock keeps concurrent processes from building
+the same library at once.
+
+Nothing here runs at import time. A missing ``nvcc`` or a failed build is an
+error that carries the compiler's output; nothing falls back to the plain
+PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parent / "build" / "tpuasr_torch"
+
+# Never --use_fast_math: the parity paths need IEEE expf/logf/division, and
+# the int8 quantizers round at .5 boundaries that one ulp can flip.
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-lineinfo",
+    "-shared", "-Xcompiler", "-fPIC",
+]
+
+_lib: ctypes.CDLL | None = None
+
+
+def find_nvcc() -> str:
+    for env in ("CUDA_HOME", "CUDA_PATH"):
+        root = os.environ.get(env)
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    if Path("/usr/local/cuda/bin/nvcc").is_file():
+        return "/usr/local/cuda/bin/nvcc"
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME or put nvcc on PATH): the "
+        "tpuasr_torch CUDA kernels are built from source at first use")
+
+
+def _sources() -> list[Path]:
+    return sorted(CSRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256()
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libtpuasr_torch_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists."""
+    out = library_path()
+    if out.is_file():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / "lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.is_file():          # another process built it meanwhile
+            return out
+        nvcc = find_nvcc()
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+               *[str(s) for s in _sources()]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}")
+        os.replace(tmp, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built first if needed)."""
+    global _lib
+    if _lib is None:
+        loaded = ctypes.CDLL(str(build()))
+        loaded.tpuasr_error_string.argtypes = [ctypes.c_int]
+        loaded.tpuasr_error_string.restype = ctypes.c_char_p
+        _lib = loaded
+    return _lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a launcher returned a non-zero cudaGetLastError()."""
+    if code != 0:
+        msg = lib().tpuasr_error_string(code).decode()
+        raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def stream_ptr(t) -> ctypes.c_void_p:
+    """The current CUDA stream of tensor ``t``'s device, as a C pointer."""
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())

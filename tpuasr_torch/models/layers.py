@@ -1,0 +1,173 @@
+"""Sequence-model building blocks for inference (masking-aware).
+
+Counterpart of ``tpuasr/models/layers.py``. Parameters keep the JAX names
+and layouts except where PyTorch's own ops need another (conv kernels are
+OIHW here, HWIO in JAX; see ``tpuasr_torch.convert``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from tpuasr_torch.ops.gru import gru_scan_xfused, gru_scan_xfused_q8
+from tpuasr_torch.ops.quant import quantize_per_channel
+
+
+def sequence_mask(lengths: torch.Tensor, maxlen: int) -> torch.Tensor:
+    """(B,) -> (B, T) bool."""
+    return (torch.arange(maxlen, device=lengths.device)[None, :]
+            < lengths[:, None])
+
+
+def conv_out_length(lengths, kernel: int, stride: int, padding):
+    """Output length of a strided conv along time: 'SAME' gives
+    ceil(L / stride); an int p gives floor((L + 2p - k) / stride) + 1."""
+    if padding == "SAME":
+        return -(-lengths // stride)
+    p = padding if isinstance(padding, int) else 0
+    return (lengths + 2 * p - kernel) // stride + 1
+
+
+def _same_pad(n: int, k: int, s: int) -> tuple[int, int]:
+    """XLA SAME padding split (the extra pad on the high side)."""
+    out = -(-n // s)
+    total = max((out - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def _lecun_normal_(w: torch.Tensor, fan_in: int, generator) -> torch.Tensor:
+    # flax's lecun_normal: truncated normal at +-2 sigma, variance 1/fan_in,
+    # sigma corrected for the truncation.
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+    with torch.no_grad():
+        return nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
+                                     generator=generator)
+
+
+class FrontConv(nn.Module):
+    """2-D conv over (time, freq) with XLA SAME padding and no bias.
+
+    Input and output are NCHW (B, C, T, F); ``weight`` is OIHW
+    (Cout, Cin, Kt, Kf). The model runs it under ``precision.full_fp32``.
+    """
+
+    def __init__(self, in_channels: int, features: int, kernel_size, strides,
+                 generator=None):
+        super().__init__()
+        self.kernel_size = tuple(kernel_size)
+        self.strides = tuple(strides)
+        self.weight = nn.Parameter(torch.empty(
+            (features, in_channels, *self.kernel_size)))
+        fan_in = in_channels * self.kernel_size[0] * self.kernel_size[1]
+        _lecun_normal_(self.weight, fan_in, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        (kt, kf), (st, sf) = self.kernel_size, self.strides
+        pt = _same_pad(x.shape[2], kt, st)
+        pf = _same_pad(x.shape[3], kf, sf)
+        x = F.pad(x, (pf[0], pf[1], pt[0], pt[1]))
+        return F.conv2d(x, self.weight, stride=(st, sf))
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` with running statistics (inference), over
+    channel dim 1 of an NCHW tensor:
+    y = (x - mean) * (rsqrt(var + eps) * scale) + bias."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mul = torch.rsqrt(self.var + self.epsilon) * self.scale
+        return ((x - self.mean[:, None, None]) * mul[:, None, None]
+                + self.bias[:, None, None])
+
+
+class MaskedBatchNorm(nn.Module):
+    """Batch norm over (batch, time) that ignores padding. Inference uses
+    the running statistics, so no mask is needed; math in f32, output cast
+    back to the input dtype."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = (x.to(torch.float32) - self.mean) * torch.rsqrt(
+            self.var + self.epsilon)
+        return (y * self.scale + self.bias).to(x.dtype)
+
+
+class GRULayer(nn.Module):
+    """Unidirectional GRU over time-major (T, B, D) input, gate order
+    r, z, n; padded steps freeze the state and come out as zeros.
+
+    The scan is the fused-projection kernel: K2 (``gru_scan_xfused``) with
+    the weights cast to ``compute_dtype``, or with ``int8_proj`` K4
+    (``gru_scan_xfused_q8``), the weights quantized per output channel on
+    each call as in JAX; ``int8_rec`` also quantizes wh.
+    """
+
+    def __init__(self, in_features: int, hidden: int, reverse: bool = False,
+                 compute_dtype=torch.float32, int8_proj: bool = False,
+                 int8_rec: bool = False, generator=None):
+        super().__init__()
+        self.reverse = reverse
+        self.compute_dtype = compute_dtype
+        self.int8_proj = int8_proj or int8_rec
+        self.int8_rec = int8_rec
+        self.wx = nn.Parameter(torch.empty((in_features, 3 * hidden)))
+        self.wh = nn.Parameter(torch.empty((hidden, 3 * hidden)))
+        self.b = nn.Parameter(torch.zeros(3 * hidden))
+        _lecun_normal_(self.wx, in_features, generator)
+        with torch.no_grad():
+            nn.init.orthogonal_(self.wh, generator=generator)
+
+    def forward(self, x: torch.Tensor, mask_t: torch.Tensor) -> torch.Tensor:
+        """x (T, B, D), mask_t (T, B, 1) f32 -> (T, B, H) in x's dtype."""
+        cd = self.compute_dtype
+        xc = x.to(cd).contiguous()
+        b = self.b.to(torch.float32).contiguous()
+        if self.int8_proj:
+            wxq, sw = quantize_per_channel(self.wx, axis=0)
+            if self.int8_rec:
+                whq, swh = quantize_per_channel(self.wh, axis=0)
+                ys = gru_scan_xfused_q8(xc, wxq, sw, b, whq, mask_t,
+                                        self.reverse, wh_scale=swh)
+            else:
+                ys = gru_scan_xfused_q8(xc, wxq, sw, b,
+                                        self.wh.to(cd).contiguous(), mask_t,
+                                        self.reverse)
+        else:
+            ys = gru_scan_xfused(xc, self.wx.to(cd).contiguous(), b,
+                                 self.wh.to(cd).contiguous(), mask_t,
+                                 self.reverse)
+        ys = ys.to(x.dtype)
+        return ys * mask_t.to(ys.dtype)
+
+
+class BiGRU(nn.Module):
+    """Concat of a forward and a reverse GRULayer on (T, B, D) input."""
+
+    def __init__(self, in_features: int, hidden: int, generator=None, **kw):
+        super().__init__()
+        self.fwd = GRULayer(in_features, hidden, reverse=False,
+                            generator=generator, **kw)
+        self.bwd = GRULayer(in_features, hidden, reverse=True,
+                            generator=generator, **kw)
+
+    def forward(self, x: torch.Tensor, mask_t: torch.Tensor) -> torch.Tensor:
+        return torch.cat([self.fwd(x, mask_t), self.bwd(x, mask_t)], dim=-1)
