@@ -5,13 +5,21 @@
 Phases, each fatal on failure:
   1. environment: Python, torch, CUDA, and the card's name and power limit;
   2. build of the CUDA kernels from tpuasr_torch/csrc, timed;
-  3. each kernel against its plain PyTorch version on the card, at the
-     shapes of the served model (B=128 utterances of 10 s at 8 kHz, C=64,
-     a 512 x 4 BiGRU, beam K=8), with its error, tolerance and timing;
-  4. the full slice through Recognizer: the int8 arm (the default) and the
-     bf16 arm, with launch counts, agreement with the plain path, and
+  3. each kernel against its plain PyTorch version on the card, with its
+     error, tolerance, timing, the least time the card could take for its
+     work (bound) and, where one PyTorch call computes the same function,
+     that call's time: the serving kernels K1, K2, K4, K3 at the shapes of
+     the served model (B=128 utterances of 10 s at 8 kHz, C=64, a 512 x 4
+     BiGRU, beam K=8), and the training kernels K5, K5b, K6, K6b at the
+     shapes of the BASELINE config-3 train step (B=16 x 5 s, T'=249, U=24);
+  4. the serving slice through Recognizer: the int8 arm (the default) and
+     the bf16 arm, with launch counts, agreement with the plain path, and
      x-real-time of the kernel path and of the plain path;
-  5. a few requests through tpuasr_torch.cli.predict on wav files it writes.
+  5. a few requests through tpuasr_torch.cli.predict on wav files it writes;
+  6. the training slice through Trainer.train_step (config 3: the 512 x 4
+     DeepSpeechCTC in float32, adamw, B=16 x 5 s, U=24): launch counts per
+     step, step 1 against the plain path, the loss after 10 steps on the
+     repeated batch, and train-step ms at B=16 and B=64.
 
 Weights are random, made from a seed. The line before the last holds
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}. Without
@@ -42,6 +50,26 @@ LAYERS = 4
 BEAM = 8
 SEED = 0
 ROOT = Path(__file__).resolve().parent
+# Config 3 (benchmarks/config3_deepspeech_train.py): the train step's batch.
+TRAIN_B = 16
+TRAIN_SECONDS = 5.0
+TRAIN_U = 24
+# Published H100 SXM peaks (on-chip-measurement guide): HBM bytes/s and
+# dense operations/s by type.
+HBM_BPS = 3.35e12
+PEAK = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
+
+
+def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
+    """The least time (ms) for moving nbytes and doing ops of type kind,
+    and which of the two bounds it."""
+    t_bytes, t_ops = nbytes / HBM_BPS, ops / PEAK[kind]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def phase(msg: str) -> None:
@@ -51,6 +79,24 @@ def phase(msg: str) -> None:
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def library_gru_ms(T, B, D, H, dtype, backward, iters=3):
+    """ms of torch.nn.GRU (cuDNN, b_hh = 0) on (T, B, D): the forward, or
+    the backward of a kept forward. It includes the input projection."""
+    gru = torch.nn.GRU(D, H).to("cuda", dtype)
+    gru.flatten_parameters()
+    with torch.no_grad():
+        gru.bias_hh_l0.zero_()
+    x = torch.randn(T, B, D, device="cuda", dtype=dtype,
+                    requires_grad=backward)
+    if not backward:
+        with torch.no_grad():
+            return cuda_ms(lambda: gru(x), iters)
+    y, _ = gru(x)
+    dy = torch.randn_like(y)
+    return cuda_ms(lambda: torch.autograd.backward(y, dy, retain_graph=True),
+                   iters)
 
 
 def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
@@ -84,9 +130,13 @@ def device_breakdown(fn, top: int = 6) -> str:
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    # Host-side ranges (aten ops, autograd nodes such as _GRUScanBackward)
+    # also carry the device time of the kernels they launched: leave them
+    # out so that each kernel counts once.
     rows = [(e.self_device_time_total, e.count, e.key)
             for e in prof.key_averages()
-            if e.self_device_time_total > 0 and not e.key.startswith("aten::")]
+            if e.self_device_time_total > 0
+            and not e.key.startswith(("aten::", "_", "autograd::"))]
     total = sum(r[0] for r in rows)
     rows.sort(reverse=True)
     parts = [f"{us / 1e3:.3f} ms x{n} {kernel_name(name)}"
@@ -117,6 +167,259 @@ def token_error_rate(hyp: dict, ref: dict) -> tuple[float, int]:
     return errs / max(total, 1), same
 
 
+def train_kernels(record, gen) -> None:
+    """Phase 3 for the training kernels: K5/K5b over xp of both layer
+    widths (D=512 feeds layer 0, D=1024 the others) and both directions,
+    K6/K6b on the CTC edge cases, at the config-3 step's shapes (T'=249,
+    B=16, H=512, C=64, U=24), float32 with TF32 off."""
+    from tpuasr_torch.features import FeatureConfig
+    from tpuasr_torch.features.reference import num_frames
+    from tpuasr_torch.losses import ctc as ctc_mod
+    from tpuasr_torch.ops import gru as gru_mod
+    from tpuasr_torch.precision import full_fp32
+
+    dev = torch.device("cuda")
+    T = -(-num_frames(FeatureConfig(), int(SR * TRAIN_SECONDS)) // 2)
+    Bt, H = TRAIN_B, HIDDEN
+    lens = torch.randint(T // 2, T + 1, (Bt,), generator=gen)
+    lens[0], lens[1] = T, 1
+    mask = (torch.arange(T)[:, None] < lens[None, :]).float()[:, :, None]
+    mask = mask.to(dev).contiguous()
+    macs = T * Bt * H * 3 * H
+    # K5 ys: atol 1e-4 (float32 sums of 512 terms in another order, carried
+    # over 249 steps). K5b: within 1e-4 of each output's largest magnitude
+    # (dWh sums T*B = 3,984 outer products).
+    with full_fp32():
+        for D in (512, 1024):
+            x = torch.randn(T, Bt, D, generator=gen).to(dev)
+            wx = (torch.randn(D, 3 * H, generator=gen) / D ** 0.5).to(dev)
+            b = (torch.randn(3 * H, generator=gen) * 0.1).to(dev)
+            wh = (torch.randn(H, 3 * H, generator=gen) / H ** 0.5).to(dev)
+            dys = torch.randn(T, Bt, H, generator=gen).to(dev)
+            xp = (x.reshape(T * Bt, D) @ wx + b).reshape(T, Bt, 3 * H)
+            for rev in (False, True):
+                ys = gru_mod.gru_scan_fwd(xp, wh, mask, rev)
+                ref = gru_mod.gru_scan_plain(xp, wh, mask, rev)
+                err = (ys - ref).abs().max().item()
+                ysp = gru_mod.prev_states(ref, rev)
+                dxp, dwh = gru_mod.gru_scan_bwd(xp, ysp, wh, mask, dys, rev)
+                rdxp, rdwh = gru_mod.gru_scan_bwd_plain(xp, ysp, wh, mask,
+                                                        dys, rev)
+                e_dxp = (dxp - rdxp).abs().max().item()
+                e_dwh = (dwh - rdwh).abs().max().item()
+                t_dxp = 1e-4 * rdxp.abs().max().item()
+                t_dwh = 1e-4 * rdwh.abs().max().item()
+                ok = err <= 1e-4 and e_dxp <= t_dxp and e_dwh <= t_dwh
+                phase(f"[3 K5/K5b] gru T={T} B={Bt} D={D} H={H} reverse="
+                      f"{rev}: ys max_abs_err {err:.3e} (tol 1e-4); dxp "
+                      f"{e_dxp:.3e} (tol {t_dxp:.3e}), dwh {e_dwh:.3e} (tol "
+                      f"{t_dwh:.3e})")
+                if not ok:
+                    fail(f"K5/K5b disagree at D={D} reverse={rev}")
+                t5 = t5b = ()
+                if D == 1024 and not rev:
+                    ms = cuda_ms(
+                        lambda: gru_mod.gru_scan_fwd(xp, wh, mask, rev), 10)
+                    pms = cuda_ms(
+                        lambda: gru_mod.gru_scan_plain(xp, wh, mask, rev), 2)
+                    bms = cuda_ms(lambda: gru_mod.gru_scan_bwd(
+                        xp, ysp, wh, mask, dys, rev), 10)
+                    pbms = cuda_ms(lambda: gru_mod.gru_scan_bwd_plain(
+                        xp, ysp, wh, mask, dys, rev), 2)
+                    bd = bound(nbytes(xp, wh, mask, ys), 2 * macs, "fp32")
+                    bbd = bound(nbytes(xp, ysp, wh, mask, dys, dxp, dwh),
+                                6 * macs, "fp32")
+                    lib = library_gru_ms(T, Bt, D, H, torch.float32, False)
+                    blib = library_gru_ms(T, Bt, D, H, torch.float32, True)
+                    phase(f"[3 K5] kernel {ms:.3f} ms plain {pms:.3f} ms "
+                          f"bound {bd[0]:.4f} ms ({bd[1]}) torch.nn.GRU "
+                          f"forward {lib:.3f} ms")
+                    phase(f"[3 K5b] kernel {bms:.3f} ms plain {pbms:.3f} ms "
+                          f"bound {bbd[0]:.4f} ms ({bbd[1]}) torch.nn.GRU "
+                          f"backward {blib:.3f} ms")
+                    t5, t5b = (ms, pms, bd, lib), (bms, pbms, bbd, blib)
+                record("K5", "gru_scan_fwd", "tpuasr_torch/csrc/gru_bptt.cu",
+                       "tpuasr/ops/pallas_gru.py:163", err, *t5)
+                record("K5b", "gru_scan_bwd", "tpuasr_torch/csrc/gru_bptt.cu",
+                       "tpuasr/ops/pallas_gru.py:190", max(e_dxp, e_dwh),
+                       *t5b)
+
+    # K6 / K6b: ragged lengths with a row of 0 frames, an empty label, a
+    # short label, repeated labels (no skip), an infeasible row and garbage
+    # past a label. Reachable entries (log-prob above -1e29) within rtol
+    # 1e-5; unreachable ones where the plain version has them.
+    C, U = NUM_CLASSES, TRAIN_U
+    lp = torch.log_softmax(torch.randn(Bt, T, C, generator=gen) * 2.0, -1)
+    labels = torch.randint(1, C, (Bt, U), generator=gen)
+    il = torch.randint(T // 2, T + 1, (Bt,), generator=gen)
+    ll = torch.full((Bt,), U)
+    il[0], il[1], ll[2], ll[3] = T, 0, 0, 5
+    labels[4, :] = 7
+    il[4] = 30                                 # needs 2U - 1 = 47 frames
+    labels[5, :6] = 9
+    ll[6] = 10
+    labels[6, 10:] = torch.randint(-9, 200, (U - 10,), generator=gen)
+    lp, labels, il, ll = lp.to(dev), labels.to(dev), il.to(dev), ll.to(dev)
+    ext, allow, valid, lp_ext = ctc_mod.prepare(lp, labels, ll)
+    S = lp_ext.shape[2]
+    cases = (
+        ("K6", "ctc_alphas_kernel", "tpuasr/losses/ctc_pallas.py:167",
+         lambda: ctc_mod.ctc_alphas_kernel(lp_ext, allow, valid),
+         lambda: ctc_mod.ctc_alphas_plain(lp_ext, allow, valid), ()),
+        ("K6b", "ctc_betas_kernel", "tpuasr/losses/ctc_pallas.py:192",
+         lambda: ctc_mod.ctc_betas_kernel(lp_ext, allow, valid, il, ll),
+         lambda: ctc_mod.ctc_betas_plain(lp_ext, allow, valid, il, ll),
+         (il, ll)))
+    # The library yardstick takes the same log-probs and lengths, with the
+    # labels clipped to classes and at least one frame per row.
+    lab_ok = labels.clamp(0, C - 1).long()
+    il_ok = il.clamp(min=1).long()
+    lp_lib = lp.permute(1, 0, 2).detach().requires_grad_()
+
+    def lib_loss():
+        return torch.nn.functional.ctc_loss(
+            lp_lib, lab_ok, il_ok, ll.long(), reduction="none",
+            zero_infinity=True)
+
+    with torch.no_grad():
+        lib_fwd = cuda_ms(lib_loss, 20)
+    lib_fb = cuda_ms(lambda: torch.autograd.grad(lib_loss().sum(), lp_lib),
+                     20)
+    for key, name, replaces, kern, plain, extra in cases:
+        got, want = kern(), plain()
+        reach = want > -1e29
+        same_reach = torch.equal(got > -1e29, reach)
+        diff = (got[reach] - want[reach]).abs()
+        err = diff.max().item()
+        ok = same_reach and bool((diff <= 1e-5 * want[reach].abs()
+                                  + 1e-6).all())
+        ms = cuda_ms(kern, 20)
+        pms = cuda_ms(plain, 2)
+        bd = bound(nbytes(lp_ext, allow, valid, got, *extra), 12 * T * Bt * S,
+                   "fp32")
+        lib = lib_fwd if key == "K6" else lib_fb
+        phase(f"[3 {key}] ctc T={T} B={Bt} S={S}: reachable {int(reach.sum())}"
+              f" of {reach.numel()}, same reachability {same_reach}, "
+              f"max_abs_err {err:.3e} (tol rtol 1e-5) kernel {ms:.4f} ms "
+              f"plain {pms:.3f} ms bound {bd[0]:.5f} ms ({bd[1]}) "
+              f"F.ctc_loss {'forward' if key == 'K6' else 'forward+backward'}"
+              f" {lib:.4f} ms")
+        if not ok:
+            fail(f"{key} disagrees with its plain version")
+        record(key, name, "tpuasr_torch/csrc/ctc_fb.cu", replaces, err, ms,
+               pms, bd, lib)
+
+
+def train_slice(kernels, wrappers, card) -> None:
+    """Phase 6: config 3's train step through Trainer on the card."""
+    from tpuasr_torch.features import FeatureConfig
+    from tpuasr_torch.losses import ctc as ctc_mod
+    from tpuasr_torch.ops import gru as gru_mod
+    from tpuasr_torch.train import TrainConfig, Trainer
+
+    cfg = TrainConfig(model="deepspeech_ctc", num_classes=NUM_CLASSES,
+                      warmup_steps=1,
+                      model_kwargs=dict(rnn_hidden=HIDDEN, rnn_layers=LAYERS,
+                                        pallas_gru=True))
+    feat_cfg = FeatureConfig()
+    S = int(SR * TRAIN_SECONDS)
+
+    def make_batch(n):
+        rng = np.random.default_rng(SEED)
+        wav = (rng.standard_normal((n, S)) * 0.2).astype(np.float32)
+        tok = rng.integers(1, NUM_CLASSES, (n, TRAIN_U)).astype(np.int32)
+        return {k: torch.as_tensor(v, device="cuda") for k, v in dict(
+            wav=wav, wav_lens=np.full((n,), S, np.int32), tokens=tok,
+            token_lens=np.full((n,), TRAIN_U, np.int32),
+            real=np.ones((n,), np.float32)).items()}
+
+    def timed(trainer, state, batch, n):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            state, m = trainer.train_step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        return state, m, start.elapsed_time(end) / n
+
+    trainer = Trainer(cfg, feat_cfg, device="cuda")
+    batch = make_batch(TRAIN_B)
+    state = trainer.init_state()
+    init = {k: v.clone() for k, v in state.model.state_dict().items()}
+    n_params = sum(p.numel() for p in state.model.parameters())
+
+    # The counted run of the training path: one step.
+    for w in wrappers.values():
+        w.launches = 0
+    state, m1 = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    want = dict({k: 0 for k in wrappers}, K5=2 * LAYERS, K5b=2 * LAYERS,
+                K6=1, K6b=1)
+    phase(f"[6 train] {n_params} parameters; launch counts per step: "
+          f"{json.dumps(counts)}")
+    if counts != want:
+        fail(f"train launch counts {counts} != {want}")
+    for k in ("K5", "K5b", "K6", "K6b"):
+        kernels[k]["launches"] = counts[k]
+
+    # Step 1 on the plain path: same weights, same dropout stream.
+    plain = trainer.init_state()
+    plain.model.load_state_dict(init)
+    patches = ((gru_mod, "gru_scan_fwd", gru_mod.gru_scan_plain),
+               (gru_mod, "gru_scan_bwd", gru_mod.gru_scan_bwd_plain),
+               (ctc_mod, "ctc_alphas_kernel", ctc_mod.ctc_alphas_plain),
+               (ctc_mod, "ctc_betas_kernel", ctc_mod.ctc_betas_plain))
+    before = sum(w.launches for w in wrappers.values())
+    with contextlib.ExitStack() as stack:
+        for mod, name, fn in patches:
+            stack.enter_context(mock.patch.object(mod, name, fn))
+        t0 = time.perf_counter()
+        plain, p1 = trainer.train_step(plain, batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    if sum(w.launches for w in wrappers.values()) != before:
+        fail("the plain training path launched a kernel")
+    got = {k: float(v) for k, v in m1.items()}
+    ref = {k: float(v) for k, v in p1.items()}
+    rel = {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in got}
+    phase(f"[6 train] step 1: loss {got['loss']:.6f} grad_norm "
+          f"{got['grad_norm']:.6f}; plain path {ref['loss']:.6f} "
+          f"{ref['grad_norm']:.6f} ({plain_s:.2f} s, host clock); relative "
+          f"differences {rel['loss']:.3e} {rel['grad_norm']:.3e} (tol 1e-4)")
+    if not (all(np.isfinite(list(got.values())))
+            and max(rel.values()) <= 1e-4):
+        fail("the training step disagrees with its plain path")
+
+    # Step 2 warms up; then 10 timed steps on the repeated batch.
+    state, m2 = trainer.train_step(state, batch)
+    loss2 = float(m2["loss"])
+    state, m12, ms = timed(trainer, state, batch, 10)
+    loss12 = float(m12["loss"])
+    phase(f"[6 train] loss step 2 {loss2:.4f} -> step 12 {loss12:.4f} "
+          "(must fall)")
+    if not (np.isfinite(loss12) and loss12 < loss2):
+        fail("the loss did not fall over 10 steps on the repeated batch")
+    results = [(TRAIN_B, ms, trainer, state, batch)]
+    trainer64 = Trainer(cfg, feat_cfg, device="cuda")
+    batch64 = make_batch(64)
+    state64, _ = trainer64.train_step(trainer64.init_state(), batch64)
+    state64, m64, ms64 = timed(trainer64, state64, batch64, 10)
+    if not np.isfinite(float(m64["loss"])):
+        fail("non-finite loss at B=64")
+    results.append((64, ms64, trainer64, state64, batch64))
+    for n, ms_n, tr, st, bt in results:
+        phase(f"[6 train] B={n} x {TRAIN_SECONDS:.0f} s f32: train step "
+              f"{ms_n:.2f} ms (CUDA events, mean of 10 after a warm-up) = "
+              f"{n / (ms_n / 1e3):.1f} utt/s [{card}]")
+        phase(f"[6 train] B={n} device time of one step by kernel "
+              f"(torch.profiler): "
+              f"{device_breakdown(lambda: tr.train_step(st, bt), top=8)}")
+    torch.cuda.synchronize()
+
+
 def main() -> int:
     # ---- 1. environment -------------------------------------------------
     if not torch.cuda.is_available():
@@ -140,6 +443,7 @@ def main() -> int:
     from tpuasr_torch.features import FeatureConfig, fbank_power
     from tpuasr_torch.features import fused as fused_mod
     from tpuasr_torch.features.reference import feature_tables, num_frames
+    from tpuasr_torch.losses import ctc as ctc_mod
     from tpuasr_torch.models import create_model
     from tpuasr_torch.models import layers as layers_mod
     from tpuasr_torch.ops import gru as gru_mod
@@ -157,14 +461,21 @@ def main() -> int:
     gen = torch.Generator().manual_seed(SEED)
     kernels = {}
 
-    def record(key, name, source, replaces, err, ms=None, plain_ms=None):
+    def record(key, name, source, replaces, err, ms=None, plain_ms=None,
+               bound_ms=None, library_ms=None):
         k = kernels.setdefault(key, dict(name=name, route="cuda",
                                          source=source, replaces=replaces,
                                          launches=0, max_abs_err=0.0,
-                                         ms=None, plain_ms=None))
+                                         ms=None, plain_ms=None,
+                                         bound_ms=None, bound_by=None,
+                                         library_ms=None))
         k["max_abs_err"] = max(k["max_abs_err"], float(err))
         if ms is not None:
             k["ms"], k["plain_ms"] = ms, plain_ms
+        if bound_ms is not None:
+            k["bound_ms"], k["bound_by"] = bound_ms
+        if library_ms is not None:
+            k["library_ms"] = library_ms
 
     # ---- 3. kernels against their plain versions ----------------------------
     # K1 / K1b: log-mel (after the log floor) within 1e-3, the JAX
@@ -190,9 +501,14 @@ def main() -> int:
               f" (tol {tol}) kernel {ms:.3f} ms plain {pms:.3f} ms")
         if not err <= tol:
             fail(f"fbank kernel disagrees at {sr} Hz: {err} > {tol}")
+        nf, nm = tabs["cos"].shape[1], tabs["proj"].shape[1]
+        flops = 2 * nb * T * (2 * cfg.win_length * nf + nf * nm)
+        bd = bound(nbytes(wav, got, *tabs.values()), flops, "fp32")
+        phase(f"[3 K1{'' if key else 'b'}] bound {bd[0]:.4f} ms ({bd[1]}); "
+              "no single PyTorch call computes it")
         if key:
             record(key, "fbank_power", "tpuasr_torch/csrc/fbank.cu",
-                   "tpuasr/features/pallas_fused.py:109", err, ms, pms)
+                   "tpuasr/features/pallas_fused.py:109", err, ms, pms, bd)
 
     # K2 / K4 at the served layer shapes. ys is bf16: one bf16 ulp is
     # 3.9e-3 near 1, and the kernel sums x@Wx and h@Wh in another order
@@ -229,25 +545,34 @@ def main() -> int:
                 ref = plain(*args, reverse=rev, **kw)
                 err = (got.float() - ref.float()).abs().max().item()
                 timed = D == 1024 and not rev
-                ms = pms = None
+                ms = pms = bd = lib = None
                 if timed:
                     ms = cuda_ms(lambda: kern(*args, reverse=rev, **kw), 3)
                     pms = cuda_ms(lambda: plain(*args, reverse=rev, **kw), 1)
+                    macs = T_out * B * (D + H) * 3 * H
+                    bd = bound(nbytes(*[a for a in args if torch.is_tensor(a)],
+                                      got),
+                               2 * macs, "bf16" if key == "K2" else "int8")
+                    lib = library_gru_ms(T_out, B, D, H, torch.bfloat16,
+                                         False)
                 phase(f"[3 {key}] gru {label} T={T_out} B={B} D={D} H={H} "
                       f"reverse={rev}: max_abs_err {err:.3e} (tol {gru_tol})"
-                      + (f" kernel {ms:.3f} ms plain {pms:.3f} ms"
-                         if timed else ""))
+                      + (f" kernel {ms:.3f} ms plain {pms:.3f} ms bound "
+                         f"{bd[0]:.4f} ms ({bd[1]}) torch.nn.GRU bf16 "
+                         f"{lib:.3f} ms" if timed else ""))
                 if not err <= gru_tol:
                     fail(f"{key} {label} D={D} reverse={rev}: {err}")
                 if key == "K2":
                     record("K2", "gru_scan_xfused (bf16)",
                            "tpuasr_torch/csrc/gru_scan.cu",
-                           "tpuasr/ops/pallas_gru.py:615", err, ms, pms)
+                           "tpuasr/ops/pallas_gru.py:615", err, ms, pms, bd,
+                           lib)
                 else:   # times kept: the served int8 + rec_q8 arm
                     record("K4", "gru_scan_xfused_q8 (int8, rec_q8)",
                            "tpuasr_torch/csrc/gru_scan.cu",
                            "tpuasr/ops/pallas_gru.py:1020", err,
-                           *((ms, pms) if label == "int8+rec_q8" else ()))
+                           *((ms, pms, bd, lib) if label == "int8+rec_q8"
+                             else ()))
 
     # K3 on identical log-probs: backpointers, final scores, tokens and
     # lengths must be exactly equal (same float ops in the same order).
@@ -276,8 +601,18 @@ def main() -> int:
           f" plain {pms:.3f} ms")
     if not (same_bp and same_sc and same_tok):
         fail("beam kernel disagrees with its plain version")
+    # Operations: about 5 per (frame, beam, class) candidate (two
+    # log-add-exps and a compare); bytes: log-probs in, backpointers and
+    # final scores out.
+    bd = bound(nbytes(lp, blens, *got), 5 * B * T_out * BEAM * NUM_CLASSES,
+               "fp32")
+    phase(f"[3 K3] bound {bd[0]:.4f} ms ({bd[1]}); no PyTorch call computes "
+          "it")
     record("K3", "ctc_beam (no LM)", "tpuasr_torch/csrc/ctc_beam.cu",
-           "tpuasr/decode/pallas_beam.py:455", sc_err, ms, pms)
+           "tpuasr/decode/pallas_beam.py:455", sc_err, ms, pms, bd)
+
+    # K5 / K5b / K6 / K6b at the config-3 train step's shapes.
+    train_kernels(record, gen)
 
     # ---- 4. the full slice through Recognizer ---------------------------------
     feat_cfg = FeatureConfig(sample_rate=SR, n_mels=64)
@@ -302,7 +637,12 @@ def main() -> int:
     wrappers = {"K1": fused_mod.fbank_power,
                 "K2": gru_mod.gru_scan_xfused,
                 "K4": gru_mod.gru_scan_xfused_q8,
-                "K3": beam_mod.beam_scan}
+                "K3": beam_mod.beam_scan,
+                "K5": gru_mod.gru_scan_fwd,
+                "K5b": gru_mod.gru_scan_bwd,
+                "K6": ctc_mod.ctc_alphas_kernel,
+                "K6b": ctc_mod.ctc_betas_kernel}
+    serving = ("K1", "K2", "K4", "K3")
     plain_patches = (
         (fused_mod, "fbank_power", fused_mod.fbank_power_plain),
         (layers_mod, "gru_scan_xfused", gru_mod.gru_scan_xfused_plain),
@@ -334,11 +674,13 @@ def main() -> int:
         per_arm[arm] = {k: w.launches - before[k] for k, w in wrappers.items()}
     launches = {k: w.launches for k, w in wrappers.items()}
     phase(f"[4 slice] launch counts per batch: {json.dumps(per_arm)}")
-    want = {"int8": {"K1": 1, "K2": 0, "K4": 2 * LAYERS, "K3": 1},
-            "bf16": {"K1": 1, "K2": 2 * LAYERS, "K4": 0, "K3": 1}}
+    none = {k: 0 for k in wrappers}
+    want = {"int8": dict(none, K1=1, K4=2 * LAYERS, K3=1),
+            "bf16": dict(none, K1=1, K2=2 * LAYERS, K3=1)}
     if per_arm != want:
         fail(f"launch counts {per_arm} != {want}")
-    for k, n in launches.items():
+    for k in serving:
+        n = launches[k]
         kernels[k]["launches"] = n
         if n == 0:
             fail(f"kernel {k} was not launched on the main path")
@@ -437,7 +779,11 @@ def main() -> int:
             phase(f"    {Path(ln.split(chr(9))[0]).name}: "
                   f"{len(ln.split(chr(9))[1].split())} tokens")
 
-    print(json.dumps({"kernels": [kernels[k] for k in ("K1", "K2", "K4", "K3")]}))
+    # ---- 6. the training slice through Trainer.train_step ---------------------
+    train_slice(kernels, wrappers, card)
+
+    order = ("K1", "K2", "K4", "K3", "K5", "K5b", "K6", "K6b")
+    print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -35,18 +35,35 @@ def _both(cfg_kwargs, wav, lens, fused):
 
 
 def test_constants_loaded_by_path_are_identical():
+    """The port keeps its own copy of the numpy functions (it loads nothing
+    of tpuasr/), and every constant they make is byte-equal to the JAX
+    module's: same dtype, same bits."""
     assert (inspect.getsourcefile(tfunctional.mel_filterbank)
-            == inspect.getsourcefile(jfunctional.mel_filterbank))
-    np.testing.assert_array_equal(tfunctional.window_vector("hamming", 200),
-                                  jfunctional.window_vector("hamming", 200))
-    for a, b in zip(tfunctional.rdft_matrices(256, 200),
-                    jfunctional.rdft_matrices(256, 200)):
-        np.testing.assert_array_equal(a, b)
-    np.testing.assert_array_equal(
-        tfunctional.mel_filterbank(256, 64, 8000, 20.0, None, True),
-        jfunctional.mel_filterbank(256, 64, 8000, 20.0, None, True))
-    np.testing.assert_array_equal(tfunctional.dct_matrix(13, 64),
-                                  jfunctional.dct_matrix(13, 64))
+            != inspect.getsourcefile(jfunctional.mel_filterbank))
+    assert "tpuasr_torch" in inspect.getsourcefile(tfunctional.dct_matrix)
+
+    def same(a, b):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        assert a.tobytes() == b.tobytes()
+
+    for n in (1, 2, 3, 7, 200, 256, 400, 513):
+        assert tfunctional.next_pow2(n) == jfunctional.next_pow2(n)
+    for name in ("hann", "hamming", "blackman", "rect", "povey"):
+        for win, periodic in ((200, True), (400, False), (1, True)):
+            same(tfunctional.window_vector(name, win, periodic),
+                 jfunctional.window_vector(name, win, periodic))
+    for n_fft, win in ((256, 200), (512, 400), (512, None)):
+        for a, b in zip(tfunctional.rdft_matrices(n_fft, win),
+                        jfunctional.rdft_matrices(n_fft, win)):
+            same(a, b)
+    for args in ((256, 64, 8000, 20.0, None, True),
+                 (512, 80, 16000, 0.0, 7600.0, False),
+                 (256, 40, 8000, 20.0, 3800.0, True)):
+        same(tfunctional.mel_filterbank(*args),
+             jfunctional.mel_filterbank(*args))
+    for n_out, n_in in ((13, 64), (20, 80), (64, 64)):
+        same(tfunctional.dct_matrix(n_out, n_in),
+             jfunctional.dct_matrix(n_out, n_in))
 
 
 def test_config_defaults_match():

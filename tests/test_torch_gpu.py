@@ -16,9 +16,14 @@ from tpuasr_torch.decode.beam import beam_scan, beam_scan_plain
 from tpuasr_torch.features import FeatureConfig, fbank_power
 from tpuasr_torch.features.fused import fbank_power_plain
 from tpuasr_torch.features.reference import feature_tables, num_frames
-from tpuasr_torch.ops.gru import (gru_scan_xfused, gru_scan_xfused_plain,
-                                  gru_scan_xfused_q8, gru_scan_xfused_q8_plain)
+from tpuasr_torch.losses import ctc as ctc_mod
+from tpuasr_torch.ops.gru import (gru_scan_bwd, gru_scan_bwd_plain,
+                                  gru_scan_fwd, gru_scan_plain,
+                                  gru_scan_xfused, gru_scan_xfused_plain,
+                                  gru_scan_xfused_q8, gru_scan_xfused_q8_plain,
+                                  prev_states)
 from tpuasr_torch.ops.quant import quantize_per_channel
+from tpuasr_torch.precision import full_fp32
 
 pytestmark = pytest.mark.gpu
 
@@ -92,3 +97,76 @@ def test_k3_exact(dev, C, K, max_len):
     ref = beam_scan_plain(lp, lens, K, 0, max_len)
     for a, r in zip(got, ref):
         assert torch.equal(a, r)
+
+
+def _scan_case(dev, H, B=7, T=37):
+    g = torch.Generator().manual_seed(3)
+    xp = torch.randn(T, B, 3 * H, generator=g)
+    wh = torch.randn(H, 3 * H, generator=g) / H ** 0.5
+    dys = torch.randn(T, B, H, generator=g)
+    lens = torch.tensor([T, 30, 1, 0, 12, T, 5])[:B]
+    mask = (torch.arange(T)[:, None] < lens[None, :]).float()[:, :, None]
+    return [t.to(dev).contiguous() for t in (xp, wh, mask, dys)]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("H", [40, 130])
+def test_k5_k5b(dev, reverse, H):
+    """K5 ys within 1e-5; K5b dxp and dwh within 1e-4 of their largest
+    magnitude (float32 sums in another order, dWh over all T*B rows)."""
+    xp, wh, mask, dys = _scan_case(dev, H)
+    with full_fp32():
+        ys = gru_scan_fwd(xp, wh, mask, reverse)
+        ref = gru_scan_plain(xp, wh, mask, reverse)
+        torch.testing.assert_close(ys, ref, rtol=0, atol=1e-5)
+        ysp = prev_states(ref, reverse)
+        got = gru_scan_bwd(xp, ysp, wh, mask, dys, reverse)
+        want = gru_scan_bwd_plain(xp, ysp, wh, mask, dys, reverse)
+    for a, w in zip(got, want):
+        tol = 1e-4 * w.abs().max().item()
+        torch.testing.assert_close(a, w, rtol=0, atol=tol)
+    assert not got[0][:, 3].any()             # a row of length 0
+
+
+def test_k2_backward_route(dev):
+    """gru_scan_xfused's backward on the card (K2 forward, then K5b between
+    matmuls) against autograd through its plain version: each gradient
+    within 1e-4 of its largest magnitude."""
+    x, wx, wh, b, mask = _gru_case(dev, 70, 40, torch.float32)
+    g = torch.Generator().manual_seed(5)
+    dys = torch.randn(x.shape[0], x.shape[1], 40, generator=g).to(dev)
+    with full_fp32():
+        got = [t.clone().requires_grad_() for t in (x, wx, b, wh)]
+        (gru_scan_xfused(*got, mask) * dys).sum().backward()
+        ref = [t.clone().requires_grad_() for t in (x, wx, b, wh)]
+        (gru_scan_xfused_plain(*ref, mask) * dys).sum().backward()
+    for a, r in zip(got, ref):
+        tol = 1e-4 * r.grad.abs().max().item()
+        torch.testing.assert_close(a.grad, r.grad, rtol=0, atol=tol)
+
+
+def test_ctc_kernels(dev):
+    """K6/K6b on the edge cases (no frames, empty label, repeats, an
+    infeasible row, garbage labels): reachable entries within rtol 1e-5,
+    unreachable where the plain version is."""
+    g = torch.Generator().manual_seed(4)
+    B, T, C, U = 8, 50, 9, 6
+    lp = torch.log_softmax(torch.randn(B, T, C, generator=g) * 2, -1)
+    labels = torch.randint(1, C, (B, U), generator=g)
+    il = torch.tensor([T, 0, 44, 12, 6, 31, T, 27])
+    ll = torch.tensor([U, 3, 0, 4, 4, 5, 2, 6])
+    labels[3, :4] = torch.tensor([5, 5, 5, 2])
+    labels[4, :4] = 7
+    labels[6, 2:] = torch.tensor([-3, 99, 0, 40])
+    ext, allow, valid, lp_ext = ctc_mod.prepare(lp.to(dev), labels.to(dev),
+                                                ll.to(dev))
+    il, ll = il.to(dev), ll.to(dev)
+    cases = ((ctc_mod.ctc_alphas_kernel(lp_ext, allow, valid),
+              ctc_mod.ctc_alphas_plain(lp_ext, allow, valid)),
+             (ctc_mod.ctc_betas_kernel(lp_ext, allow, valid, il, ll),
+              ctc_mod.ctc_betas_plain(lp_ext, allow, valid, il, ll)))
+    for got, want in cases:
+        reach = want > -1e29
+        assert torch.equal(got > -1e29, reach)
+        torch.testing.assert_close(got[reach], want[reach], rtol=1e-5,
+                                   atol=1e-6)

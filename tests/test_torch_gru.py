@@ -16,12 +16,18 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
+from tpuasr.ops import gru_scan as j_scan
 from tpuasr.ops.pallas_gru import gru_scan_xfused as j_xfused
 from tpuasr.ops.pallas_gru import gru_scan_xfused_q8 as j_xfused_q8
 from tpuasr.ops.quant import quantize_per_channel as j_qpc
 from tpuasr.ops.quant import quantize_rows as j_qrows
-from tpuasr_torch.ops.gru import (_pack_float, _pack_int8,
-                                  gru_scan_xfused, gru_scan_xfused_q8)
+from tpuasr_torch.ops import gru as gru_mod
+from tpuasr_torch.ops.gru import (_pack_float, _pack_int8, gru_scan,
+                                  gru_scan_bwd_plain, gru_scan_plain,
+                                  gru_scan_xfused, gru_scan_xfused_q8,
+                                  prev_states)
 from tpuasr_torch.ops.quant import quantize_per_channel, quantize_rows
 
 T, B, D, H = 12, 3, 24, 16
@@ -174,3 +180,72 @@ def test_unsupported_device_raises():
         gru_scan_xfused(x, w, torch.zeros(24, device="meta"),
                         torch.zeros(8, 24, device="meta"),
                         torch.ones(4, 2, 1, device="meta"))
+
+
+# ---- K5 / K5b: the scan over precomputed projections and its BPTT ----------
+
+
+def _scan_case(seed):
+    """xp (T, B, 3H), wh, ragged mask (a row of length 0 included) and a
+    cotangent dys, in float32."""
+    rng = np.random.default_rng(seed)
+    x, wx, wh, b, _ = _case(seed)
+    xp = (np.einsum("tbd,dh->tbh", x, wx) + b).astype(np.float32)
+    lens = np.array([T, T - 5, 0])
+    mask = (np.arange(T)[:, None] < lens[None, :]).astype(np.float32)
+    dys = rng.standard_normal((T, B, H)).astype(np.float32)
+    return xp, wh, mask[:, :, None], dys
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_k5_gru_scan_matches_jax(reverse):
+    xp, wh, mask, _ = _scan_case(6)
+    ys_j = np.asarray(j_scan(jnp.asarray(xp), jnp.asarray(wh),
+                             jnp.asarray(mask), reverse))
+    ys_t = gru_scan(_t(xp), _t(wh), _t(mask), reverse)
+    np.testing.assert_allclose(ys_t.numpy(), ys_j, rtol=0, atol=1e-5)
+    np.testing.assert_array_equal(
+        ys_t.numpy(), gru_scan_plain(_t(xp), _t(wh), _t(mask),
+                                     reverse).numpy())
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_k5b_bptt_matches_jax_vjp(reverse):
+    """gru_scan_bwd_plain, and gru_scan's backward, against jax.vjp of the
+    Pallas scan (its custom VJP runs the BPTT kernel)."""
+    xp, wh, mask, dys = _scan_case(7)
+    ys_j, vjp = jax.vjp(lambda a, w: j_scan(a, w, jnp.asarray(mask),
+                                            reverse),
+                        jnp.asarray(xp), jnp.asarray(wh))
+    dxp_j, dwh_j = map(np.asarray, vjp(jnp.asarray(dys)))
+    ysp = prev_states(_t(np.asarray(ys_j)), reverse)
+    dxp, dwh = gru_scan_bwd_plain(_t(xp), ysp, _t(wh), _t(mask), _t(dys),
+                                  reverse)
+    np.testing.assert_allclose(dxp.numpy(), dxp_j, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(dwh.numpy(), dwh_j, rtol=0, atol=1e-4)
+    assert not dxp[:, 2].any()                # a row of length 0
+    xp_t = _t(xp).requires_grad_()
+    wh_t = _t(wh).requires_grad_()
+    before = (gru_mod.gru_scan_fwd.launches, gru_mod.gru_scan_bwd.launches)
+    (gru_scan(xp_t, wh_t, _t(mask), reverse) * _t(dys)).sum().backward()
+    assert (gru_mod.gru_scan_fwd.launches,
+            gru_mod.gru_scan_bwd.launches) == before
+    np.testing.assert_allclose(xp_t.grad.numpy(), dxp_j, rtol=0, atol=1e-4)
+    np.testing.assert_allclose(wh_t.grad.numpy(), dwh_j, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_k2_backward_matches_jax_vjp(reverse):
+    """The fused-projection scan's backward (xp recomputed, K5b, then dx,
+    dWx and db by matmuls) against jax.vjp of the JAX gru_scan_xfused."""
+    x, wx, wh, b, mask = _case(8)
+    dys = np.random.default_rng(9).standard_normal((T, B, H)).astype(
+        np.float32)
+    _, vjp = jax.vjp(lambda *a: j_xfused(*a, jnp.asarray(mask), reverse),
+                     *map(jnp.asarray, (x, wx, b, wh)))
+    want = [np.asarray(g) for g in vjp(jnp.asarray(dys))]
+    args = [_t(a).requires_grad_() for a in (x, wx, b, wh)]
+    ys = gru_scan_xfused(*args, _t(mask), reverse)
+    (ys * _t(dys)).sum().backward()
+    for a, w in zip(args, want):
+        np.testing.assert_allclose(a.grad.numpy(), w, rtol=0, atol=1e-4)

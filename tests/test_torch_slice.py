@@ -8,6 +8,7 @@ rules of the device handling.
 
 import os
 import pkgutil
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -31,8 +32,10 @@ from tpuasr_torch.decode import beam as beam_mod
 from tpuasr_torch.features import FeatureConfig
 from tpuasr_torch.features import fused as fused_mod
 from tpuasr_torch.models import create_model
+from tpuasr_torch.losses import ctc as ctc_mod
 from tpuasr_torch.ops import gru as gru_mod
 from tpuasr_torch.serve.offline import Recognizer
+from tpuasr_torch.train import TrainConfig, Trainer
 
 REPO = Path(__file__).resolve().parents[1]
 C = 16
@@ -137,6 +140,30 @@ def test_package_never_imports_jax():
     assert int(res.stdout.strip()) >= 15
 
 
+def test_package_imports_without_the_jax_package(tmp_path):
+    """Every module of tpuasr_torch imports from a copy of the package
+    alone, with no tpuasr/ beside it: the port loads nothing of the JAX
+    package, by name or by path."""
+    shutil.copytree(REPO / "tpuasr_torch", tmp_path / "tpuasr_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    code = ("import importlib, importlib.util, pkgutil, sys\n"
+            "assert importlib.util.find_spec('tpuasr') is None\n"
+            "import tpuasr_torch\n"
+            "mods = [m.name for m in pkgutil.walk_packages("
+            "tpuasr_torch.__path__, 'tpuasr_torch.')]\n"
+            "for m in mods: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'flax', 'optax', 'tpuasr')]\n"
+            "assert not bad, bad\n"
+            "print(len(mods), tpuasr_torch.__file__)\n")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=tmp_path, timeout=120,
+                         env=dict(os.environ, PYTHONPATH=str(tmp_path)))
+    assert res.returncode == 0, res.stderr
+    n, path = res.stdout.split()
+    assert int(n) >= 20 and path.startswith(str(tmp_path))
+
+
 def test_cuda_recognizer_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA; the rule is for hosts without it")
@@ -154,7 +181,9 @@ def test_cpu_wrappers_never_build_or_launch(monkeypatch):
     monkeypatch.setattr(_build, "lib", no_build)
     monkeypatch.setattr(subprocess, "run", no_build)
     wrappers = (fused_mod.fbank_power, gru_mod.gru_scan_xfused,
-                gru_mod.gru_scan_xfused_q8, beam_mod.beam_scan)
+                gru_mod.gru_scan_xfused_q8, beam_mod.beam_scan,
+                gru_mod.gru_scan_fwd, gru_mod.gru_scan_bwd,
+                ctc_mod.ctc_alphas_kernel, ctc_mod.ctc_betas_kernel)
     before = [w.launches for w in wrappers]
     gen = torch.Generator().manual_seed(0)
     for flags in (INT8_ARM, dict(pallas_gru=True, bf16_gru=True,
@@ -165,6 +194,17 @@ def test_cpu_wrappers_never_build_or_launch(monkeypatch):
                          BeamSearchConfig(beam_width=4, max_len=32), "cpu")
         out = rec(*_wavs(3))
         assert bool(torch.isfinite(out["log_probs"]).all())
+    wav, lens = _wavs(4)
+    batch = dict(wav=wav, wav_lens=lens, tokens=np.array([[1, 2], [3, 0]]),
+                 token_lens=np.array([2, 1]), real=np.ones(2))
+    for fused in (False, True):      # K5/K5b, or K2 with K5b
+        kw = dict(BASE, pallas_gru=True, fused_proj=fused)
+        del kw["num_classes"]
+        trainer = Trainer(TrainConfig(model_kwargs=kw, num_classes=C,
+                                      warmup_steps=1), FeatureConfig(),
+                          device="cpu")
+        state, m = trainer.train_step(trainer.init_state(), batch)
+        assert bool(torch.isfinite(m["loss"])) and float(m["grad_norm"]) > 0
     assert [w.launches for w in wrappers] == before
     assert _build._lib is None
 

@@ -1,15 +1,21 @@
-"""tpuasr_torch: the PyTorch + CUDA port of tpuasr's batched decode path.
+"""tpuasr_torch: the PyTorch + CUDA port of tpuasr, in progress.
 
-The serving slice runs on one NVIDIA H100:
+Two slices run on one NVIDIA H100. Serving (``serve.Recognizer``):
 
     8 kHz wav batch -> FusedFeaturizer (CUDA fbank kernel)
       -> DeepSpeechCTC: conv1+BN, conv2+BN, 4 x BiGRU with masked BN
          (CUDA GRU scan kernel, int8 or bf16) -> head + log-softmax
       -> CTC prefix beam search (CUDA beam kernel) -> tokens
 
+Training (``train.Trainer.train_step``), in float32:
+
+    wav batch -> Featurizer -> DeepSpeechCTC in training mode (batch
+      statistics, dropout; CUDA GRU scan and BPTT kernels) -> CTC loss
+      (CUDA alpha/beta kernels) -> global-norm clip -> AdamW
+
 The JAX package ``tpuasr`` stays the reference: every public function here
 keeps its layouts, so tests feed the same inputs through both. This package
-imports torch and never jax.
+imports torch, and never jax nor any module of ``tpuasr``.
 
 Every kernel wrapper runs its plain PyTorch version for a CPU tensor and
 launches its CUDA kernel (built at first use by ``tpuasr_torch._build``) for

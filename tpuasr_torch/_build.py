@@ -108,6 +108,21 @@ def check(code: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
 
 
+def check_tensor(name, t, device, dtypes, shape) -> None:
+    """Raise ValueError unless tensor ``t`` is on ``device``, of one of
+    ``dtypes``, of ``shape`` and contiguous: what a kernel may be given."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected one of "
+                         f"{dtypes}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
 def stream_ptr(t) -> ctypes.c_void_p:
     """The current CUDA stream of tensor ``t``'s device, as a C pointer."""
     import torch

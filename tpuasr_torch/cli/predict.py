@@ -14,7 +14,6 @@ import argparse
 from pathlib import Path
 
 import numpy as np
-import torch
 
 from tpuasr_torch.convert import from_jax_variables, load_npz
 from tpuasr_torch.decode import BeamSearchConfig
@@ -69,15 +68,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--sample-rate", type=int, default=8000)
     p.add_argument("--n-mels", type=int, default=64)
     p.add_argument("--no-cmvn", action="store_true")
-    p.add_argument("--device", default=None,
-                   help="cuda or cpu (default: cuda when available)")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the default; an error without a CUDA device) "
+                        "or cpu")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    device = resolve_device(args.device or (
-        "cuda" if torch.cuda.is_available() else "cpu"))
+    device = resolve_device(args.device)
     units = load_units(args.units)
     tree = load_npz(args.weights)
     meta = tree.get("meta", {})

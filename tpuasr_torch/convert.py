@@ -9,7 +9,10 @@ by module name. The port's modules use the same names, so a leaf at
 * a Dense ``kernel`` (in, out) becomes a Linear ``weight`` (out, in).
 
 Batch-norm ``scale``/``bias`` and ``mean``/``var`` and the GRU ``wx``/
-``wh``/``b`` keep the JAX layout. To export a JAX checkpoint (in a process
+``wh``/``b`` keep the JAX layout. The training step starts from a JAX
+``init_state`` the same way (``Trainer.init_state({"params": ...,
+"batch_stats": ...})``) and gives its state back as a Flax tree through
+``to_jax_variables`` (``TrainState.variables()``). To export a JAX checkpoint (in a process
 that has JAX):
 
     import jax, numpy as np

@@ -1,4 +1,4 @@
-"""DeepSpeech2-style conv + BiGRU CTC acoustic model, inference only.
+"""DeepSpeech2-style conv + BiGRU CTC acoustic model.
 
 Counterpart of ``tpuasr/models/deepspeech_ctc.py``: a (time, freq) conv
 frontend with total time stride 2, stacked bidirectional GRUs with masked
@@ -14,6 +14,13 @@ The port always runs the input projection inside the GRU kernel
 projection, so ``pallas_gru=False`` and ``fused_proj=False`` are accepted
 there. Options whose JAX numerics the port does not reproduce raise
 ``NotImplementedError``.
+
+``model.train()`` gives the JAX ``train=True`` forward in float32: batch
+statistics in every norm (running statistics updated in place), dropout
+after each BiGRU drawn from the ``generator`` passed to ``forward``, the
+int8 flags ignored (one instance trains f32 and serves int8), and the GRU
+scans K5/K5b (or K2 with its backward under ``fused_proj``). A bf16 stream
+(``bf16_gru``) does not train in the port: it raises.
 """
 
 from __future__ import annotations
@@ -61,6 +68,7 @@ class DeepSpeechCTC(nn.Module):
                 "bf16_gru without the fused projection rounds x@Wx to bf16 "
                 "outside the scan; only the fused kernel path is ported")
         self.bf16_stream = pallas_gru and bf16_gru
+        self.dropout = dropout
         cd = torch.bfloat16 if self.bf16_stream else torch.float32
         self.conv1 = FrontConv(1, conv_channels, (11, 41), (2, 2),
                                generator=generator)
@@ -73,7 +81,8 @@ class DeepSpeechCTC(nn.Module):
             self.add_module(f"rnn{i}_bn", MaskedBatchNorm(d))
             self.add_module(f"rnn{i}", BiGRU(
                 d, rnn_hidden, compute_dtype=cd, int8_proj=int8,
-                int8_rec=int8 and int8_rec, generator=generator))
+                int8_rec=int8 and int8_rec,
+                fused_proj=pallas_gru and fused_proj, generator=generator))
             d = 2 * rnn_hidden
         self.rnn_layers = rnn_layers
         self.head_bn = MaskedBatchNorm(d)
@@ -85,14 +94,30 @@ class DeepSpeechCTC(nn.Module):
         # device, then moved.
         if device is not None:
             self.to(device)
+        # Built for inference, as the JAX model's train=False default;
+        # model.train() switches to the training forward.
+        self.eval()
 
-    def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor):
+    def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
+                generator: torch.Generator | None = None):
         """feats (B, T, F) f32, feat_lens (B,) -> (log_probs (B, T', C),
-        out_lens (B,)) with T' = ceil(T / 2) and padded frames zero."""
+        out_lens (B,)) with T' = ceil(T / 2) and padded frames zero.
+        ``generator`` (on feats' device) draws the dropout masks in
+        training."""
+        if self.training and self.bf16_stream:
+            raise NotImplementedError(
+                "bf16_gru does not train in tpuasr_torch; train in float32")
         with full_fp32():
-            return self._forward(feats, feat_lens)
+            return self._forward(feats, feat_lens, generator)
 
-    def _forward(self, feats, feat_lens):
+    def _dropout(self, x, generator):
+        """flax ``nn.Dropout``: keep with 1 - p, scale kept values by
+        1 / (1 - p)."""
+        keep = 1.0 - self.dropout
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+        return torch.where(u < keep, x / keep, torch.zeros((), device=x.device))
+
+    def _forward(self, feats, feat_lens, generator=None):
         x = feats.to(torch.float32)[:, None]              # (B, 1, T, F)
         x = F.relu(self.conv1_bn(self.conv1(x)))
         out_lens = conv_out_length(feat_lens, 11, 2, "SAME")
@@ -108,9 +133,11 @@ class DeepSpeechCTC(nn.Module):
         if self.bf16_stream:
             x = x.to(torch.bfloat16)
         for i in range(self.rnn_layers):
-            x = getattr(self, f"rnn{i}_bn")(x)
+            x = getattr(self, f"rnn{i}_bn")(x, mask_t)
             x = getattr(self, f"rnn{i}")(x, mask_t)
-        x = self.head_bn(x)
+            if self.training and self.dropout > 0:
+                x = self._dropout(x, generator)
+        x = self.head_bn(x, mask_t)
         logp = F.log_softmax(self.head(x.to(torch.float32)), dim=-1)
         logp = torch.where(mask_t > 0, logp, 0.0)
         return logp.permute(1, 0, 2), out_lens

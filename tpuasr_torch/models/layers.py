@@ -1,8 +1,11 @@
-"""Sequence-model building blocks for inference (masking-aware).
+"""Sequence-model building blocks (masking-aware), for serving and training.
 
 Counterpart of ``tpuasr/models/layers.py``. Parameters keep the JAX names
 and layouts except where PyTorch's own ops need another (conv kernels are
-OIHW here, HWIO in JAX; see ``tpuasr_torch.convert``).
+OIHW here, HWIO in JAX; see ``tpuasr_torch.convert``). The norms follow
+flax's training semantics (``module.train()``): batch statistics with the
+biased variance, running statistics updated in place as
+``0.9 * running + 0.1 * batch``.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from tpuasr_torch.ops.gru import gru_scan_xfused, gru_scan_xfused_q8
+from tpuasr_torch.ops.gru import gru_scan, gru_scan_xfused, gru_scan_xfused_q8
 from tpuasr_torch.ops.quant import quantize_per_channel
 
 
@@ -73,41 +76,77 @@ class FrontConv(nn.Module):
         return F.conv2d(x, self.weight, stride=(st, sf))
 
 
-class BatchNorm(nn.Module):
-    """flax ``nn.BatchNorm`` with running statistics (inference), over
-    channel dim 1 of an NCHW tensor:
-    y = (x - mean) * (rsqrt(var + eps) * scale) + bias."""
+def _update_running(norm: nn.Module, mean: torch.Tensor,
+                    var: torch.Tensor) -> None:
+    """running = momentum * running + (1 - momentum) * batch, as flax."""
+    with torch.no_grad():
+        m = norm.momentum
+        norm.mean.copy_(m * norm.mean + (1 - m) * mean)
+        norm.var.copy_(m * norm.var + (1 - m) * var)
 
-    def __init__(self, features: int, epsilon: float = 1e-5):
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm`` over channel dim 1 of an NCHW tensor:
+    y = (x - mean) * (rsqrt(var + eps) * scale) + bias. In training the
+    statistics are over (B, T, F) with no mask -- padded frames count, as
+    flax has no mask -- and the variance is flax's fast form
+    max(0, E[x^2] - E[x]^2), biased."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
         self.epsilon = epsilon
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            mean = x.mean(dim=(0, 2, 3))
+            var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean,
+                              min=0.0)
+            _update_running(self, mean.detach(), var.detach())
+            mul = torch.rsqrt(var + self.epsilon) * self.scale
+            return ((x - mean[:, None, None]) * mul[:, None, None]
+                    + self.bias[:, None, None])
         mul = torch.rsqrt(self.var + self.epsilon) * self.scale
         return ((x - self.mean[:, None, None]) * mul[:, None, None]
                 + self.bias[:, None, None])
 
 
 class MaskedBatchNorm(nn.Module):
-    """Batch norm over (batch, time) that ignores padding. Inference uses
-    the running statistics, so no mask is needed; math in f32, output cast
-    back to the input dtype."""
+    """Batch norm over the two leading (time, batch) dims that ignores
+    padding: in training the statistics are over the frames where ``mask``
+    (same leading dims, trailing 1 allowed) is set, the variance biased
+    (tpuasr/models/layers.py:59-75); inference uses the running statistics
+    and needs no mask. Math in f32, output cast back to the input dtype."""
 
-    def __init__(self, features: int, epsilon: float = 1e-5):
+    def __init__(self, features: int, epsilon: float = 1e-5,
+                 momentum: float = 0.9):
         super().__init__()
         self.epsilon = epsilon
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = (x.to(torch.float32) - self.mean) * torch.rsqrt(
-            self.var + self.epsilon)
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None
+                ) -> torch.Tensor:
+        x32 = x.to(torch.float32)
+        if self.training:
+            if mask is None:
+                raise ValueError("MaskedBatchNorm needs the mask in training")
+            m = mask.to(torch.float32).reshape(*x.shape[:2], 1)
+            cnt = torch.clamp(m.sum(), min=1.0)
+            mean = (x32 * m).sum(dim=(0, 1)) / cnt
+            var = ((x32 - mean) ** 2 * m).sum(dim=(0, 1)) / cnt
+            _update_running(self, mean.detach(), var.detach())
+        else:
+            mean, var = self.mean, self.var
+        y = (x32 - mean) * torch.rsqrt(var + self.epsilon)
         return (y * self.scale + self.bias).to(x.dtype)
 
 
@@ -115,17 +154,23 @@ class GRULayer(nn.Module):
     """Unidirectional GRU over time-major (T, B, D) input, gate order
     r, z, n; padded steps freeze the state and come out as zeros.
 
-    The scan is the fused-projection kernel: K2 (``gru_scan_xfused``) with
-    the weights cast to ``compute_dtype``, or with ``int8_proj`` K4
-    (``gru_scan_xfused_q8``), the weights quantized per output channel on
-    each call as in JAX; ``int8_rec`` also quantizes wh.
+    Serving (``eval()``), the scan is the fused-projection kernel: K2
+    (``gru_scan_xfused``) with the weights cast to ``compute_dtype``, or
+    with ``int8_proj`` K4 (``gru_scan_xfused_q8``), the weights quantized
+    per output channel on each call as in JAX; ``int8_rec`` also quantizes
+    wh. Training (``train()``), float32 only and the int8 flags ignored, as
+    in JAX (deepspeech_ctc.py:119-120): with ``fused_proj`` the K2 scan and
+    its backward, otherwise xp = x@Wx+b by a matmul (layers.py:147-154) and
+    ``gru_scan`` (K5, backward K5b).
     """
 
     def __init__(self, in_features: int, hidden: int, reverse: bool = False,
                  compute_dtype=torch.float32, int8_proj: bool = False,
-                 int8_rec: bool = False, generator=None):
+                 int8_rec: bool = False, fused_proj: bool = True,
+                 generator=None):
         super().__init__()
         self.reverse = reverse
+        self.fused_proj = fused_proj
         self.compute_dtype = compute_dtype
         self.int8_proj = int8_proj or int8_rec
         self.int8_rec = int8_rec
@@ -138,6 +183,8 @@ class GRULayer(nn.Module):
 
     def forward(self, x: torch.Tensor, mask_t: torch.Tensor) -> torch.Tensor:
         """x (T, B, D), mask_t (T, B, 1) f32 -> (T, B, H) in x's dtype."""
+        if self.training:
+            return self._train_forward(x, mask_t)
         cd = self.compute_dtype
         xc = x.to(cd).contiguous()
         b = self.b.to(torch.float32).contiguous()
@@ -157,6 +204,19 @@ class GRULayer(nn.Module):
                                  self.reverse)
         ys = ys.to(x.dtype)
         return ys * mask_t.to(ys.dtype)
+
+    def _train_forward(self, x, mask_t):
+        if self.compute_dtype != torch.float32 or x.dtype != torch.float32:
+            raise NotImplementedError(
+                "training is ported in float32 only (bf16_gru is not)")
+        if self.fused_proj:
+            ys = gru_scan_xfused(x.contiguous(), self.wx, self.b, self.wh,
+                                 mask_t, self.reverse)
+        else:
+            T, B, D = x.shape
+            xp = (x.reshape(T * B, D) @ self.wx + self.b).reshape(T, B, -1)
+            ys = gru_scan(xp, self.wh, mask_t, self.reverse)
+        return ys * mask_t
 
 
 class BiGRU(nn.Module):

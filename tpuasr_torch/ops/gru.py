@@ -1,10 +1,21 @@
-"""GRU scan with the input projection inside the kernel (forward only).
+"""GRU scans: over precomputed projections with BPTT, and fused-projection.
 
-Counterparts of ``gru_scan_xfused`` (K2, tpuasr/ops/pallas_gru.py:772) and
-``gru_scan_xfused_q8`` (K4, pallas_gru.py:1045). Both launch the kernel of
-``csrc/gru_scan.cu`` for CUDA tensors and run their plain versions for CPU
-tensors. Layouts follow the JAX package: x (T, B, D) time-major, wx (D, 3H),
-wh (H, 3H), b (3H,), gate order r, z, n, mask (T, B, 1).
+Counterparts of tpuasr/ops/pallas_gru.py:
+
+* ``gru_scan`` (K5 forward, K5b backward; pallas_gru.py:238): the masked
+  recurrence over xp = x@Wx+b, differentiable. Its kernels are
+  ``gru_scan_fwd`` and ``gru_scan_bwd`` (``csrc/gru_bptt.cu``);
+* ``gru_scan_xfused`` (K2, pallas_gru.py:772): the input projection inside
+  the kernel (``csrc/gru_scan.cu``). Its backward takes the JAX route of
+  ``_xf_bwd_recompute`` (pallas_gru.py:891-926): xp recomputed by a matmul,
+  K5b, then dx, dWx and db by matmuls;
+* ``gru_scan_xfused_q8`` (K4, pallas_gru.py:1045): int8 projection, forward
+  only.
+
+Every kernel wrapper launches its kernel for CUDA tensors and runs its plain
+version for CPU tensors. Layouts follow the JAX package: x (T, B, D)
+time-major, wx (D, 3H), wh (H, 3H), b (3H,), gate order r, z, n,
+mask (T, B, 1).
 """
 
 from __future__ import annotations
@@ -89,19 +100,6 @@ def _pack_float(w: torch.Tensor) -> torch.Tensor:
     return _gate_vectors(w, -(-w.shape[0] // 4) * 4)
 
 
-def _check(name, t, device, dtypes, shape):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype not in dtypes:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected one of "
-                         f"{dtypes}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
 def _launch(mode, x, wx, b, wh, sw, swh, mask, reverse, H):
     """wx, wh already packed (_pack_float / _pack_int8)."""
     T, B, D = x.shape
@@ -133,7 +131,17 @@ def _mask_2d(mask, T, B, device):
 def gru_scan_xfused(x, wx, b, wh, mask, reverse=False):
     """K2: masked GRU scan, x@Wx+b inside the kernel. x (T, B, D) f32 or
     bf16, wx (D, 3H) and wh (H, 3H) in x's dtype, b (3H,) f32,
-    mask (T, B, 1) f32 -> ys (T, B, H) in x's dtype."""
+    mask (T, B, 1) f32 -> ys (T, B, H) in x's dtype.
+
+    Differentiable in float32 when an input requires grad (see
+    ``_XFusedScan``)."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, wx, b, wh)):
+        return _XFusedScan.apply(x, wx, b, wh, mask, reverse)
+    return _xfused_k2(x, wx, b, wh, mask, reverse)
+
+
+def _xfused_k2(x, wx, b, wh, mask, reverse):
     if x.device.type == "cpu":
         return gru_scan_xfused_plain(x, wx, b, wh, mask, reverse)
     if x.device.type != "cuda":
@@ -141,10 +149,11 @@ def gru_scan_xfused(x, wx, b, wh, mask, reverse=False):
     T, B, D = x.shape
     H = wh.shape[0]
     dt = (x.dtype,)
-    _check("x", x, x.device, (torch.float32, torch.bfloat16), (T, B, D))
-    _check("wx", wx, x.device, dt, (D, 3 * H))
-    _check("wh", wh, x.device, dt, (H, 3 * H))
-    _check("b", b, x.device, (torch.float32,), (3 * H,))
+    _build.check_tensor("x", x, x.device, (torch.float32, torch.bfloat16),
+                        (T, B, D))
+    _build.check_tensor("wx", wx, x.device, dt, (D, 3 * H))
+    _build.check_tensor("wh", wh, x.device, dt, (H, 3 * H))
+    _build.check_tensor("b", b, x.device, (torch.float32,), (3 * H,))
     mask = _mask_2d(mask, T, B, x.device)
     code, ys = _launch(_MODE_K2, x, _pack_float(wx), b, _pack_float(wh),
                        None, None, mask, reverse, H)
@@ -154,6 +163,196 @@ def gru_scan_xfused(x, wx, b, wh, mask, reverse=False):
 
 
 gru_scan_xfused.launches = 0
+
+
+class _XFusedScan(torch.autograd.Function):
+    """K2 forward; backward by the route JAX takes at H > 256
+    (``_xf_bwd_recompute``): xp = x@Wx+b by a matmul, K5b for dxp and dWh,
+    then dx, dWx and db by matmuls. Float32 only."""
+
+    @staticmethod
+    def forward(ctx, x, wx, b, wh, mask, reverse):
+        if x.dtype != torch.float32:
+            raise NotImplementedError(
+                "the backward of gru_scan_xfused is ported for float32 only")
+        ys = _xfused_k2(x, wx, b, wh, mask, reverse)
+        ctx.save_for_backward(x, wx, b, wh, mask, ys)
+        ctx.reverse = reverse
+        return ys
+
+    @staticmethod
+    def backward(ctx, dys):
+        x, wx, b, wh, mask, ys = ctx.saved_tensors
+        T, B, D = x.shape
+        H3 = wx.shape[1]
+        with full_fp32():
+            xp = (x.reshape(T * B, D) @ wx + b).reshape(T, B, H3)
+        dxp, dwh = gru_scan_bwd(xp, prev_states(ys, ctx.reverse), wh, mask,
+                                dys.contiguous(), ctx.reverse)
+        dxp2 = dxp.reshape(T * B, H3)
+        with full_fp32():
+            dx = (dxp2 @ wx.T).reshape(T, B, D)
+            dwx = x.reshape(T * B, D).T @ dxp2
+        return dx, dwx, dxp2.sum(0), dwh, None, None
+
+
+# ---- K5 / K5b: the scan over precomputed projections, with BPTT ----------
+
+
+def gru_scan_plain(xp, wh, mask, reverse=False):
+    """Plain version of K5: xp (T, B, 3H) f32, wh (H, 3H) f32,
+    mask (T, B, 1) -> ys (T, B, H) f32."""
+    wh32 = wh.to(torch.float32)
+
+    def hp_fn(h):
+        with full_fp32():
+            return h @ wh32
+
+    return gru_recurrence(xp.to(torch.float32), hp_fn, mask, reverse,
+                          torch.float32)
+
+
+def prev_states(ys, reverse):
+    """The state before each step in scan order: ys shifted one step later
+    in time (h_{t-1}, zero at t=0), or earlier for a reversed scan
+    (h_{t+1}, zero at t=T-1) -- pallas_gru.py:276-284."""
+    zero = torch.zeros_like(ys[:1])
+    if reverse:
+        return torch.cat([ys[1:], zero]).contiguous()
+    return torch.cat([zero, ys[:-1]]).contiguous()
+
+
+def gru_scan_bwd_plain(xp, ysp, wh, mask, dys, reverse=False):
+    """Plain version of K5b, step by step as ``_bwd_kernel``
+    (pallas_gru.py:117-146): the gates recomputed from (xp, ysp), every
+    gradient masked on padded steps. -> dxp (T, B, 3H), dwh (H, 3H), f32."""
+    T, B, H3 = xp.shape
+    H = H3 // 3
+    m = mask.to(torch.float32).reshape(T, B, 1)
+    wh32 = wh.to(torch.float32)
+    dh = xp.new_zeros((B, H), dtype=torch.float32)
+    dwh = xp.new_zeros((H, H3), dtype=torch.float32)
+    dxp = xp.new_empty((T, B, H3), dtype=torch.float32)
+    with full_fp32():
+        for t in (range(T) if reverse else range(T - 1, -1, -1)):
+            h_prev = ysp[t].to(torch.float32)
+            hp = h_prev @ wh32
+            x = xp[t].to(torch.float32)
+            r = torch.sigmoid(x[:, :H] + hp[:, :H])
+            z = torch.sigmoid(x[:, H:2 * H] + hp[:, H:2 * H])
+            n = torch.tanh(x[:, 2 * H:] + r * hp[:, 2 * H:])
+            d = dys[t].to(torch.float32) + dh
+            dz = d * (h_prev - n)
+            dn = d * (1.0 - z) * (1.0 - n * n)
+            dxr = dn * hp[:, 2 * H:] * r * (1.0 - r)
+            dxz = dz * z * (1.0 - z)
+            dhp = torch.cat([dxr, dxz, dn * r], dim=1) * m[t]
+            dxp[t] = torch.cat([dxr, dxz, dn], dim=1) * m[t]
+            dh = m[t] * (d * z + dhp @ wh32.T) + (1.0 - m[t]) * d
+            dwh += h_prev.T @ dhp
+    return dxp, dwh
+
+
+def _check_scan(xp, wh, mask):
+    T, B, H3 = xp.shape
+    H = wh.shape[0]
+    if H3 != 3 * H:
+        raise ValueError(f"xp has {H3} columns, expected 3 * {H}")
+    f32 = (torch.float32,)
+    _build.check_tensor("xp", xp, xp.device, f32, (T, B, 3 * H))
+    _build.check_tensor("wh", wh, xp.device, f32, (H, 3 * H))
+    return T, B, H, _mask_2d(mask, T, B, xp.device)
+
+
+def _barrier(device):
+    """The grid barrier's arrival counter, zeroed for each launch."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def gru_scan_fwd(xp, wh, mask, reverse=False):
+    """K5: ys (T, B, H) f32 from xp (T, B, 3H), wh (H, 3H), mask (T, B, 1)."""
+    if xp.device.type == "cpu":
+        return gru_scan_plain(xp, wh, mask, reverse)
+    if xp.device.type != "cuda":
+        raise ValueError(f"gru_scan_fwd: unsupported device {xp.device}")
+    T, B, H, mask2 = _check_scan(xp, wh, mask)
+    ys = torch.empty((T, B, H), dtype=torch.float32, device=xp.device)
+    if ys.numel() == 0:
+        return ys
+    fn = _build.lib().tpuasr_gru_fwd
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    bar = _barrier(xp.device)
+    with torch.cuda.device(xp.device):
+        code = fn(_build.ptr(xp), _build.ptr(wh), _build.ptr(mask2),
+                  _build.ptr(ys), _build.ptr(bar), T, B, H,
+                  int(bool(reverse)), _build.stream_ptr(xp))
+    gru_scan_fwd.launches += 1
+    _build.check(code, "gru_scan_fwd")
+    return ys
+
+
+gru_scan_fwd.launches = 0
+
+
+def gru_scan_bwd(xp, ysp, wh, mask, dys, reverse=False):
+    """K5b: (dxp (T, B, 3H), dwh (H, 3H)) f32 from xp, ysp = prev_states(ys),
+    wh, mask (T, B, 1) and dys (T, B, H); dWh is summed inside the kernel."""
+    if xp.device.type == "cpu":
+        return gru_scan_bwd_plain(xp, ysp, wh, mask, dys, reverse)
+    if xp.device.type != "cuda":
+        raise ValueError(f"gru_scan_bwd: unsupported device {xp.device}")
+    T, B, H, mask2 = _check_scan(xp, wh, mask)
+    f32 = (torch.float32,)
+    _build.check_tensor("ysp", ysp, xp.device, f32, (T, B, H))
+    _build.check_tensor("dys", dys, xp.device, f32, (T, B, H))
+    dxp = torch.empty_like(xp)
+    if xp.numel() == 0:
+        return dxp, torch.zeros_like(wh)
+    dwh = torch.empty_like(wh)
+    scratch = torch.empty((2, B, 3 * H), dtype=torch.float32,
+                          device=xp.device)
+    fn = _build.lib().tpuasr_gru_bwd
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    bar = _barrier(xp.device)
+    with torch.cuda.device(xp.device):
+        code = fn(_build.ptr(xp), _build.ptr(ysp), _build.ptr(wh),
+                  _build.ptr(mask2), _build.ptr(dys), _build.ptr(dxp),
+                  _build.ptr(dwh), _build.ptr(scratch), _build.ptr(bar), T,
+                  B, H, int(bool(reverse)), _build.stream_ptr(xp))
+    gru_scan_bwd.launches += 1
+    _build.check(code, "gru_scan_bwd")
+    return dxp, dwh
+
+
+gru_scan_bwd.launches = 0
+
+
+class _GRUScan(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xp, wh, mask, reverse):
+        ys = gru_scan_fwd(xp, wh, mask, reverse)
+        ctx.save_for_backward(xp, wh, mask, ys)
+        ctx.reverse = reverse
+        return ys
+
+    @staticmethod
+    def backward(ctx, dys):
+        xp, wh, mask, ys = ctx.saved_tensors
+        dxp, dwh = gru_scan_bwd(xp, prev_states(ys, ctx.reverse), wh, mask,
+                                dys.contiguous(), ctx.reverse)
+        return dxp, dwh, None, None
+
+
+def gru_scan(xp, wh, mask, reverse=False):
+    """Masked GRU over time, differentiable: xp (T, B, 3H) f32, wh (H, 3H)
+    f32, mask (T, B, 1) -> ys (T, B, H). K5 forward, K5b backward (the plain
+    versions for CPU tensors). reverse=True is the right-to-left GRU on
+    left-aligned ragged rows, as in JAX."""
+    return _GRUScan.apply(xp.contiguous(), wh.contiguous(), mask, reverse)
 
 
 def gru_scan_xfused_q8(x, wxq, sw, b, wh, mask, reverse=False,
@@ -182,14 +381,16 @@ def gru_scan_xfused_q8(x, wxq, sw, b, wh, mask, reverse=False,
                                         wh_scale)
     if x.device.type != "cuda":
         raise ValueError(f"gru_scan_xfused_q8: unsupported device {x.device}")
-    _check("x", x, x.device, (torch.float32, torch.bfloat16), (T, B, D))
-    _check("wxq", wxq, x.device, (torch.int8,), (D, 3 * H))
-    _check("sw", sw, x.device, (torch.float32,), (3 * H,))
-    _check("b", b, x.device, (torch.float32,), (3 * H,))
-    _check("wh", wh, x.device, (torch.int8,) if rec_q8 else (x.dtype,),
-           (H, 3 * H))
+    _build.check_tensor("x", x, x.device, (torch.float32, torch.bfloat16),
+                        (T, B, D))
+    _build.check_tensor("wxq", wxq, x.device, (torch.int8,), (D, 3 * H))
+    _build.check_tensor("sw", sw, x.device, (torch.float32,), (3 * H,))
+    _build.check_tensor("b", b, x.device, (torch.float32,), (3 * H,))
+    _build.check_tensor("wh", wh, x.device,
+                        (torch.int8,) if rec_q8 else (x.dtype,), (H, 3 * H))
     if rec_q8:
-        _check("wh_scale", wh_scale, x.device, (torch.float32,), (3 * H,))
+        _build.check_tensor("wh_scale", wh_scale, x.device,
+                            (torch.float32,), (3 * H,))
     mask = _mask_2d(mask, T, B, x.device)
     wh_arg = _pack_int8(wh) if rec_q8 else _pack_float(wh)
     code, ys = _launch(_MODE_Q8_REC if rec_q8 else _MODE_Q8, x,
