@@ -54,8 +54,7 @@ ROOT = Path(__file__).resolve().parent
 TRAIN_B = 16
 TRAIN_SECONDS = 5.0
 TRAIN_U = 24
-# Published H100 SXM peaks (on-chip-measurement guide): HBM bytes/s and
-# dense operations/s by type.
+# Published H100 SXM peaks: HBM bytes/s and dense operations/s by type.
 HBM_BPS = 3.35e12
 PEAK = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
 
