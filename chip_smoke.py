@@ -5,18 +5,26 @@
 Phases, each fatal on failure:
   1. environment: Python, torch, CUDA, and the card's name and power limit;
   2. build of the CUDA kernels from tpuasr_torch/csrc, timed;
-  3. each kernel against its plain PyTorch version on the card, with its
-     error, tolerance, timing, the least time the card could take for its
-     work (bound) and, where one PyTorch call computes the same function,
-     that call's time: the serving kernels K1, K2, K4, K3 at the shapes of
-     the served model (B=128 utterances of 10 s at 8 kHz, C=64, a 512 x 4
-     BiGRU, beam K=8), and the training kernels K5, K5b, K6, K6b at the
-     shapes of the BASELINE config-3 train step (B=16 x 5 s, T'=249, U=24);
+  3. the bench decoding graph (bench.py:183-201: a 200-word lexicon
+     composed with a word bigram, 58,272 states), built on the host and
+     timed; then each kernel against its plain PyTorch version on the
+     card, with its error, tolerance, timing, the least time the card could
+     take for its work (bound) and, where one PyTorch call computes the
+     same function, that call's time: the serving kernels K1, K2, K4, K3
+     (without and with bigram/trigram LM fusion) and K10 (the graph row
+     gather) at the shapes of the served model (B=128 utterances of 10 s at
+     8 kHz, C=64, a 512 x 4 BiGRU, beam K=8), and the training kernels K5,
+     K5b, K6, K6b at the shapes of the BASELINE config-3 train step (B=16 x
+     5 s, T'=249, U=24);
   4. the serving slice through Recognizer: the int8 arm (the default) and
      the bf16 arm, with launch counts, agreement with the plain path, and
      x-real-time of the kernel path and of the plain path;
-  5. a few requests through tpuasr_torch.cli.predict on wav files it writes;
-  6. the training slice through Trainer.train_step (config 3: the 512 x 4
+  5. the LM and graph serving arms through Recognizer: the int8 arm with
+     bigram fusion, and the graph-constrained search at class_topk 8 and
+     63, with launch counts, agreement with the plain path and x-real-time;
+  6. a few requests through tpuasr_torch.cli.predict on wav files it
+     writes: greedy, beam, beam with LM fusion, and graph decoding;
+  7. the training slice through Trainer.train_step (config 3: the 512 x 4
      DeepSpeechCTC in float32, adamw, B=16 x 5 s, U=24): launch counts per
      step, step 1 against the plain path, the loss after 10 steps on the
      repeated batch, and train-step ms at B=16 and B=64.
@@ -54,6 +62,9 @@ ROOT = Path(__file__).resolve().parent
 TRAIN_B = 16
 TRAIN_SECONDS = 5.0
 TRAIN_U = 24
+# LM fusion: weight, and the 64 unit symbols of the seeded unit LMs.
+LM_WEIGHT = 0.5
+UNITS = ["<blank>"] + [f"p{i}" for i in range(1, NUM_CLASSES)]
 # Published H100 SXM peaks: HBM bytes/s and dense operations/s by type.
 HBM_BPS = 3.35e12
 PEAK = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
@@ -111,6 +122,294 @@ def cuda_ms(fn, iters: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed_once(fn):
+    """(fn(), its ms on the device from CUDA events), for a call too slow
+    to repeat."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def queued_ms(fn, iters: int) -> float:
+    """Mean device ms per call of a kernel too short to outrun the host:
+    the stream first sleeps ~25 ms on the card while the host queues all
+    the calls, so the events time the device, not the Python launch path."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def cold_ms(fn, iters: int = 20) -> float:
+    """Mean ms of fn with the L2 cache flushed before each call (a 256 MB
+    write evicts the H100's 50 MB L2)."""
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.int32, device="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def unit_lm(order: int):
+    """A seeded n-gram LM over the 64 unit symbols (Witten-Bell, 300
+    sentences of 5-29 units)."""
+    from tpuasr_torch.lm import train_ngram
+
+    rng = np.random.default_rng(SEED)
+    return train_ngram([[UNITS[int(v)] for v in rng.integers(
+        1, NUM_CLASSES, size=int(rng.integers(5, 30)))] for _ in range(300)],
+        order=order)
+
+
+def bench_lexicon():
+    """bench.py:183-195: seed 7, 200 words of 2-4 unit ids, 400 sentences
+    of 3-8 words."""
+    grng = np.random.default_rng(7)
+    prons, seen = [], set()
+    while len(prons) < 200:
+        p = tuple(int(v) for v in
+                  grng.integers(1, NUM_CLASSES, size=int(grng.integers(2, 5))))
+        if p not in seen:
+            seen.add(p)
+            prons.append((f"w{len(prons):03d}", p))
+    sents = [[f"w{int(v):03d}" for v in
+              grng.integers(0, len(prons), size=int(grng.integers(3, 9)))]
+             for _ in range(400)]
+    return prons, sents
+
+
+def bench_graph():
+    """The bench LG (bench.py:196-201): the lexicon composed with a word
+    bigram, determinized with prune 10, quantum 0.1, at most 400,000
+    states. -> (GraphTables, seconds on the host)."""
+    from tpuasr_torch.decode import (compile_graph_tables, compose,
+                                     lexicon_to_fst, ngram_to_fst)
+    from tpuasr_torch.lm import train_ngram
+
+    t0 = time.perf_counter()
+    prons, sents = bench_lexicon()
+    lg = compose(lexicon_to_fst(prons),
+                 ngram_to_fst(train_ngram(sents, order=2),
+                              {w: i + 1 for i, (w, _) in enumerate(prons)}))
+    tabs = compile_graph_tables(lg, NUM_CLASSES, max_states=400_000,
+                                prune=10.0, quantum=0.1)
+    return tabs, time.perf_counter() - t0
+
+
+def lm_graph_kernels(record, lp, blens, lms, g_pack) -> None:
+    """Phase 3 for K3 with LM fusion (trigram, then the served bigram) and
+    K10 at the served shapes (B=128, T'=499, C=64, K=8)."""
+    from tpuasr_torch.cli.common import fusion_tables
+    from tpuasr_torch.decode import BeamSearchConfig
+    from tpuasr_torch.decode import beam as beam_mod
+    from tpuasr_torch.ops import gather as gather_mod
+
+    Bk, T, C = lp.shape
+    dev = lp.device
+    # Backpointers, last and last2 exact; final scores within 1e-4 (the
+    # kernel rounds every add and multiply as the plain version does, so
+    # they agree bit for bit in practice); tokens and lengths of the whole
+    # search exact.
+    for order in (3, 2):
+        tabs = {k: torch.as_tensor(v, device=dev)
+                for k, v in fusion_tables(lms[order], UNITS, order).items()}
+        tab = tabs["lm_trigram" if order == 3 else "lm_bigram"]
+        tab = tab.reshape(-1, C).contiguous()
+        args = (lp, blens, BEAM, 0, 256, tab, order, LM_WEIGHT, order == 3)
+        got = beam_mod.beam_scan(*args)
+        ref, pms = timed_once(lambda: beam_mod.beam_scan_plain(*args))
+        same_int = all(torch.equal(got[i], ref[i]) for i in (0, 4, 5))
+        err = max((got[i] - ref[i]).abs().max().item() for i in (1, 2, 3))
+        cfg = BeamSearchConfig(beam_width=BEAM, max_len=256,
+                               lm_weight=LM_WEIGHT)
+        out_k = beam_mod.ctc_beam_search(lp, blens, cfg, **tabs)
+        with mock.patch.object(beam_mod, "beam_scan", lambda *a: ref):
+            out_p = beam_mod.ctc_beam_search(lp, blens, cfg, **tabs)
+        same_tok = (torch.equal(out_k["tokens"], out_p["tokens"])
+                    and torch.equal(out_k["token_lens"], out_p["token_lens"])
+                    and torch.equal(out_k["scores"], out_p["scores"]))
+        ms = cuda_ms(lambda: beam_mod.beam_scan(*args), 5)
+        # Operations: the no-LM count plus the LM add, multiply and add per
+        # candidate; bytes: log-probs and the table in, backpointers and
+        # final state out.
+        bd = bound(nbytes(lp, blens, tab, *got), 8 * Bk * T * BEAM * C,
+                   "fp32")
+        phase(f"[3 K3-LM] beam {'trigram' if order == 3 else 'bigram'} "
+              f"table {tuple(tab.shape)} B={Bk} T={T} C={C} K={BEAM} "
+              f"lm_w={LM_WEIGHT}: backpointers+last+last2 equal {same_int},"
+              f" scores max_abs_err {err:.3e} (tol 1e-4), tokens+lengths+"
+              f"scores equal {same_tok} (tol: exact) kernel {ms:.3f} ms "
+              f"plain {pms:.3f} ms bound {bd[0]:.4f} ms ({bd[1]}); no "
+              "PyTorch call computes it")
+        if not (same_int and err <= 1e-4 and same_tok):
+            fail(f"beam kernel with order-{order} LM fusion disagrees with "
+                 "its plain version")
+        record("K3-LM", "ctc_beam with LM fusion (bigram; trigram checked)",
+               "tpuasr_torch/csrc/ctc_beam.cu",
+               "tpuasr/decode/pallas_beam.py:455", err, ms, pms, bd)
+
+    # K10 on the bench-scale packed table, B*K = 1,024 indices with some
+    # past either end (clamped): exact.
+    S, W = g_pack.shape
+    idx = torch.randint(0, S, (Bk, BEAM), dtype=torch.int32,
+                        generator=torch.Generator().manual_seed(SEED + 2))
+    idx[0, :4] = torch.tensor([S, S + 1000, -1, 2 ** 31 - 1])
+    idx = idx.to(dev)
+    got = gather_mod.gather_rows(g_pack, idx)
+    ref = gather_mod.gather_rows_plain(g_pack, idx)
+    exact = torch.equal(got, ref)
+    flat = idx.reshape(-1).long().clamp(0, S - 1)
+    ms = queued_ms(lambda: gather_mod.gather_rows(g_pack, idx), 100)
+    ms_cold = cold_ms(lambda: gather_mod.gather_rows(g_pack, idx))
+    host_ms = cuda_ms(lambda: gather_mod.gather_rows(g_pack, idx), 100)
+    pms = queued_ms(lambda: gather_mod.gather_rows_plain(g_pack, idx), 100)
+    lib = queued_ms(lambda: torch.index_select(g_pack, 0, flat), 100)
+    rows = int(torch.unique(flat).numel())
+    bd = bound(rows * W * 4 + nbytes(idx, got), 0, "fp32")
+    phase(f"[3 K10] gather_rows table ({S}, {W}) int32 "
+          f"({S * W * 4 / 2 ** 20:.1f} MiB), {idx.numel()} indices "
+          f"({rows} distinct rows, 4 out of range): equal {exact} (tol: "
+          f"exact) kernel {ms * 1e3:.2f} us (L2 warm), {ms_cold * 1e3:.2f} "
+          f"us (L2 flushed), {host_ms * 1e3:.2f} us per call back to back "
+          f"from Python (host-bound) plain {pms * 1e3:.2f} us bound "
+          f"{bd[0] * 1e3:.3f} us ({bd[1]}) torch.index_select "
+          f"{lib * 1e3:.2f} us")
+    if not exact:
+        fail("gather_rows disagrees with its plain version")
+    record("K10", "gather_rows (int32 graph rows)",
+           "tpuasr_torch/csrc/gather_rows.cu",
+           "tpuasr/ops/pallas_gather.py:82", 0.0, ms, pms, bd, lib)
+
+
+def lm_graph_slice(kernels, wrappers, model, feat_cfg, wav_d, lens_d, tabs_g,
+                   lms, plain_path, card, audio_s, T_out) -> None:
+    """Phase 5: the LM and graph serving arms through Recognizer."""
+    from tpuasr_torch.cli.common import fusion_tables
+    from tpuasr_torch.decode import BeamSearchConfig, ctc_beam_search_xla
+    from tpuasr_torch.decode import beam as beam_mod
+    from tpuasr_torch.serve.offline import Recognizer
+
+    lm_cfg = BeamSearchConfig(beam_width=BEAM, max_len=256,
+                              lm_weight=LM_WEIGHT)
+    recs = {"int8+bigram": Recognizer(
+        model, feat_cfg, lm_cfg, "cuda",
+        lm_tables=fusion_tables(lms[2], UNITS, 2))}
+    for P in (8, NUM_CLASSES - 1):
+        recs[f"graph P={P}"] = Recognizer(
+            model, feat_cfg, BeamSearchConfig(beam_width=BEAM, class_topk=P,
+                                              max_len=256), "cuda",
+            graph=tabs_g)
+
+    # The counted run of the LM and graph paths: one batch per arm.
+    for w in wrappers.values():
+        w.launches = 0
+    per_arm, outs = {}, {}
+    for arm, rec in recs.items():
+        before = {k: w.launches for k, w in wrappers.items()}
+        outs[arm] = rec(wav_d, lens_d)
+        torch.cuda.synchronize()
+        per_arm[arm] = {k: w.launches - before[k] for k, w in wrappers.items()}
+    phase(f"[5 lm+graph] launch counts per batch: {json.dumps(per_arm)}")
+    none = {k: 0 for k in wrappers}
+    want = {arm: dict(none, K1=1, K4=2 * LAYERS,
+                      **({"K3": 1} if arm == "int8+bigram"
+                         else {"K10": T_out})) for arm in recs}
+    if per_arm != want:
+        fail(f"LM/graph launch counts {per_arm} != {want}")
+    kernels["K3-LM"]["launches"] = per_arm["int8+bigram"]["K3"]
+    kernels["K10"]["launches"] = sum(c["K10"] for c in per_arm.values())
+
+    # The gate is the kernel search on the same log-probs (exact) and the
+    # kernel path against the plain AM and search on the same features
+    # (ter_tol catches a gross fault). The whole plain path is reported
+    # only: its featurizer differs from K1 by float rounding, which flips
+    # int8 roundings in the AM and then near-ties of a random model's flat
+    # posteriors; a graph turns such a flip into another word path.
+    ter_tol = 0.2
+    for arm, rec in recs.items():
+        out = outs[arm]
+        logp, ol = out["log_probs"], out["out_lens"]
+        graph = arm.startswith("graph")
+        if not (bool(torch.isfinite(out["scores"]).all())
+                and tuple(out["tokens"].shape) == (B, 1, 256)):
+            fail(f"{arm}: non-finite scores or tokens of shape "
+                 f"{tuple(out['tokens'].shape)}")
+        before = sum(w.launches for w in wrappers.values())
+        with torch.inference_mode():
+            feats, flens = rec.featurizer.featurize(wav_d, lens_d)
+
+        def search(lp_):
+            if graph:
+                return ctc_beam_search_xla(lp_, ol, rec.beam_cfg,
+                                           graph=rec.graph)
+            return beam_mod.ctc_beam_search(lp_, ol, rec.beam_cfg,
+                                            **rec.lm_tables)
+
+        with plain_path(), torch.inference_mode():
+            pout = rec(wav_d, lens_d)
+            same = search(logp)
+            am_dec = search(rec.model(feats, flens)[0])
+        if sum(w.launches for w in wrappers.values()) != before + 1:
+            fail(f"{arm}: the plain path launched a kernel")
+        keys = ("tokens", "token_lens") + (("reached_final",) if graph
+                                           else ())
+        exact = all(torch.equal(same[k], out[k]) for k in keys)
+        ter, same_rows = token_error_rate(out, pout)
+        am_ter, am_same = token_error_rate(out, am_dec)
+        extra = ""
+        if graph:
+            extra = (f"; reached a final state {int(out['reached_final'].sum())}"
+                     f"/{B}")
+        phase(f"[5 {arm}] {', '.join(keys)} == plain search on the same "
+              f"logp: {exact} (tol: exact); token error rate vs plain AM + "
+              f"search on the same features {am_ter:.5f} ({am_same}/{B} "
+              f"identical; tol {ter_tol}), vs the whole plain path {ter:.5f} "
+              f"({same_rows}/{B}); mean tokens/utt "
+              f"{out['token_lens'].float().mean().item():.1f}" + extra)
+        if not (exact and am_ter <= ter_tol):
+            fail(f"{arm}: kernel path disagrees with the plain path")
+        rt = cuda_ms(lambda: rec(wav_d, lens_d), 3)
+        with plain_path():
+            prt = cuda_ms(lambda: rec(wav_d, lens_d), 1)
+        phase(f"[5 {arm}] B={B} x {SECONDS:.0f} s ({audio_s:.0f} s of "
+              f"audio): kernel path {rt:.2f} ms = "
+              f"{audio_s / (rt / 1e3):.1f}x real time; plain path "
+              f"{prt:.2f} ms = {audio_s / (prt / 1e3):.1f}x real time "
+              f"[{card}]")
+        if arm != f"graph P={NUM_CLASSES - 1}":
+            phase(f"[5 {arm}] device time of one batch by kernel "
+                  f"(torch.profiler): "
+                  f"{device_breakdown(lambda: rec(wav_d, lens_d), top=8)}")
+    # Pruned against full-width graph search (bench.py:243-254).
+    a, b = outs["graph P=8"], outs[f"graph P={NUM_CLASSES - 1}"]
+    agree = sum(
+        int(a["token_lens"][i, 0]) == int(b["token_lens"][i, 0])
+        and torch.equal(a["tokens"][i, 0, :int(a["token_lens"][i, 0])],
+                        b["tokens"][i, 0, :int(b["token_lens"][i, 0])])
+        for i in range(B)) / B
+    phase(f"[5 graph] graph_prune_agree (class_topk 8 vs "
+          f"{NUM_CLASSES - 1}, best tokens identical) {agree:.4f}")
 
 
 def kernel_name(key: str) -> str:
@@ -310,7 +609,7 @@ def train_kernels(record, gen) -> None:
 
 
 def train_slice(kernels, wrappers, card) -> None:
-    """Phase 6: config 3's train step through Trainer on the card."""
+    """Phase 7: config 3's train step through Trainer on the card."""
     from tpuasr_torch.features import FeatureConfig
     from tpuasr_torch.losses import ctc as ctc_mod
     from tpuasr_torch.ops import gru as gru_mod
@@ -357,7 +656,7 @@ def train_slice(kernels, wrappers, card) -> None:
     counts = {k: w.launches for k, w in wrappers.items()}
     want = dict({k: 0 for k in wrappers}, K5=2 * LAYERS, K5b=2 * LAYERS,
                 K6=1, K6b=1)
-    phase(f"[6 train] {n_params} parameters; launch counts per step: "
+    phase(f"[7 train] {n_params} parameters; launch counts per step: "
           f"{json.dumps(counts)}")
     if counts != want:
         fail(f"train launch counts {counts} != {want}")
@@ -384,7 +683,7 @@ def train_slice(kernels, wrappers, card) -> None:
     got = {k: float(v) for k, v in m1.items()}
     ref = {k: float(v) for k, v in p1.items()}
     rel = {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in got}
-    phase(f"[6 train] step 1: loss {got['loss']:.6f} grad_norm "
+    phase(f"[7 train] step 1: loss {got['loss']:.6f} grad_norm "
           f"{got['grad_norm']:.6f}; plain path {ref['loss']:.6f} "
           f"{ref['grad_norm']:.6f} ({plain_s:.2f} s, host clock); relative "
           f"differences {rel['loss']:.3e} {rel['grad_norm']:.3e} (tol 1e-4)")
@@ -397,7 +696,7 @@ def train_slice(kernels, wrappers, card) -> None:
     loss2 = float(m2["loss"])
     state, m12, ms = timed(trainer, state, batch, 10)
     loss12 = float(m12["loss"])
-    phase(f"[6 train] loss step 2 {loss2:.4f} -> step 12 {loss12:.4f} "
+    phase(f"[7 train] loss step 2 {loss2:.4f} -> step 12 {loss12:.4f} "
           "(must fall)")
     if not (np.isfinite(loss12) and loss12 < loss2):
         fail("the loss did not fall over 10 steps on the repeated batch")
@@ -410,10 +709,10 @@ def train_slice(kernels, wrappers, card) -> None:
         fail("non-finite loss at B=64")
     results.append((64, ms64, trainer64, state64, batch64))
     for n, ms_n, tr, st, bt in results:
-        phase(f"[6 train] B={n} x {TRAIN_SECONDS:.0f} s f32: train step "
+        phase(f"[7 train] B={n} x {TRAIN_SECONDS:.0f} s f32: train step "
               f"{ms_n:.2f} ms (CUDA events, mean of 10 after a warm-up) = "
               f"{n / (ms_n / 1e3):.1f} utt/s [{card}]")
-        phase(f"[6 train] B={n} device time of one step by kernel "
+        phase(f"[7 train] B={n} device time of one step by kernel "
               f"(torch.profiler): "
               f"{device_breakdown(lambda: tr.train_step(st, bt), top=8)}")
     torch.cuda.synchronize()
@@ -439,12 +738,15 @@ def main() -> int:
     from tpuasr_torch.convert import save_npz, to_jax_variables
     from tpuasr_torch.decode import BeamSearchConfig
     from tpuasr_torch.decode import beam as beam_mod
+    from tpuasr_torch.decode import prefix_beam as prefix_beam_mod
     from tpuasr_torch.features import FeatureConfig, fbank_power
     from tpuasr_torch.features import fused as fused_mod
     from tpuasr_torch.features.reference import feature_tables, num_frames
+    from tpuasr_torch.lm import train_ngram
     from tpuasr_torch.losses import ctc as ctc_mod
     from tpuasr_torch.models import create_model
     from tpuasr_torch.models import layers as layers_mod
+    from tpuasr_torch.ops import gather as gather_mod
     from tpuasr_torch.ops import gru as gru_mod
     from tpuasr_torch.ops.quant import quantize_per_channel
     from tpuasr_torch.serve.offline import Recognizer
@@ -459,6 +761,15 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(SEED)
     kernels = {}
+
+    # ---- 3. the bench decoding graph, then each kernel ---------------------
+    tabs_g, g_secs = bench_graph()
+    g_pack = torch.cat([torch.as_tensor(tabs_g.next_state),
+                        torch.as_tensor(tabs_g.cost).view(torch.int32)],
+                       1).to(dev).contiguous()
+    phase(f"[3 graph] bench LG (200 words, word bigram, prune 10, quantum "
+          f"0.1): graph_states {tabs_g.num_states}, built in {g_secs:.2f} s "
+          f"(host clock, Python)")
 
     def record(key, name, source, replaces, err, ms=None, plain_ms=None,
                bound_ms=None, library_ms=None):
@@ -476,7 +787,7 @@ def main() -> int:
         if library_ms is not None:
             k["library_ms"] = library_ms
 
-    # ---- 3. kernels against their plain versions ----------------------------
+    # Kernels against their plain versions.
     # K1 / K1b: log-mel (after the log floor) within 1e-3, the JAX
     # featurizer parity tolerance (tests/test_features_pallas.py:36); the
     # kernel and the plain matmuls are both fp32, summed in other orders.
@@ -610,6 +921,10 @@ def main() -> int:
     record("K3", "ctc_beam (no LM)", "tpuasr_torch/csrc/ctc_beam.cu",
            "tpuasr/decode/pallas_beam.py:455", sc_err, ms, pms, bd)
 
+    # K3 with LM fusion and K10, on the graph built above.
+    lms = {order: unit_lm(order) for order in (2, 3)}
+    lm_graph_kernels(record, lp, blens, lms, g_pack)
+
     # K5 / K5b / K6 / K6b at the config-3 train step's shapes.
     train_kernels(record, gen)
 
@@ -637,6 +952,7 @@ def main() -> int:
                 "K2": gru_mod.gru_scan_xfused,
                 "K4": gru_mod.gru_scan_xfused_q8,
                 "K3": beam_mod.beam_scan,
+                "K10": gather_mod.gather_rows,
                 "K5": gru_mod.gru_scan_fwd,
                 "K5b": gru_mod.gru_scan_bwd,
                 "K6": ctc_mod.ctc_alphas_kernel,
@@ -647,6 +963,7 @@ def main() -> int:
         (layers_mod, "gru_scan_xfused", gru_mod.gru_scan_xfused_plain),
         (layers_mod, "gru_scan_xfused_q8", gru_mod.gru_scan_xfused_q8_plain),
         (beam_mod, "beam_scan", beam_mod.beam_scan_plain),
+        (prefix_beam_mod, "gather_rows", gather_mod.gather_rows_plain),
     )
 
     @contextlib.contextmanager
@@ -742,7 +1059,11 @@ def main() -> int:
         phase(f"[4 slice {arm}] device time of one batch by kernel "
               f"(torch.profiler): {device_breakdown(lambda: rec(wav_d, lens_d))}")
 
-    # ---- 5. requests through the CLI --------------------------------------
+    # ---- 5. the LM and graph serving arms --------------------------------
+    lm_graph_slice(kernels, wrappers, recs["int8"].model, feat_cfg, wav_d,
+                   lens_d, tabs_g, lms, plain_path, card, audio_s, T_out)
+
+    # ---- 6. requests through the CLI --------------------------------------
     from scipy.io import wavfile
     from tpuasr_torch.cli import predict
 
@@ -761,27 +1082,53 @@ def main() -> int:
             wavfile.write(p, SR, (rng.standard_normal(int(SR * sec))
                                   * 3000).astype(np.int16))
             paths.append(str(p))
-        buf = io.StringIO()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = predict.main(["deepspeech_ctc", *paths, "--weights",
-                               str(tmp / "w.npz"), "--units",
-                               str(tmp / "units.txt"), "--beam",
-                               "--beam-width", str(BEAM), "--device", "cuda"])
-        lines = buf.getvalue().strip().splitlines()
-        phase(f"[5 cli] predict rc={rc}, {len(lines)} transcripts in "
-              f"{time.perf_counter() - t0:.2f} s (host clock, load included)")
-        if rc != 0 or len(lines) != len(paths) or not all(
-                ln.startswith(p + "\t") for ln, p in zip(lines, paths)):
-            fail(f"predict output: {lines}")
-        for ln in lines:
-            phase(f"    {Path(ln.split(chr(9))[0]).name}: "
-                  f"{len(ln.split(chr(9))[1].split())} tokens")
+        # A unit LM as ARPA, and the bench lexicon (unit names) with its
+        # word bigram for the graph.
+        lms[2].save_arpa(tmp / "units.arpa")
+        prons, sents = bench_lexicon()
+        (tmp / "words.txt").write_text(
+            "".join(f"{w} {i}\n" for i, (w, _) in enumerate(prons)))
+        (tmp / "lexicon.txt").write_text("".join(
+            f"{w} {' '.join(UNITS[u] for u in pr)}\n" for w, pr in prons))
+        train_ngram(sents, order=2).save_arpa(tmp / "words.arpa")
+        requests = {
+            "beam": ["--beam"],
+            "beam+lm-fusion": ["--beam", "--lm", str(tmp / "units.arpa"),
+                               "--lm-fusion", "--lm-weight", str(LM_WEIGHT)],
+            "graph-decode": ["--graph-decode", "--lexicon",
+                             str(tmp / "lexicon.txt"), "--words",
+                             str(tmp / "words.txt"), "--lm",
+                             str(tmp / "words.arpa")],
+        }
+        for name, extra in requests.items():
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = predict.main(["deepspeech_ctc", *paths, "--weights",
+                                   str(tmp / "w.npz"), "--units",
+                                   str(tmp / "units.txt"), "--beam-width",
+                                   str(BEAM), "--device", "cuda", *extra])
+            lines = [ln for ln in buf.getvalue().strip().splitlines()
+                     if not ln.startswith("#")]
+            phase(f"[6 cli {name}] predict rc={rc}, {len(lines)} transcripts "
+                  f"in {time.perf_counter() - t0:.2f} s (host clock, load "
+                  "included)")
+            if rc != 0 or len(lines) != len(paths) or not all(
+                    ln.startswith(p + "\t") for ln, p in zip(lines, paths)):
+                fail(f"predict {name} output: {lines}")
+            for ln in lines:
+                words = ln.split(chr(9))[1].split()
+                unit = "w" if name == "graph-decode" else "p"
+                if not all(t.startswith(unit) for t in words):
+                    fail(f"predict {name}: unexpected symbols in {ln!r}")
+                phase(f"    {Path(ln.split(chr(9))[0]).name}: "
+                      f"{len(words)} {'words' if unit == 'w' else 'tokens'}")
 
-    # ---- 6. the training slice through Trainer.train_step ---------------------
+    # ---- 7. the training slice through Trainer.train_step ---------------------
     train_slice(kernels, wrappers, card)
 
-    order = ("K1", "K2", "K4", "K3", "K5", "K5b", "K6", "K6b")
+    order = ("K1", "K2", "K4", "K3", "K3-LM", "K10", "K5", "K5b", "K6",
+             "K6b")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 """tpuasr_torch beam search (plain version of the beam kernel) against the
 JAX Pallas beam kernel with ``interpret=True`` (selected by the JAX package
-off a TPU; see test_torch_gru.py), on identical log-probs (CPU).
+off a TPU; see test_torch_gru.py), on identical log-probs (CPU), without
+and with bigram or trigram LM fusion.
 
-Tokens and token lengths must be exactly equal, scores equal to rtol 1e-5.
+Tokens and token lengths must be exactly equal, scores equal to rtol 1e-5
+(1e-4 absolute with LM fusion).
 """
 
 import jax
@@ -13,8 +15,10 @@ import torch
 
 from tpuasr.decode import BeamSearchConfig as JBeamSearchConfig
 from tpuasr.decode.pallas_beam import ctc_beam_search_pallas
+from tpuasr.lm import train_ngram as j_train_ngram
 from tpuasr_torch.decode import (BeamSearchConfig, beam_scan,
-                                 ctc_beam_search, get_beam_search)
+                                 ctc_beam_search, ctc_beam_search_xla,
+                                 get_beam_search)
 from tpuasr_torch.decode.beam import _wrap32, backtrack, logaddexp
 
 
@@ -90,7 +94,7 @@ def test_backtrack_packed_pointers():
 def test_plain_scan_invariants():
     lp = torch.tensor(_logp(5, 3, 9, 6))
     lens = torch.tensor([9, 4, 0], dtype=torch.int32)
-    bp, pb, pnb = beam_scan(lp, lens, 4, 0, 9)
+    bp, pb, pnb, lm, last, last2 = beam_scan(lp, lens, 4, 0, 9)
     assert bp.shape == (9, 3, 4) and bp.dtype == torch.int32
     # Frozen rows point each lane at itself with no character.
     assert torch.equal(bp[4:, 1], (torch.arange(4) * 65536).int()
@@ -99,16 +103,76 @@ def test_plain_scan_invariants():
                        .expand(9, 4))
     am = logaddexp(pb, pnb)
     assert float(am[2, 0]) == 0.0 and bool((am[:, 0] > -1e29).all())
+    # Without LM the score stays 0 and last2 is not tracked.
+    assert not lm.any() and bool((last2 == -1).all())
+    assert int(last[2, 0]) == -1 and bool((last[0] >= -1).all())
 
 
-def test_lm_fusion_not_ported_raises():
+SYMS = ["<blk>", "a", "b", "c", "d", "e"]
+SENTS = [["a", "b", "c"], ["c", "a"], ["b", "d", "e", "a"], ["e", "e", "b"],
+         ["d", "a", "c", "b"]] * 2
+
+
+def _fusion(order):
+    lm = j_train_ngram(SENTS, order=order)
+    if order == 3:
+        return dict(lm_trigram=lm.fusion_tensor3(SYMS),
+                    lm_eos=lm.eos_matrix(SYMS))
+    return dict(lm_bigram=lm.fusion_matrix(SYMS), lm_eos=lm.eos_vector(SYMS))
+
+
+@pytest.mark.parametrize("order,seed,eos", [(2, 0, True), (2, 1, False),
+                                            (3, 0, True), (3, 2, False)])
+def test_lm_fusion_matches_pallas(order, seed, eos):
+    """Bigram / trigram fusion in the plain version of the kernel against
+    the Pallas kernel's LM branch, B=2, T=12, C=6, K=4, n_best=2."""
+    B, T, C, K = 2, 12, len(SYMS), 4
+    lp = _logp(30 + seed, B, T, C, scale=1.5)
+    lens = np.array([T, 7], np.int32)
+    tabs = _fusion(order)
+    if not eos:
+        del tabs["lm_eos"]
+    kw = dict(beam_width=K, max_len=T, lm_weight=0.7)
+    a = ctc_beam_search_pallas(jnp.asarray(lp), jnp.asarray(lens),
+                               JBeamSearchConfig(**kw), n_best=2, **tabs)
+    b = ctc_beam_search(torch.tensor(lp), torch.tensor(lens),
+                        BeamSearchConfig(**kw), n_best=2, **tabs)
+    np.testing.assert_array_equal(b["token_lens"].numpy(),
+                                  np.asarray(a["token_lens"]))
+    np.testing.assert_array_equal(b["tokens"].numpy(),
+                                  np.asarray(a["tokens"]))
+    for key in ("scores", "am_scores", "lm_scores"):
+        np.testing.assert_allclose(b[key].numpy(), np.asarray(a[key]),
+                                   rtol=0, atol=1e-4)
+    assert bool((b["lm_scores"] < 0).all())
+
+
+def test_lm_table_validation():
+    """The kernel search's checks, with the Pallas wrapper's messages: both
+    tables at once, a trigram of the wrong shape, and the trigram size gate
+    that sends the CLI to the scan search (C=192: (C+1)^2 rows)."""
     lp = torch.tensor(_logp(0, 1, 4, 5))
-    with pytest.raises(NotImplementedError):
-        ctc_beam_search(lp, torch.tensor([4]), BeamSearchConfig(),
-                        lm_bigram=np.zeros((6, 5), np.float32))
+    cfg = BeamSearchConfig(beam_width=4)
+    big = np.zeros((6, 5), np.float32)
+    with pytest.raises(ValueError, match="not both"):
+        ctc_beam_search(lp, torch.tensor([4]), cfg, lm_bigram=big,
+                        lm_trigram=np.zeros((6, 6, 5), np.float32))
+    with pytest.raises(ValueError, match="lm_trigram shape"):
+        ctc_beam_search(lp, torch.tensor([4]), cfg,
+                        lm_trigram=np.zeros((6, 5, 5), np.float32))
+    with pytest.raises(ValueError, match="lm_bigram shape"):
+        ctc_beam_search(lp, torch.tensor([4]), cfg,
+                        lm_bigram=np.zeros((5, 5), np.float32))
+    C = 192
+    lp = torch.full((1, 2, C), -5.0)
+    with pytest.raises(ValueError, match="XLA ctc_beam_search"):
+        ctc_beam_search(lp, torch.tensor([2]), cfg,
+                        lm_trigram=np.zeros((C + 1, C + 1, C), np.float32))
 
 
 def test_get_beam_search():
     assert get_beam_search("auto") is ctc_beam_search
+    assert get_beam_search("pallas") is ctc_beam_search
+    assert get_beam_search("xla") is ctc_beam_search_xla
     with pytest.raises(ValueError):
-        get_beam_search("xla")
+        get_beam_search("cuda")

@@ -13,10 +13,13 @@ import pytest
 import torch
 
 from tpuasr_torch.decode.beam import beam_scan, beam_scan_plain
+from tpuasr_torch.decode.beam import ctc_beam_search as kernel_search
 from tpuasr_torch.features import FeatureConfig, fbank_power
 from tpuasr_torch.features.fused import fbank_power_plain
 from tpuasr_torch.features.reference import feature_tables, num_frames
+from tpuasr_torch.decode.prefix_beam import BeamSearchConfig
 from tpuasr_torch.losses import ctc as ctc_mod
+from tpuasr_torch.ops.gather import gather_rows, gather_rows_plain
 from tpuasr_torch.ops.gru import (gru_scan_bwd, gru_scan_bwd_plain,
                                   gru_scan_fwd, gru_scan_plain,
                                   gru_scan_xfused, gru_scan_xfused_plain,
@@ -97,6 +100,67 @@ def test_k3_exact(dev, C, K, max_len):
     ref = beam_scan_plain(lp, lens, K, 0, max_len)
     for a, r in zip(got, ref):
         assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("order,C,K,track", [(2, 5, 8, False),
+                                             (2, 30, 4, True),
+                                             (3, 9, 6, True),
+                                             (2, 190, 4, False)])
+def test_k3_lm_exact(dev, order, C, K, track):
+    """K3 with a bigram or trigram fusion table (C=190: a bigram table too
+    large to stage in shared memory, read from global memory) equals its
+    plain version bit for bit, backpointers, scores, LM scores, last and
+    last2 included."""
+    g = torch.Generator().manual_seed(6)
+    lp = torch.log_softmax(torch.randn(5, 30, C, generator=g) * 2, -1)
+    tab = torch.log_softmax(torch.randn((C + 1) ** (order - 1), C,
+                                        generator=g), -1)
+    lp, tab = lp.to(dev).contiguous(), tab.to(dev).contiguous()
+    lens = torch.tensor([30, 0, 1, 17, 30], dtype=torch.int32).to(dev)
+    args = (lp, lens, K, 0, 12, tab, order, 0.7, track)
+    got = beam_scan(*args)
+    ref = beam_scan_plain(*args)
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r)
+
+
+def test_k3_lm_search_trigram_eos(dev):
+    """The whole kernel search with a trigram table and a 2-D eos term on
+    the card, against the same search on the CPU (plain version)."""
+    g = torch.Generator().manual_seed(7)
+    C = 8
+    lp = torch.log_softmax(torch.randn(4, 25, C, generator=g) * 2, -1)
+    tri = torch.log_softmax(torch.randn(C + 1, C + 1, C, generator=g), -1)
+    eos = torch.randn(C + 1, C + 1, generator=g) - 3
+    lens = torch.tensor([25, 3, 0, 19])
+    cfg = BeamSearchConfig(beam_width=5, max_len=25, lm_weight=0.6)
+    got = kernel_search(lp.to(dev), lens.to(dev), cfg, n_best=3,
+                        lm_trigram=tri.to(dev), lm_eos=eos.to(dev))
+    want = kernel_search(lp, lens, cfg, n_best=3, lm_trigram=tri,
+                         lm_eos=eos)
+    for key in ("tokens", "token_lens"):
+        assert torch.equal(got[key].cpu(), want[key])
+    for key in ("scores", "am_scores", "lm_scores"):
+        torch.testing.assert_close(got[key].cpu(), want[key], rtol=0,
+                                   atol=1e-4)
+
+
+@pytest.mark.parametrize("S,W", [(5000, 128), (37, 12), (10, 7)])
+def test_k10_exact(dev, S, W):
+    """K10 equals the plain gather on int32 tables (W=7: the scalar path),
+    float bits in the table and indices past either end included."""
+    g = torch.Generator().manual_seed(8)
+    table = torch.randint(-2 ** 31, 2 ** 31 - 1, (S, W), generator=g,
+                          dtype=torch.int64).to(torch.int32)
+    idx = torch.randint(0, S, (9, 13), generator=g, dtype=torch.int32)
+    idx[0, :3] = torch.tensor([-5, S, 2 ** 31 - 1])
+    table, idx = table.to(dev), idx.to(dev)
+    before = gather_rows.launches
+    got = gather_rows(table, idx)
+    assert gather_rows.launches == before + 1
+    assert torch.equal(got, gather_rows_plain(table, idx))
+    with pytest.raises(ValueError, match="dtype"):
+        gather_rows(table.float(), idx)
 
 
 def _scan_case(dev, H, B=7, T=37):

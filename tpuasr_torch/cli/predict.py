@@ -1,54 +1,33 @@
 """``python -m tpuasr_torch.cli.predict <model> a.wav b.wav --weights w.npz``
 
 Transcribe wav files with the port: one transcript per wav, as
-``<path>\\t<text>``. Counterpart of ``tpuasr/cli/predict.py`` for greedy and
-beam decoding (``--beam``); ``--int8`` serves the int8 GRU kernel with the
-recurrence in the stream type, as the JAX ``--int8`` does. Weights come
-from ``tpuasr_torch.convert.save_npz`` output; its metadata (num_classes,
+``<path>\\t<text>`` (``[n] score`` before the text with ``--nbest``).
+Counterpart of ``tpuasr/cli/predict.py`` for greedy decoding, the beam
+search (``--beam``, with ``--beam-impl``), an ARPA LM (``--lm``: shallow
+fusion in the search with ``--lm-fusion``, else n-best rescoring), WFST
+n-best rescoring (``--fst`` with ``--beam``), word output through a lexicon
+(``--lexicon``/``--words``), and graph-constrained decoding
+(``--graph-decode``, from ``--fst`` or built from the lexicon and a word
+LM). ``--int8`` serves the int8 GRU kernel. Weights come from
+``tpuasr_torch.convert.save_npz`` output; its metadata (num_classes,
 model_kwargs, feature config) is used when present.
 """
 
 from __future__ import annotations
 
 import argparse
-from pathlib import Path
 
 import numpy as np
 
+from tpuasr_torch.cli.common import (build_decode_graph, fusion_tables,
+                                     lm_symbols, load_fst, load_lm,
+                                     load_units, load_wav, make_word_decoder,
+                                     tokens_to_text)
 from tpuasr_torch.convert import from_jax_variables, load_npz
 from tpuasr_torch.decode import BeamSearchConfig
 from tpuasr_torch.features import FeatureConfig
 from tpuasr_torch.models import MODEL_REGISTRY, create_model
 from tpuasr_torch.serve.offline import Recognizer, resolve_device
-
-
-def load_units(path: str | None) -> list[str]:
-    return Path(path).read_text().splitlines() if path else []
-
-
-def tokens_to_text(tokens, units: list[str]) -> str:
-    if not units:
-        return " ".join(str(int(t)) for t in tokens)
-    return " ".join(units[int(t)] if 0 <= int(t) < len(units) else "<unk>"
-                    for t in tokens)
-
-
-def load_wav(path: str) -> tuple[np.ndarray, int]:
-    """wav file -> (float32 samples in [-1, 1], sample rate), mono."""
-    from scipy.io import wavfile
-
-    sr, data = wavfile.read(path)
-    if data.dtype == np.int16:
-        data = data.astype(np.float32) / 32768.0
-    elif data.dtype == np.int32:
-        data = data.astype(np.float32) / 2147483648.0
-    elif data.dtype == np.uint8:
-        data = (data.astype(np.float32) - 128.0) / 128.0
-    else:
-        data = data.astype(np.float32)
-    if data.ndim > 1:
-        data = data.mean(axis=1)
-    return data, sr
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -59,9 +38,21 @@ def build_parser() -> argparse.ArgumentParser:
                    help=".npz written by tpuasr_torch.convert.save_npz")
     p.add_argument("--units", default=None,
                    help="units file, one token per line (line 0 = <blank>)")
+    p.add_argument("--words", default=None,
+                   help="words.txt symbol table (enables word output)")
+    p.add_argument("--lexicon", default=None,
+                   help="lexicon file 'WORD unit unit ...'; with --words, "
+                        "decoded units are segmented into words")
     p.add_argument("--beam", action="store_true",
                    help="CTC prefix beam search instead of greedy")
     p.add_argument("--beam-width", type=int, default=16)
+    p.add_argument("--class-topk", type=int, default=8,
+                   help="classes per step of the scan search (--beam-impl "
+                        "xla); the kernel search takes all classes")
+    p.add_argument("--beam-impl", default="auto",
+                   choices=["auto", "xla", "pallas"],
+                   help="auto/pallas: the all-class beam kernel; xla: the "
+                        "top-P scan search")
     p.add_argument("--nbest", type=int, default=1)
     p.add_argument("--int8", action="store_true",
                    help="int8 input projections in the GRU kernel")
@@ -71,13 +62,50 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; an error without a CUDA device) "
                         "or cpu")
+    g = p.add_argument_group("language model and WFST")
+    g.add_argument("--lm", default=None,
+                   help="ARPA n-gram LM over the unit symbols (or, with "
+                        "--graph-decode and a lexicon, over words)")
+    g.add_argument("--lm-weight", type=float, default=1.0,
+                   help="LM weight (shallow fusion or rescoring)")
+    g.add_argument("--lm-fusion", action="store_true",
+                   help="apply the LM inside the beam search (shallow "
+                        "fusion); without it the n-best is rescored")
+    g.add_argument("--lm-fusion-order", type=int, default=2, choices=[2, 3],
+                   help="fusion context: 2 = bigram table, 3 = trigram "
+                        "table (grows as C^3)")
+    g.add_argument("--fst", default=None,
+                   help="OpenFst WFST (binary or text), ilabels = unit ids: "
+                        "n-best rescoring with --beam, the graph with "
+                        "--graph-decode")
+    g.add_argument("--fst-weight", type=float, default=1.0,
+                   help="weight on the FST log-prob (minus tropical cost)")
+    g.add_argument("--fst-isyms", default=None,
+                   help="input symbol table for string-labeled FST text")
+    g.add_argument("--fst-osyms", default=None,
+                   help="output symbol table (words.txt) for FST outputs")
+    gg = p.add_argument_group("graph-constrained decoding")
+    gg.add_argument("--graph-decode", action="store_true",
+                    help="decode under a decoding graph compiled to dense "
+                         "tables (--fst, or L from --lexicon/--words/--units "
+                         "composed with a word-level --lm); words by replay "
+                         "through the graph. Replaces --beam")
+    gg.add_argument("--graph-weight", type=float, default=1.0,
+                    help="weight on graph costs against acoustics")
+    gg.add_argument("--graph-topk", type=int, default=8,
+                    help="classes per step, chosen per beam among the "
+                         "classes the graph allows")
+    gg.add_argument("--graph-prune", type=float, default=10.0,
+                    help="pruned-determinization beam in cost units "
+                         "(<= 0: exact determinization)")
+    gg.add_argument("--graph-quantum", type=float, default=0.1,
+                    help="residual grid of pruned determinization")
+    gg.add_argument("--graph-max-states", type=int, default=400_000,
+                    help="abort graph compilation past this many states")
     return p
 
 
-def main(argv=None) -> int:
-    args = build_parser().parse_args(argv)
-    device = resolve_device(args.device)
-    units = load_units(args.units)
+def _load_model(args, units):
     tree = load_npz(args.weights)
     meta = tree.get("meta", {})
     num_classes = meta.get("num_classes") or len(units)
@@ -96,6 +124,23 @@ def main(argv=None) -> int:
                          num_classes=num_classes,
                          in_features=feat_cfg.base_dim, **model_kwargs)
     model.load_state_dict(from_jax_variables(tree))
+    return model, feat_cfg, num_classes
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    device = resolve_device(args.device)
+    units = load_units(args.units)
+    if args.graph_decode and args.beam:
+        raise SystemExit("--graph-decode replaces --beam")
+    lm = None if args.graph_decode else load_lm(args)
+    if lm is not None and not args.beam:
+        raise SystemExit("--lm requires --beam (the LM applies to beam "
+                         "hypotheses)")
+    if args.fst and not (args.beam or args.graph_decode):
+        raise SystemExit("--fst requires --beam for rescoring or "
+                         "--graph-decode")
+    model, feat_cfg, num_classes = _load_model(args, units)
 
     wavs = []
     for path in args.wavs:
@@ -108,26 +153,97 @@ def main(argv=None) -> int:
     batch = np.zeros((len(wavs), int(lens.max())), np.float32)
     for i, w in enumerate(wavs):
         batch[i, :len(w)] = w
+    T_out = max(1, -(-(1 + (batch.shape[1] - feat_cfg.win_length)
+                       // feat_cfg.hop_length) // 2))
 
-    n_best = max(1, args.nbest) if args.beam else 1
-    beam_cfg = None
+    n_best = max(1, args.nbest) if (args.beam or args.graph_decode) else 1
+    if args.graph_decode:
+        return _graph_decode(args, model, feat_cfg, device, num_classes,
+                             units, batch, lens, n_best, T_out)
+
+    beam_cfg, lm_tables = None, {}
+    syms = lm_symbols(units, num_classes)
+    rescore = lm is not None and not args.lm_fusion
+    fst, fst_osyms = load_fst(args) if args.beam else (None, None)
+    search_n = n_best
     if args.beam:
-        T_out = -(-(1 + (batch.shape[1] - feat_cfg.win_length)
-                    // feat_cfg.hop_length) // 2)
-        beam_cfg = BeamSearchConfig(beam_width=max(args.beam_width, n_best),
-                                    max_len=max(1, T_out))
-    rec = Recognizer(model, feat_cfg, beam_cfg, device, n_best=n_best)
+        beam_cfg = BeamSearchConfig(
+            beam_width=max(args.beam_width, n_best),
+            class_topk=args.class_topk, max_len=T_out,
+            lm_weight=args.lm_weight if args.lm_fusion else 0.0)
+        if lm is not None and args.lm_fusion:
+            lm_tables = fusion_tables(lm, syms, args.lm_fusion_order)
+        # Rescoring re-ranks the WHOLE beam, then keeps the top n_best.
+        if rescore or fst is not None:
+            search_n = beam_cfg.beam_width
+    rec = Recognizer(model, feat_cfg, beam_cfg, device, n_best=search_n,
+                     beam_impl=args.beam_impl, lm_tables=lm_tables)
     out = rec(batch, lens)
     toks = out["tokens"].cpu().numpy()
     tok_lens = out["token_lens"].cpu().numpy()
-    scores = out["scores"].cpu().numpy() if out["scores"] is not None else None
+    scores = (out["scores"].cpu().numpy().astype(np.float64)
+              if out["scores"] is not None else None)
+    fst_outs = None
+    if rescore:
+        from tpuasr_torch.lm import rescore_nbest
+        scores = rescore_nbest(lm, toks, tok_lens, scores, syms,
+                               lm_weight=args.lm_weight)
+    if fst is not None:
+        from tpuasr_torch.decode import rescore_nbest_fst
+        scores, fst_outs = rescore_nbest_fst(fst, toks, tok_lens, scores,
+                                             fst_weight=args.fst_weight)
+    if rescore or fst is not None:
+        order = np.argsort(-scores, axis=1, kind="stable")
+        toks = np.take_along_axis(toks, order[:, :, None], axis=1)
+        tok_lens = np.take_along_axis(tok_lens, order, axis=1)
+        scores = np.take_along_axis(scores, order, axis=1)
+        if fst_outs is not None:
+            fst_outs = [[fst_outs[b][j] for j in order[b]]
+                        for b in range(len(fst_outs))]
+
+    word_dec, words = make_word_decoder(args, units)
     for i, path in enumerate(args.wavs):
         for n in range(n_best):
-            text = tokens_to_text(toks[i, n, :tok_lens[i, n]], units)
+            seq = toks[i, n, :tok_lens[i, n]].tolist()
+            if fst_outs is not None and fst_outs[i][n]:
+                text = " ".join(fst_osyms.sym(w) if fst_osyms is not None
+                                else str(w) for w in fst_outs[i][n])
+            elif word_dec is not None:
+                text = " ".join(words.sym(w) for w in word_dec.decode(seq))
+            else:
+                text = tokens_to_text(seq, units)
             if n_best > 1:
                 print(f"{path}\t[{n}] {scores[i, n]:.2f}\t{text}")
             else:
                 print(f"{path}\t{text}")
+    return 0
+
+
+def _graph_decode(args, model, feat_cfg, device, num_classes, units, batch,
+                  lens, n_best, T_out) -> int:
+    """Graph-constrained decode: the compiled graph rides the beam search
+    on the device; words by min-cost replay through the original graph."""
+    from tpuasr_torch.decode import graph_tokens_to_words
+    tabs, gfst, name_fn, offset = build_decode_graph(args, num_classes, units)
+    cfg = BeamSearchConfig(beam_width=max(args.beam_width, n_best),
+                           class_topk=args.graph_topk, max_len=T_out,
+                           graph_weight=args.graph_weight)
+    rec = Recognizer(model, feat_cfg, cfg, device, n_best=n_best, graph=tabs)
+    out = rec(batch, lens)
+    toks = out["tokens"].cpu().numpy()
+    tok_lens = out["token_lens"].cpu().numpy()
+    scores = out["scores"].cpu().numpy()
+    reached = out["reached_final"].cpu().numpy()
+    wordseqs = graph_tokens_to_words(gfst, toks, tok_lens, offset=offset)
+    for i, path in enumerate(args.wavs):
+        for n in range(n_best):
+            text = " ".join(name_fn(w) for w in wordseqs[i * n_best + n])
+            if n_best > 1:
+                print(f"{path}\t[{n}] {scores[i, n]:.2f}\t{text}")
+            else:
+                print(f"{path}\t{text}")
+        if not bool(reached[i, 0]):
+            print("# graph: no final state reached (partial hypothesis)")
     return 0
 
 

@@ -1,16 +1,18 @@
 """CTC prefix beam search over all classes: kernel, plain version, wrapper.
 
-Counterpart of ``tpuasr/decode/pallas_beam.py::ctc_beam_search_pallas`` in
-its no-LM form. ``beam_scan`` runs the per-frame update (K3): the CUDA
-kernel of ``csrc/ctc_beam.cu`` for a CUDA tensor, ``beam_scan_plain`` for a
-CPU tensor. ``ctc_beam_search`` turns the packed backpointers into token
-sequences and picks the n-best in plain torch, as the JAX wrapper does
-(pallas_beam.py:596-629).
+Counterpart of ``tpuasr/decode/pallas_beam.py::ctc_beam_search_pallas``,
+with bigram or trigram shallow LM fusion. ``beam_scan`` runs the per-frame
+update (K3): the CUDA kernel of ``csrc/ctc_beam.cu`` for a CUDA tensor,
+``beam_scan_plain`` for a CPU tensor. ``ctc_beam_search`` checks the fusion
+tables, applies the end-of-sentence term, turns the packed backpointers into
+token sequences and picks the n-best in plain torch, as the JAX wrapper does
+(pallas_beam.py:525-629).
 
 Semantics follow the Pallas kernel for every live hypothesis: stay/extend
-scoring over all classes, the inverse-hash merge, top-K selection with
-ties broken by (stays, then beam k ascending, then class ascending), fresh
-hashes for dead selections, the ``max_len`` cap and frozen finished rows.
+scoring over all classes, the inverse-hash merge, ranking by acoustic +
+lm_weight * LM, top-K selection with ties broken by (stays, then beam k
+ascending, then class ascending), fresh hashes for dead selections, the
+``max_len`` cap and frozen finished rows.
 Dead selections (fewer than K live candidates) get the same backpointers as
 in Pallas, but which NEG_INF-level candidate fills a dead lane may differ,
 so the scores of dead beams (about -1e30) are not held to Pallas.
@@ -23,38 +25,30 @@ import ctypes
 import torch
 
 from tpuasr_torch import _build
-from tpuasr_torch.decode.prefix_beam import NEG_INF, BeamSearchConfig
+from tpuasr_torch.decode.prefix_beam import (_H1_INIT as _I1,
+                                             _H1_MUL as _M1,
+                                             _H2_INIT as _I2,
+                                             _H2_MUL as _M2, NEG_INF,
+                                             BeamSearchConfig, _s32, _wrap32,
+                                             logaddexp, topk_indices)
 
 LANES = 128
-_M1 = 2654435761
-_M2 = 40503
-_I1 = 2166136261
-_I2 = 5381
 
 
-def _wrap32(x: torch.Tensor) -> torch.Tensor:
-    """int64 tensor -> the same value mod 2^32, as a signed int32 in int64."""
-    return torch.remainder(x + 2 ** 31, 2 ** 32) - 2 ** 31
-
-
-def _s32(v: int) -> int:
-    return ((v + 2 ** 31) % 2 ** 32) - 2 ** 31
-
-
-def logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """max + log1p(exp(min - max)), the form both beam kernels use."""
-    m = torch.maximum(a, b)
-    return m + torch.log1p(torch.exp(torch.minimum(a, b) - m))
-
-
-def beam_scan_plain(log_probs, lengths, K: int, blank: int, max_len: int):
+def beam_scan_plain(log_probs, lengths, K: int, blank: int, max_len: int,
+                    lm_table=None, lm_order: int = 0, lm_w: float = 0.0,
+                    track_last2: bool = False):
     """Plain version of the beam kernel.
 
-    log_probs (B, T, C) f32, lengths (B,) -> packed backpointers
-    (T, B, K) int32 and the final p_blank, p_nonblank (B, K) f32.
+    log_probs (B, T, C) f32, lengths (B,); optional fusion table lm_table,
+    (C+1, C) for lm_order 2 or ((C+1)^2, C) for lm_order 3, weighted by
+    lm_w -> packed backpointers (T, B, K) int32 and the final p_blank,
+    p_nonblank, cumulative LM score (B, K) f32, last and last2 (B, K) int32
+    (last2 stays -1 unless track_last2).
     """
     B, T, C = log_probs.shape
     dev = log_probs.device
+    have_lm = lm_order > 0
     lp_all = log_probs.to(torch.float32)
     lens = lengths.to(device=dev, dtype=torch.int64)
     neg = torch.tensor(NEG_INF, dtype=torch.float32, device=dev)
@@ -62,9 +56,11 @@ def beam_scan_plain(log_probs, lengths, K: int, blank: int, max_len: int):
     cls = torch.arange(C, device=dev)
     pb = torch.where(lane == 0, 0.0, neg).expand(B, K).clone()
     pnb = torch.full((B, K), NEG_INF, dtype=torch.float32, device=dev)
+    lm = torch.zeros((B, K), dtype=torch.float32, device=dev)
     h1 = (_s32(_I1) + lane).expand(B, K).clone()
     h2 = (_I2 + lane).expand(B, K).clone()
     last = torch.full((B, K), -1, dtype=torch.int64, device=dev)
+    last2 = torch.full((B, K), -1, dtype=torch.int64, device=dev)
     plen = torch.zeros((B, K), dtype=torch.int64, device=dev)
     bp = torch.empty((T, B, K), dtype=torch.int32, device=dev)
     frozen_bp = (lane * 65536).to(torch.int32).expand(B, K)
@@ -103,30 +99,51 @@ def beam_scan_plain(log_probs, lengths, K: int, blank: int, max_len: int):
         stay_pnb = logaddexp(stay_pnb, absorbed)
         stay_tot = logaddexp(stay_pb, stay_pnb)
 
+        # Shallow fusion: ranks = acoustic + lm_w * LM; the stored p_nb
+        # stays acoustic and the LM score rides beside it.
+        if have_lm:
+            ridx = ((last2 + 1) * (C + 1) + last + 1 if lm_order == 3
+                    else last + 1)
+            ext_lm = lm[:, :, None] + lm_table[ridx]           # (B, K, C)
+            ext_rank = ext + lm_w * ext_lm
+            stay_rank = stay_tot + lm_w * lm
+        else:
+            ext_rank, stay_rank = ext, stay_tot
+
         # K rounds of argmax over (stays, extends); argmax takes the first
         # maximal index, which is the tie order of the Pallas kernel.
-        cand = torch.cat([stay_tot, ext.reshape(B, K * C)], dim=1)
-        n_pb, n_pnb, n_h1, n_h2, n_last, n_plen, n_bp = ([] for _ in range(7))
+        cand = torch.cat([stay_rank, ext_rank.reshape(B, K * C)], dim=1)
+        flat_ext = ext.reshape(B, K * C)
+        flat_lm = ext_lm.reshape(B, K * C) if have_lm else None
+        news = {n: [] for n in ("pb", "pnb", "lm", "h1", "h2", "last",
+                                "last2", "plen", "bp")}
         for sel in range(K):
             win = torch.argmax(cand, dim=1)                    # (B,)
             val = cand[rows[:, 0], win]
             is_stay = win < K
             s_idx = win.clamp(max=K - 1)[:, None]
-            e_idx = (win - K).clamp(min=0)
-            k = (e_idx // C)[:, None]
-            c = (e_idx % C)[:, None]
+            e_idx = (win - K).clamp(min=0)[:, None]
+            k = e_idx // C
+            c = e_idx % C
 
             def pick(stay_val, ext_val):
                 return torch.where(is_stay[:, None], stay_val, ext_val)
 
             spb = pick(stay_pb.gather(1, s_idx), neg.expand(B, 1))
-            spnb = pick(stay_pnb.gather(1, s_idx),
-                        torch.maximum(val, neg)[:, None])
+            if have_lm:
+                spnb = pick(stay_pnb.gather(1, s_idx), flat_ext.gather(1, e_idx))
+                slm = pick(lm.gather(1, s_idx), flat_lm.gather(1, e_idx))
+            else:
+                spnb = pick(stay_pnb.gather(1, s_idx),
+                            torch.maximum(val, neg)[:, None])
+                slm = pick(lm.gather(1, s_idx), torch.zeros_like(spb))
             sh1 = pick(h1.gather(1, s_idx),
                        _wrap32(_wrap32(h1.gather(1, k) * m1) + c + 1))
             sh2 = pick(h2.gather(1, s_idx),
                        _wrap32(_wrap32(h2.gather(1, k) * m2) + c + 1))
             slast = pick(last.gather(1, s_idx), c)
+            slast2 = (pick(last2.gather(1, s_idx), last.gather(1, k))
+                      if track_last2 else torch.full_like(c, -1))
             splen = pick(plen.gather(1, s_idx), plen.gather(1, k) + 1)
             parent = pick(s_idx, k)
             ch = pick(torch.full_like(c, -1), c)
@@ -134,59 +151,79 @@ def beam_scan_plain(log_probs, lengths, K: int, blank: int, max_len: int):
             sh1 = torch.where(dead, _s32(_I1 + sel + 7777 * (t + 1)), sh1)
             sh2 = torch.where(dead, _s32(_I2 + sel + 3333 * (t + 1)), sh2)
             slast = torch.where(dead, -1, slast)
+            slast2 = torch.where(dead, -1, slast2)
             ch = torch.where(dead, -1, ch)
             splen = torch.where(dead, 0, splen)
+            slm = torch.where(dead, 0.0, slm)
             parent = torch.where(dead, sel, parent)
-            for acc, v in ((n_pb, spb), (n_pnb, spnb), (n_h1, sh1),
-                           (n_h2, sh2), (n_last, slast), (n_plen, splen),
-                           (n_bp, parent * 65536 + ch + 1)):
-                acc.append(v)
+            for name, v in (("pb", spb), ("pnb", spnb), ("lm", slm),
+                            ("h1", sh1), ("h2", sh2), ("last", slast),
+                            ("last2", slast2), ("plen", splen),
+                            ("bp", parent * 65536 + ch + 1)):
+                news[name].append(v)
             cand = cand.scatter(1, win[:, None], float("-inf"))
 
-        pb = torch.where(live, torch.cat(n_pb, 1), pb)
-        pnb = torch.where(live, torch.cat(n_pnb, 1), pnb)
-        h1 = torch.where(live, torch.cat(n_h1, 1), h1)
-        h2 = torch.where(live, torch.cat(n_h2, 1), h2)
-        last = torch.where(live, torch.cat(n_last, 1), last)
-        plen = torch.where(live, torch.cat(n_plen, 1), plen)
-        bp[t] = torch.where(live, torch.cat(n_bp, 1).to(torch.int32),
-                            frozen_bp)
-    return bp, pb, pnb
+        new = {n: torch.cat(v, 1) for n, v in news.items()}
+        pb = torch.where(live, new["pb"], pb)
+        pnb = torch.where(live, new["pnb"], pnb)
+        lm = torch.where(live, new["lm"], lm)
+        h1 = torch.where(live, new["h1"], h1)
+        h2 = torch.where(live, new["h2"], h2)
+        last = torch.where(live, new["last"], last)
+        last2 = torch.where(live, new["last2"], last2)
+        plen = torch.where(live, new["plen"], plen)
+        bp[t] = torch.where(live, new["bp"].to(torch.int32), frozen_bp)
+    return (bp, pb, pnb, lm, last.to(torch.int32), last2.to(torch.int32))
 
 
-def beam_scan(log_probs, lengths, K: int, blank: int, max_len: int):
+def beam_scan(log_probs, lengths, K: int, blank: int, max_len: int,
+              lm_table=None, lm_order: int = 0, lm_w: float = 0.0,
+              track_last2: bool = False):
     """The per-frame beam update over all frames (K3).
 
-    log_probs (B, T, C) f32, lengths (B,) int32 -> (bp (T, B, K) int32,
-    p_b (B, K) f32, p_nb (B, K) f32). CPU tensors take the plain version;
-    CUDA tensors launch the kernel.
+    log_probs (B, T, C) f32, lengths (B,) int32, optional fusion table (see
+    ``beam_scan_plain``) -> (bp (T, B, K) int32, p_b, p_nb, lm (B, K) f32,
+    last, last2 (B, K) int32). CPU tensors take the plain version; CUDA
+    tensors launch the kernel.
     """
     if log_probs.device.type == "cpu":
-        return beam_scan_plain(log_probs, lengths, K, blank, max_len)
+        return beam_scan_plain(log_probs, lengths, K, blank, max_len,
+                               lm_table, lm_order, lm_w, track_last2)
     if log_probs.device.type != "cuda":
         raise ValueError(f"beam_scan: unsupported device {log_probs.device}")
     B, T, C = log_probs.shape
+    dev = log_probs.device
     if log_probs.dtype != torch.float32 or not log_probs.is_contiguous():
         raise ValueError("beam_scan: log_probs must be contiguous float32")
-    if (lengths.device != log_probs.device or lengths.dtype != torch.int32
-            or tuple(lengths.shape) != (B,) or not lengths.is_contiguous()):
-        raise ValueError("beam_scan: lengths must be contiguous int32 (B,) "
-                         "on the device of log_probs")
+    _build.check_tensor("beam_scan: lengths", lengths, dev, (torch.int32,),
+                        (B,))
     if not 0 <= blank < C:
         raise ValueError(f"beam_scan: blank {blank} outside [0, {C})")
-    bp = torch.empty((T, B, K), dtype=torch.int32, device=log_probs.device)
-    pb = torch.empty((B, K), dtype=torch.float32, device=log_probs.device)
-    pnb = torch.empty_like(pb)
+    if lm_order not in (0, 2, 3):
+        raise ValueError(f"beam_scan: lm_order {lm_order} not in (0, 2, 3)")
+    if lm_order:
+        rows = (C + 1) ** (lm_order - 1)
+        _build.check_tensor("beam_scan: lm_table", lm_table, dev,
+                            (torch.float32,), (rows, C))
+    bp = torch.empty((T, B, K), dtype=torch.int32, device=dev)
+    pb = torch.empty((B, K), dtype=torch.float32, device=dev)
+    pnb, lm = torch.empty_like(pb), torch.empty_like(pb)
+    last = torch.empty((B, K), dtype=torch.int32, device=dev)
+    last2 = torch.empty_like(last)
     fn = _build.lib().tpuasr_ctc_beam
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    with torch.cuda.device(log_probs.device):
-        code = fn(_build.ptr(log_probs), _build.ptr(lengths), _build.ptr(bp),
-                  _build.ptr(pb), _build.ptr(pnb), B, T, C, K, blank,
-                  max_len, _build.stream_ptr(log_probs))
+    with torch.cuda.device(dev):
+        code = fn(_build.ptr(log_probs), _build.ptr(lengths),
+                  _build.ptr(lm_table) if lm_order else None,
+                  _build.ptr(bp), _build.ptr(pb), _build.ptr(pnb),
+                  _build.ptr(lm), _build.ptr(last), _build.ptr(last2),
+                  B, T, C, K, blank, max_len, lm_order, lm_w,
+                  int(track_last2), _build.stream_ptr(log_probs))
     beam_scan.launches += 1
     _build.check(code, "beam_scan")
-    return bp, pb, pnb
+    return bp, pb, pnb, lm, last, last2
 
 
 beam_scan.launches = 0
@@ -214,32 +251,83 @@ def backtrack(bp: torch.Tensor, beam_idx: torch.Tensor, max_len: int):
     return out[:, :, :max_len].to(torch.int32), token_lens
 
 
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
 def ctc_beam_search(log_probs, lengths, cfg: BeamSearchConfig | None = None,
                     n_best: int = 1, lm_bigram=None, lm_eos=None,
                     lm_trigram=None):
-    """CTC prefix beam search over all classes (no LM).
+    """CTC prefix beam search over all classes, with optional shallow LM
+    fusion weighted by cfg.lm_weight (cfg.class_topk is ignored).
 
-    log_probs (B, T, C), lengths (B,) -> dict(tokens (B, n_best, max_len)
-    int32 padded with -1, token_lens, scores, am_scores, lm_scores).
+    lm_bigram (C+1, C) or lm_trigram (C+1, C+1, C): fusion tables (see
+    NGramLM.fusion_matrix / fusion_tensor3); lm_eos (C+1,), or (C+1, C+1)
+    with trigram context, is added at the final ranking. log_probs (B, T,
+    C), lengths (B,) -> dict(tokens (B, n_best, max_len) int32 padded with
+    -1, token_lens, scores, am_scores, lm_scores).
     """
-    if lm_bigram is not None or lm_trigram is not None or lm_eos is not None:
-        raise NotImplementedError(
-            "shallow LM fusion in the beam kernel is not ported yet")
     if cfg is None:
         cfg = BeamSearchConfig()
     K = cfg.beam_width
     if K + 1 > LANES:
         raise ValueError(f"beam_width {K} + 1 > {LANES} lanes")
+    if lm_bigram is not None and lm_trigram is not None:
+        raise ValueError("pass lm_bigram OR lm_trigram, not both")
     if not 1 <= n_best <= K:
         raise ValueError(f"n_best {n_best} outside [1, beam_width={K}]")
     log_probs = log_probs.to(torch.float32).contiguous()
-    lengths = torch.as_tensor(lengths, device=log_probs.device).to(
-        torch.int32).contiguous()
-    bp, pb, pnb = beam_scan(log_probs, lengths, K, cfg.blank, cfg.max_len)
+    dev = log_probs.device
+    B, T, C = log_probs.shape
+    lengths = torch.as_tensor(lengths, device=dev).to(torch.int32).contiguous()
+
+    def table(x):
+        return torch.as_tensor(x, device=dev).to(torch.float32).contiguous()
+
+    have_lm = lm_bigram is not None or lm_trigram is not None
+    lm_w = float(cfg.lm_weight)
+    if lm_eos is not None:
+        lm_eos = table(lm_eos)
+    # last2 (the next-to-last token) only where something consumes it: the
+    # trigram context or a 2-D end-of-sentence matrix.
+    track_last2 = (lm_trigram is not None
+                   or (lm_eos is not None and lm_eos.ndim == 2))
+    tab, order = None, 0
+    if lm_trigram is not None:
+        tri = table(lm_trigram)
+        if tuple(tri.shape) != (C + 1, C + 1, C):
+            raise ValueError(f"lm_trigram shape {tuple(tri.shape)} != "
+                             f"{(C + 1, C + 1, C)}")
+        # The TPU kernel's size gate, kept so that both packages send the
+        # same vocabularies to the scan search (cli.common.run_beam_search
+        # falls back on this message).
+        R = (C + 1) * (C + 1)
+        if _round_up(R, 8) * _round_up(C, LANES) * 4 > 6 * 2**20:
+            raise ValueError(
+                f"trigram fusion table ((C+1)^2={R} rows) exceeds the "
+                "kernel's VMEM budget; use the XLA ctc_beam_search")
+        tab, order = tri.reshape(R, C), 3
+    elif lm_bigram is not None:
+        tab = table(lm_bigram)
+        if tuple(tab.shape) != (C + 1, C):
+            raise ValueError(f"lm_bigram shape {tuple(tab.shape)} != "
+                             f"{(C + 1, C)}")
+        order = 2
+    bp, pb, pnb, lm, last, last2 = beam_scan(
+        log_probs, lengths, K, cfg.blank, cfg.max_len, tab, order, lm_w,
+        track_last2)
     am = logaddexp(pb, pnb)
-    order = torch.sort(am, dim=1, descending=True, stable=True).indices
-    beam_idx = order[:, :n_best]
-    scores = torch.gather(am, 1, beam_idx)
+    lm_k = lm
+    if lm_eos is not None:
+        last, last2 = last.to(torch.int64), last2.to(torch.int64)
+        if lm_eos.ndim == 2:   # trigram context: P(</s> | last2, last)
+            lm_k = lm_k + lm_eos[last2 + 1, last + 1]
+        else:
+            lm_k = lm_k + lm_eos[last + 1]
+    total = am + lm_w * lm_k if (have_lm or lm_eos is not None) else am
+    beam_idx = topk_indices(total, n_best)
     tokens, token_lens = backtrack(bp, beam_idx, cfg.max_len)
-    return dict(tokens=tokens, token_lens=token_lens, scores=scores,
-                am_scores=scores, lm_scores=torch.zeros_like(scores))
+    return dict(tokens=tokens, token_lens=token_lens,
+                scores=torch.gather(total, 1, beam_idx),
+                am_scores=torch.gather(am, 1, beam_idx),
+                lm_scores=torch.gather(lm_k, 1, beam_idx))
