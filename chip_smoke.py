@@ -15,15 +15,21 @@ Phases, each fatal on failure:
      gather) at the shapes of the served model (B=128 utterances of 10 s at
      8 kHz, C=64, a 512 x 4 BiGRU, beam K=8), and the training kernels K5,
      K5b, K6, K6b at the shapes of the BASELINE config-3 train step (B=16 x
-     5 s, T'=249, U=24);
+     5 s, T'=249, U=24), and K8 (CapsNet routing) at the shapes of
+     BASELINE config 4 (B=8 and B=32 x 5 s, T'=249, I=256, Din=8, O=48,
+     D=16, 3 iterations);
   4. the serving slice through Recognizer: the int8 arm (the default) and
      the bf16 arm, with launch counts, agreement with the plain path, and
-     x-real-time of the kernel path and of the plain path;
+     x-real-time of the kernel path and of the plain path; then the
+     CapsNet arm (config 4's model, 48 classes), greedy and with the beam,
+     at B=8 and B=32 x 5 s and on a ragged B=8 batch, with the same
+     checks and its device time by kernel;
   5. the LM and graph serving arms through Recognizer: the int8 arm with
      bigram fusion, and the graph-constrained search at class_topk 8 and
      63, with launch counts, agreement with the plain path and x-real-time;
   6. a few requests through tpuasr_torch.cli.predict on wav files it
-     writes: greedy, beam, beam with LM fusion, and graph decoding;
+     writes: beam, beam with LM fusion, and graph decoding, and one
+     `predict capsule1` beam request;
   7. the training slice through Trainer.train_step (config 3: the 512 x 4
      DeepSpeechCTC in float32, adamw, B=16 x 5 s, U=24): launch counts per
      step, step 1 against the plain path, the loss after 10 steps on the
@@ -65,6 +71,17 @@ TRAIN_U = 24
 # LM fusion: weight, and the 64 unit symbols of the seeded unit LMs.
 LM_WEIGHT = 0.5
 UNITS = ["<blank>"] + [f"p{i}" for i in range(1, NUM_CLASSES)]
+# Config 4 (benchmarks/config4_capsnet.py:22, tpuasr/utils/params.py:29-33):
+# CapsNetCTC's defaults at 48 classes, B=8 x 5 s; and B=32, the batch the
+# Pallas routing kernel's docstring sizes. The seeded W_route is scaled up
+# (CAPS_W_SCALE) so that the routing is not flat: at the init scale every
+# class capsule has length ~0.001 and the log-probs span 0.014 nats (near
+# ties everywhere); scaled, they span ~6 nats.
+CAPS_CLASSES = 48
+CAPS_SECONDS = 5.0
+CAPS_BATCHES = (8, 32)
+CAPS_W_SCALE = 20.0
+CAPS_UNITS = ["<blank>"] + [f"p{i}" for i in range(1, CAPS_CLASSES)]
 # Published H100 SXM peaks: HBM bytes/s and dense operations/s by type.
 HBM_BPS = 3.35e12
 PEAK = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
@@ -718,6 +735,192 @@ def train_slice(kernels, wrappers, card) -> None:
     torch.cuda.synchronize()
 
 
+def capsnet_kernels(record, gen) -> None:
+    """Phase 3 for K8 at config 4's shapes: u (B, 249, 256, 8) from the
+    model's squash, W (256, 8, 48 * 16), 3 iterations, B = 8 and 32."""
+    from tpuasr_torch.features import FeatureConfig
+    from tpuasr_torch.features.reference import num_frames
+    from tpuasr_torch.ops import routing as routing_mod
+    from tpuasr_torch.precision import full_fp32
+
+    T = -(-num_frames(FeatureConfig(), int(SR * CAPS_SECONDS)) // 2)
+    I, Din, O, D, iters = 256, 8, CAPS_CLASSES, 16, 3
+    for Bc in CAPS_BATCHES:
+        # Capsules of length ~0.9 and W of scale 0.5: the coupling moves
+        # well off uniform (largest c about 5/O) and |v| reaches 0.9.
+        u = routing_mod.squash(torch.randn(Bc, T, I, Din, generator=gen)
+                               * 2.0).to("cuda").contiguous()
+        W = (torch.randn(I, Din, O * D, generator=gen) * 0.5).to(
+            "cuda").contiguous()
+
+        def kern():
+            return routing_mod.routed_caps(u, W, O, D, iters)
+
+        def plain():
+            return routing_mod.routed_caps_plain(u, W, O, D, iters)
+
+        # rtol 2e-5 / atol 2e-6: the JAX package's bound for its Pallas
+        # kernel against the einsum path (float32 sums in other orders).
+        with full_fp32():
+            got, ref = kern(), plain()
+            err = (got - ref).abs().max().item()
+            ok = bool(torch.allclose(got, ref, rtol=2e-5, atol=2e-6))
+            ms = cuda_ms(kern, 10)
+            pms = cuda_ms(plain, 3)
+        # Operations the function needs: u_hat, then the weighted sum in
+        # every iteration and the agreement in all but the last
+        # (tpuasr/models/capsnet.py:42-52); bytes: u and W in, v out.
+        ops = Bc * T * (2 * Din * O * D * I + (4 * iters - 2) * O * D * I)
+        bd = bound(nbytes(u, W, got), ops, "fp32")
+        phase(f"[3 K8] routed_caps B={Bc} T={T} I={I} Din={Din} O={O} D={D}"
+              f" iters={iters} ({Bc * T} rows): max_abs_err {err:.3e} (tol "
+              f"rtol 2e-5 atol 2e-6; |v| max {ref.abs().max().item():.3f}) "
+              f"kernel {ms:.3f} ms plain {pms:.3f} ms bound {bd[0]:.4f} ms "
+              f"({bd[1]}); no PyTorch call computes it")
+        if not ok:
+            fail(f"K8 disagrees with its plain version at B={Bc}")
+        timed = Bc == CAPS_BATCHES[0]
+        record("K8", "routed_caps (routing forward)",
+               "tpuasr_torch/csrc/routing.cu",
+               "tpuasr/ops/pallas_routing.py:161", err,
+               *((ms, pms, bd) if timed else ()))
+        del u, W, got, ref
+    torch.cuda.empty_cache()
+
+
+def capsnet_model(dev):
+    """Config 4's CapsNetCTC, seeded, W_route scaled by CAPS_W_SCALE."""
+    from tpuasr_torch.models import create_model
+
+    model = create_model("capsule1", num_classes=CAPS_CLASSES,
+                         in_features=64,
+                         generator=torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        model.W_route.mul_(CAPS_W_SCALE)
+    return model.to(dev)
+
+
+def capsnet_slice(kernels, wrappers, card, plain_path) -> None:
+    """Phase 4 for config 4: the CapsNet arm through Recognizer, greedy and
+    with the K3 beam (K=8, C=48), on B=8 and B=32 x 5 s of seeded noise and
+    on a ragged B=8 batch (2.5-5 s)."""
+    from tpuasr_torch.decode import BeamSearchConfig, greedy_decode
+    from tpuasr_torch.decode import beam as beam_mod
+    from tpuasr_torch.features import FeatureConfig
+    from tpuasr_torch.features.reference import num_frames
+    from tpuasr_torch.serve.offline import Recognizer
+
+    feat_cfg = FeatureConfig()
+    model = capsnet_model("cuda")
+    bcfg = BeamSearchConfig(beam_width=BEAM, max_len=256)
+    recs = {"greedy": Recognizer(model, feat_cfg, None, "cuda"),
+            "beam": Recognizer(model, feat_cfg, bcfg, "cuda")}
+    S = int(SR * CAPS_SECONDS)
+    T_out = -(-num_frames(feat_cfg, S) // 2)
+    batches = {}
+    for n in CAPS_BATCHES:
+        rng = np.random.default_rng(SEED + n)
+        wav = (rng.standard_normal((n, S)) * 0.1).astype(np.float32)
+        batches[f"B={n}"] = (torch.as_tensor(wav, device="cuda"),
+                             torch.full((n,), S, dtype=torch.int32,
+                                        device="cuda"))
+    rng = np.random.default_rng(SEED + 3)
+    lens = rng.integers(S // 2, S + 1, size=8).astype(np.int32)
+    lens[0] = S
+    wav = (rng.standard_normal((8, S)) * 0.1).astype(np.float32)
+    wav[np.arange(S)[None, :] >= lens[:, None]] = 0.0
+    batches["B=8 ragged"] = (torch.as_tensor(wav, device="cuda"),
+                             torch.as_tensor(lens, device="cuda"))
+    arms = {f"{dec} {b}": (dec, b) for b in batches
+            for dec in ("greedy", "beam")}
+
+    # The counted run of the CapsNet path: one batch per arm.
+    for w in wrappers.values():
+        w.launches = 0
+    per_arm, outs = {}, {}
+    for arm, (dec, b) in arms.items():
+        before = {k: w.launches for k, w in wrappers.items()}
+        outs[arm] = recs[dec](*batches[b])
+        torch.cuda.synchronize()
+        per_arm[arm] = {k: w.launches - before[k] for k, w in wrappers.items()}
+    phase(f"[4 capsnet] launch counts per batch: {json.dumps(per_arm)}")
+    none = {k: 0 for k in wrappers}
+    want = {arm: dict(none, K1=1, K8=1, **({"K3": 1} if dec == "beam"
+                                          else {}))
+            for arm, (dec, _) in arms.items()}
+    if per_arm != want:
+        fail(f"CapsNet launch counts {per_arm} != {want}")
+    kernels["K8"]["launches"] = sum(c["K8"] for c in per_arm.values())
+
+    # Gates. logp of the AM alone on identical features within 1e-4 of the
+    # plain AM (only K8 differs, by float32 summation order); the whole
+    # plain path within 2e-2 (its featurizer differs from K1 by up to 1e-3
+    # in log-mel, which this model amplifies about 4x); out_lens exact; the
+    # beam's tokens equal the plain search's on the same log-probs
+    # (exact). Greedy tokens are compared by token error rate: near-ties of
+    # a random model can flip on a 1e-6 difference (tol 0.01 against the
+    # plain AM, 0.05 against the whole plain path: gross faults only).
+    for arm, (dec, b) in arms.items():
+        out, rec = outs[arm], recs[dec]
+        wav_d, lens_d = batches[b]
+        n = wav_d.shape[0]
+        logp, ol = out["log_probs"], out["out_lens"]
+        if not (bool(torch.isfinite(logp).all())
+                and tuple(logp.shape) == (n, T_out, CAPS_CLASSES)):
+            fail(f"capsnet {arm}: non-finite log-probs or shape "
+                 f"{tuple(logp.shape)}")
+        before = sum(w.launches for w in wrappers.values())
+        with torch.inference_mode():
+            feats, flens = rec.featurizer.featurize(wav_d, lens_d)
+        with plain_path(), torch.inference_mode():
+            pout = rec(wav_d, lens_d)
+            am_lp, am_ol = rec.model(feats, flens)
+            if dec == "beam":
+                same = beam_mod.ctc_beam_search(logp, ol, bcfg)
+                am_dec = beam_mod.ctc_beam_search(am_lp, am_ol, bcfg)
+            else:
+                toks, tl = greedy_decode(am_lp, am_ol)
+                am_dec = dict(tokens=toks[:, None], token_lens=tl[:, None])
+        if sum(w.launches for w in wrappers.values()) != before + 1:
+            fail(f"capsnet {arm}: the plain path launched a kernel")
+        err = (logp - pout["log_probs"]).abs().max().item()
+        am_err = (logp - am_lp).abs().max().item()
+        lens_ok = (torch.equal(ol, pout["out_lens"])
+                   and torch.equal(ol, am_ol))
+        exact = dec != "beam" or all(torch.equal(same[k], out[k])
+                                     for k in ("tokens", "token_lens"))
+        ter, same_rows = token_error_rate(out, pout)
+        am_ter, am_same = token_error_rate(out, am_dec)
+        phase(f"[4 capsnet {arm}] logp max_abs_err vs plain AM on the same "
+              f"features {am_err:.3e} (tol 1e-4), vs the whole plain path "
+              f"{err:.3e} (tol 2e-2); out_lens equal {lens_ok}"
+              + (f"; tokens == plain beam on the same logp: {exact}"
+                 if dec == "beam" else "")
+              + f"; token error rate vs plain AM {am_ter:.5f} ({am_same}/{n}"
+              f" identical; tol 0.01), vs whole plain path {ter:.5f} "
+              f"({same_rows}/{n}; tol 0.05); mean tokens/utt "
+              f"{out['token_lens'].float().mean().item():.1f}")
+        if not (am_err <= 1e-4 and err <= 2e-2 and lens_ok and exact
+                and am_ter <= 0.01 and ter <= 0.05):
+            fail(f"capsnet {arm}: kernel path disagrees with the plain path")
+        if b == "B=8 ragged":
+            continue
+        audio_s = float(lens_d.sum()) / SR
+        rt = cuda_ms(lambda: rec(wav_d, lens_d), 10)
+        phase(f"[4 capsnet {arm}] x {CAPS_SECONDS:.0f} s ({audio_s:.0f} s "
+              f"of audio): {rt:.3f} ms per batch (CUDA events, mean of 10 "
+              f"after a warm-up) = {audio_s / (rt / 1e3):.1f}x real time "
+              f"[{card}]")
+        phase(f"[4 capsnet {arm}] device time of one batch by kernel "
+              f"(torch.profiler): "
+              f"{device_breakdown(lambda: rec(wav_d, lens_d), top=8)}")
+        if dec == "greedy":
+            with plain_path():
+                prt = cuda_ms(lambda: rec(wav_d, lens_d), 2)
+            phase(f"[4 capsnet {arm}] plain path {prt:.3f} ms per batch = "
+                  f"{audio_s / (prt / 1e3):.1f}x real time [{card}]")
+
+
 def main() -> int:
     # ---- 1. environment -------------------------------------------------
     if not torch.cuda.is_available():
@@ -744,10 +947,12 @@ def main() -> int:
     from tpuasr_torch.features.reference import feature_tables, num_frames
     from tpuasr_torch.lm import train_ngram
     from tpuasr_torch.losses import ctc as ctc_mod
+    from tpuasr_torch.models import capsnet as capsnet_mod
     from tpuasr_torch.models import create_model
     from tpuasr_torch.models import layers as layers_mod
     from tpuasr_torch.ops import gather as gather_mod
     from tpuasr_torch.ops import gru as gru_mod
+    from tpuasr_torch.ops import routing as routing_mod
     from tpuasr_torch.ops.quant import quantize_per_channel
     from tpuasr_torch.serve.offline import Recognizer
 
@@ -928,6 +1133,9 @@ def main() -> int:
     # K5 / K5b / K6 / K6b at the config-3 train step's shapes.
     train_kernels(record, gen)
 
+    # K8 at config 4's shapes.
+    capsnet_kernels(record, gen)
+
     # ---- 4. the full slice through Recognizer ---------------------------------
     feat_cfg = FeatureConfig(sample_rate=SR, n_mels=64)
     arms = {
@@ -953,6 +1161,7 @@ def main() -> int:
                 "K4": gru_mod.gru_scan_xfused_q8,
                 "K3": beam_mod.beam_scan,
                 "K10": gather_mod.gather_rows,
+                "K8": routing_mod.routed_caps,
                 "K5": gru_mod.gru_scan_fwd,
                 "K5b": gru_mod.gru_scan_bwd,
                 "K6": ctc_mod.ctc_alphas_kernel,
@@ -964,6 +1173,7 @@ def main() -> int:
         (layers_mod, "gru_scan_xfused_q8", gru_mod.gru_scan_xfused_q8_plain),
         (beam_mod, "beam_scan", beam_mod.beam_scan_plain),
         (prefix_beam_mod, "gather_rows", gather_mod.gather_rows_plain),
+        (capsnet_mod, "routed_caps", routing_mod.routed_caps_plain),
     )
 
     @contextlib.contextmanager
@@ -1059,6 +1269,9 @@ def main() -> int:
         phase(f"[4 slice {arm}] device time of one batch by kernel "
               f"(torch.profiler): {device_breakdown(lambda: rec(wav_d, lens_d))}")
 
+    # The CapsNet arm (config 4).
+    capsnet_slice(kernels, wrappers, card, plain_path)
+
     # ---- 5. the LM and graph serving arms --------------------------------
     lm_graph_slice(kernels, wrappers, recs["int8"].model, feat_cfg, wav_d,
                    lens_d, tabs_g, lms, plain_path, card, audio_s, T_out)
@@ -1091,23 +1304,32 @@ def main() -> int:
         (tmp / "lexicon.txt").write_text("".join(
             f"{w} {' '.join(UNITS[u] for u in pr)}\n" for w, pr in prons))
         train_ngram(sents, order=2).save_arpa(tmp / "words.arpa")
+        # Config 4's CapsNet (48 units) for the capsule1 request.
+        save_npz(to_jax_variables(capsnet_model("cpu").state_dict()),
+                 tmp / "caps.npz",
+                 meta=dict(model="capsule1", num_classes=CAPS_CLASSES))
+        (tmp / "caps_units.txt").write_text("\n".join(CAPS_UNITS))
+        ds = ["deepspeech_ctc", *paths, "--weights", str(tmp / "w.npz"),
+              "--units", str(tmp / "units.txt")]
         requests = {
-            "beam": ["--beam"],
-            "beam+lm-fusion": ["--beam", "--lm", str(tmp / "units.arpa"),
-                               "--lm-fusion", "--lm-weight", str(LM_WEIGHT)],
-            "graph-decode": ["--graph-decode", "--lexicon",
+            "beam": [*ds, "--beam"],
+            "beam+lm-fusion": [*ds, "--beam", "--lm",
+                               str(tmp / "units.arpa"), "--lm-fusion",
+                               "--lm-weight", str(LM_WEIGHT)],
+            "graph-decode": [*ds, "--graph-decode", "--lexicon",
                              str(tmp / "lexicon.txt"), "--words",
                              str(tmp / "words.txt"), "--lm",
                              str(tmp / "words.arpa")],
+            "capsule1 beam": ["capsule1", *paths, "--weights",
+                              str(tmp / "caps.npz"), "--units",
+                              str(tmp / "caps_units.txt"), "--beam"],
         }
-        for name, extra in requests.items():
+        for name, argv in requests.items():
             buf = io.StringIO()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
-                rc = predict.main(["deepspeech_ctc", *paths, "--weights",
-                                   str(tmp / "w.npz"), "--units",
-                                   str(tmp / "units.txt"), "--beam-width",
-                                   str(BEAM), "--device", "cuda", *extra])
+                rc = predict.main([*argv, "--beam-width", str(BEAM),
+                                   "--device", "cuda"])
             lines = [ln for ln in buf.getvalue().strip().splitlines()
                      if not ln.startswith("#")]
             phase(f"[6 cli {name}] predict rc={rc}, {len(lines)} transcripts "
@@ -1127,7 +1349,7 @@ def main() -> int:
     # ---- 7. the training slice through Trainer.train_step ---------------------
     train_slice(kernels, wrappers, card)
 
-    order = ("K1", "K2", "K4", "K3", "K3-LM", "K10", "K5", "K5b", "K6",
+    order = ("K1", "K2", "K4", "K3", "K3-LM", "K10", "K8", "K5", "K5b", "K6",
              "K6b")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {

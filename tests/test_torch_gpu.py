@@ -9,9 +9,12 @@ jax, so run these without the suite's jax conftest:
 small ragged shapes that a kernel edit can be iterated on.
 """
 
+import ctypes
+
 import pytest
 import torch
 
+from tpuasr_torch import _build
 from tpuasr_torch.decode.beam import beam_scan, beam_scan_plain
 from tpuasr_torch.decode.beam import ctc_beam_search as kernel_search
 from tpuasr_torch.features import FeatureConfig, fbank_power
@@ -26,6 +29,7 @@ from tpuasr_torch.ops.gru import (gru_scan_bwd, gru_scan_bwd_plain,
                                   gru_scan_xfused_q8, gru_scan_xfused_q8_plain,
                                   prev_states)
 from tpuasr_torch.ops.quant import quantize_per_channel
+from tpuasr_torch.ops.routing import routed_caps, routed_caps_plain, squash
 from tpuasr_torch.precision import full_fp32
 
 pytestmark = pytest.mark.gpu
@@ -234,3 +238,90 @@ def test_ctc_kernels(dev):
         assert torch.equal(got > -1e29, reach)
         torch.testing.assert_close(got[reach], want[reach], rtol=1e-5,
                                    atol=1e-6)
+
+
+def test_k3_exact_capsnet_classes(dev):
+    """K3 at CapsNet's 48 classes (config 4), ragged lengths."""
+    g = torch.Generator().manual_seed(9)
+    lp = torch.log_softmax(torch.randn(5, 60, 48, generator=g) * 2, -1)
+    lp = lp.to(dev).contiguous()
+    lens = torch.tensor([60, 0, 1, 33, 59], dtype=torch.int32).to(dev)
+    got = beam_scan(lp, lens, 8, 0, 64)
+    ref = beam_scan_plain(lp, lens, 8, 0, 64)
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r)
+
+
+def _routing_case(dev, B, T, I, Din, O, D, seed=10):
+    """Squashed u of length ~0.9 and W of scale 0.5: the routing moves the
+    coupling well away from uniform (at config 4 the largest c is about
+    5x 1/O) and |v| reaches 0.9, so the tolerances bite."""
+    g = torch.Generator().manual_seed(seed)
+    u = squash(torch.randn(B, T, I, Din, generator=g) * 2.0)
+    W = torch.randn(I, Din, O * D, generator=g) * 0.5
+    return u.to(dev).contiguous(), W.to(dev).contiguous()
+
+
+# (B, T, I, Din, O, D, iters). Row counts 21, 22, 9, 10, 15, 13, 14, 5
+# and 6 are multiples of neither 4 nor 8 rows per block; I = 96 (the JAX
+# tests' unaligned I), 95, 93, 17 and 33 (odd: a half-filled last chunk of
+# 2 capsules); O*D = 21 and 30 are not multiples of 8, and D = 3 and 6
+# take the kernel's unvectorized W loads; Din = 5 gives u's staged rows an
+# odd length and makes the W chunks' copies 4-byte; Din = 16 fills a warp's
+# lanes with a row's chunk of u, Din = 1 leaves all but two idle; O = 128
+# and 96 at D = 16 read W from L2 (their chunks do not fit the shared
+# memory of the 512- and 384-thread launch shapes), the others stage it.
+K8_CASES = [
+    (3, 7, 96, 8, 10, 4, 3),
+    (2, 11, 256, 8, 48, 16, 3),
+    (1, 9, 256, 8, 48, 16, 1),
+    (2, 5, 95, 8, 48, 16, 3),
+    (3, 5, 93, 5, 7, 3, 3),
+    (1, 13, 256, 4, 5, 6, 1),
+    (2, 7, 96, 8, 128, 16, 2),
+    (1, 5, 64, 8, 96, 16, 3),
+    (2, 3, 17, 16, 9, 8, 2),
+    (1, 6, 33, 1, 4, 4, 3),
+]
+
+
+@pytest.mark.parametrize("B,T,I,Din,O,D,iters", K8_CASES)
+def test_k8(dev, B, T, I, Din, O, D, iters):
+    """K8 against routed_caps_plain (einsum + dynamic_routing, TF32 off)
+    within rtol 2e-5 / atol 2e-6, the JAX package's bound for its Pallas
+    kernel against the einsum path: float32 sums in other orders."""
+    u, W = _routing_case(dev, B, T, I, Din, O, D)
+    before = routed_caps.launches
+    with full_fp32():
+        got = routed_caps(u, W, O, D, iters)
+        torch.cuda.synchronize()
+        ref = routed_caps_plain(u, W, O, D, iters)
+    assert routed_caps.launches == before + 1
+    assert got.shape == (B, T, O, D)
+    torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-6)
+
+
+def test_k8_launch_code_checked(dev):
+    """A launch the kernel refuses returns its CUDA error, which the
+    wrapper's check raises; the wrapper refuses such shapes, another dtype
+    and a non-contiguous u before launching."""
+    u, W = _routing_case(dev, 1, 3, 8, 4, 200, 16)
+    v = torch.empty(1, 3, 200, 16, device=dev)
+    fn = _build.lib().tpuasr_routing_fwd
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    code = fn(_build.ptr(u), _build.ptr(W), _build.ptr(v), 3, 8, 4, 200, 16,
+              3, _build.stream_ptr(u))
+    assert code != 0
+    with pytest.raises(RuntimeError, match="routed_caps: CUDA error"):
+        _build.check(code, "routed_caps")
+    before = routed_caps.launches
+    with pytest.raises(ValueError, match="at most 128 classes"):
+        routed_caps(u, W, 200, 16)
+    u, W = _routing_case(dev, 2, 3, 8, 4, 6, 16)
+    with pytest.raises(ValueError, match="dtype"):
+        routed_caps(u.double(), W, 6, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        routed_caps(u.transpose(2, 3).contiguous().transpose(2, 3), W, 6, 16)
+    assert routed_caps.launches == before

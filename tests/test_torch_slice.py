@@ -151,6 +151,8 @@ def test_package_imports_without_the_jax_package(tmp_path):
             "import tpuasr_torch\n"
             "mods = [m.name for m in pkgutil.walk_packages("
             "tpuasr_torch.__path__, 'tpuasr_torch.')]\n"
+            "assert {'tpuasr_torch.models.capsnet', "
+            "'tpuasr_torch.ops.routing'} <= set(mods), mods\n"
             "for m in mods: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'tpuasr')]\n"

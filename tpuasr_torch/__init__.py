@@ -1,11 +1,17 @@
 """tpuasr_torch: the PyTorch + CUDA port of tpuasr, in progress.
 
-Two slices run on one NVIDIA H100. Serving (``serve.Recognizer``):
+These slices run on one NVIDIA H100. Serving (``serve.Recognizer``):
 
     8 kHz wav batch -> FusedFeaturizer (CUDA fbank kernel)
       -> DeepSpeechCTC: conv1+BN, conv2+BN, 4 x BiGRU with masked BN
          (CUDA GRU scan kernel, int8 or bf16) -> head + log-softmax
       -> CTC prefix beam search (CUDA beam kernel) -> tokens
+
+CapsNet (BASELINE config 4), served through the same ``Recognizer``:
+
+    wav batch -> FusedFeaturizer -> CapsNetCTC: stem conv + BN, primary
+      capsules, squash -> dynamic routing (CUDA kernel K8, u_hat never
+      stored) -> capsule lengths -> log-softmax -> greedy or beam
 
 Training (``train.Trainer.train_step``), in float32:
 

@@ -1,8 +1,9 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
 All sources under ``tpuasr_torch/csrc/`` are compiled by ``nvcc`` (from
-``CUDA_HOME``/``CUDA_PATH``, then ``PATH``, then ``/usr/local/cuda``) into
-one shared library with a plain C interface, for ``sm_90a`` (Hopper). The
+``CUDA_HOME``/``CUDA_PATH``, then ``PATH``, then ``/usr/local/cuda``), one
+process per source, all started together, and linked into one shared
+library with a plain C interface, for ``sm_90a`` (Hopper). The
 library lands in ``build/tpuasr_torch/`` at the repository root, named by a
 hash of the sources and the flags, so an edit rebuilds and an unchanged tree
 reuses the last build. A file lock keeps concurrent processes from building
@@ -78,16 +79,39 @@ def build() -> Path:
             return out
         nvcc = find_nvcc()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-               *[str(s) for s in _sources()]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
+        objs = BUILD_DIR / f"obj.{os.getpid()}"
+        objs.mkdir(exist_ok=True)
+        compile_flags = [f for f in NVCC_FLAGS if f != "-shared"]
+        jobs = []
+        for src in _sources():
+            cmd = [nvcc, *compile_flags, "-c", "-o",
+                   str(objs / f"{src.stem}.o"), str(src)]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        link = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+                *[str(objs / f"{src.stem}.o") for src in _sources()]]
+        try:
+            for cmd, proc in jobs:
+                _run(cmd, proc)
+            _run(link, subprocess.Popen(link, stdout=subprocess.PIPE,
+                                        stderr=subprocess.PIPE, text=True))
+            os.replace(tmp, out)
+        finally:
+            for _, proc in jobs:
+                proc.kill()
+                proc.wait()
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
+            shutil.rmtree(objs, ignore_errors=True)
     return out
+
+
+def _run(cmd, proc) -> None:
+    """Wait for one nvcc process; raise with its output if it failed."""
+    stdout, stderr = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{stdout}\n{stderr}")
 
 
 def lib() -> ctypes.CDLL:

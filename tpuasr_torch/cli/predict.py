@@ -8,7 +8,8 @@ fusion in the search with ``--lm-fusion``, else n-best rescoring), WFST
 n-best rescoring (``--fst`` with ``--beam``), word output through a lexicon
 (``--lexicon``/``--words``), and graph-constrained decoding
 (``--graph-decode``, from ``--fst`` or built from the lexicon and a word
-LM). ``--int8`` serves the int8 GRU kernel. Weights come from
+LM). ``--int8`` serves DeepSpeech's int8 GRU kernel; ``capsule1`` (CapsNet,
+routed by the K8 kernel) has no GRU and refuses it. Weights come from
 ``tpuasr_torch.convert.save_npz`` output; its metadata (num_classes,
 model_kwargs, feature config) is used when present.
 """
@@ -118,10 +119,14 @@ def _load_model(args, units):
                                  n_mels=args.n_mels, cmn=not args.no_cmvn,
                                  cvn=not args.no_cmvn)
     model_kwargs = dict(meta.get("model_kwargs", {}))
+    name = meta.get("model", args.model)
     if args.int8:
+        cls = MODEL_REGISTRY.get(name)
+        if cls is not None and not cls.supports_int8:
+            raise SystemExit(f"--int8 quantizes the GRU input projections; "
+                             f"{name} has no GRU (serve it without --int8)")
         model_kwargs.update(pallas_gru=True, fused_proj=True, int8_proj=True)
-    model = create_model(meta.get("model", args.model),
-                         num_classes=num_classes,
+    model = create_model(name, num_classes=num_classes,
                          in_features=feat_cfg.base_dim, **model_kwargs)
     model.load_state_dict(from_jax_variables(tree))
     return model, feat_cfg, num_classes

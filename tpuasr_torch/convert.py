@@ -8,12 +8,15 @@ by module name. The port's modules use the same names, so a leaf at
   (Cout, Cin, Kt, Kf);
 * a Dense ``kernel`` (in, out) becomes a Linear ``weight`` (out, in).
 
-Batch-norm ``scale``/``bias`` and ``mean``/``var`` and the GRU ``wx``/
-``wh``/``b`` keep the JAX layout. The training step starts from a JAX
-``init_state`` the same way (``Trainer.init_state({"params": ...,
-"batch_stats": ...})``) and gives its state back as a Flax tree through
-``to_jax_variables`` (``TrainState.variables()``). To export a JAX checkpoint (in a process
-that has JAX):
+Every other leaf keeps its name and layout: a conv ``bias``, batch-norm
+``scale``/``bias`` and ``mean``/``var``, the GRU ``wx``/``wh``/``b``,
+CapsNet's ``W_route`` (N_in, Din, O*D) and its 0-d ``logit_scale``.
+
+The training step starts from a JAX ``init_state`` the same way
+(``Trainer.init_state({"params": ..., "batch_stats": ...})``) and gives its
+state back as a Flax tree through ``to_jax_variables``
+(``TrainState.variables()``). To export a JAX checkpoint, DeepSpeech or
+CapsNet (in a process that has JAX):
 
     import jax, numpy as np
     from tpuasr.train.checkpoints import load_for_inference
@@ -71,7 +74,9 @@ def to_jax_variables(state_dict) -> dict:
         node = tree[col]
         for p in path[:-1]:
             node = node.setdefault(p, {})
-        node[path[-1]] = np.ascontiguousarray(a)
+        # ascontiguousarray alone would make a 0-d leaf (CapsNet's
+        # logit_scale) 1-d.
+        node[path[-1]] = np.ascontiguousarray(a).reshape(a.shape)
     return tree
 
 

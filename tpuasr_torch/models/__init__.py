@@ -5,11 +5,13 @@ Common contract, as in ``tpuasr.models``:
     model(feats (B, T, F), feat_lens (B,)) -> (log_probs (B, T', C), out_lens)
 """
 
+from tpuasr_torch.models.capsnet import CapsNetCTC
 from tpuasr_torch.models.deepspeech_ctc import DeepSpeechCTC
 
 MODEL_REGISTRY = {
     "deepspeech_ctc": DeepSpeechCTC,
     "deepspeech_var": DeepSpeechCTC,   # variant: configured via kwargs
+    "capsule1": CapsNetCTC,
 }
 
 
@@ -20,4 +22,4 @@ def create_model(name: str, num_classes: int, **kwargs):
     return MODEL_REGISTRY[name](num_classes=num_classes, **kwargs)
 
 
-__all__ = ["DeepSpeechCTC", "MODEL_REGISTRY", "create_model"]
+__all__ = ["CapsNetCTC", "DeepSpeechCTC", "MODEL_REGISTRY", "create_model"]

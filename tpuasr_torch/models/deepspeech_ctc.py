@@ -31,16 +31,14 @@ import torch.nn.functional as F
 
 from tpuasr_torch.models.layers import (BatchNorm, BiGRU, FrontConv,
                                         MaskedBatchNorm, _lecun_normal_,
-                                        conv_out_length, sequence_mask)
+                                        conv_out_length, frontend_dim,
+                                        sequence_mask)
 from tpuasr_torch.precision import full_fp32
 
 
-def frontend_dim(in_features: int, conv_channels: int) -> int:
-    """Features per frame after the two freq-stride-2 SAME convs."""
-    return -(-(-(-in_features // 2)) // 2) * conv_channels
-
-
 class DeepSpeechCTC(nn.Module):
+    supports_int8 = True       # the predict CLI's --int8 (K4)
+
     def __init__(self, num_classes: int, rnn_hidden: int = 512,
                  rnn_layers: int = 4, conv_channels: int = 32,
                  dropout: float = 0.1, axis_name=None,

@@ -35,6 +35,11 @@ def conv_out_length(lengths, kernel: int, stride: int, padding):
     return (lengths + 2 * p - kernel) // stride + 1
 
 
+def frontend_dim(in_features: int, conv_channels: int) -> int:
+    """Features per frame after the two freq-stride-2 SAME convs."""
+    return -(-(-(-in_features // 2)) // 2) * conv_channels
+
+
 def _same_pad(n: int, k: int, s: int) -> tuple[int, int]:
     """XLA SAME padding split (the extra pad on the high side)."""
     out = -(-n // s)
@@ -52,14 +57,15 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator) -> torch.Tensor:
 
 
 class FrontConv(nn.Module):
-    """2-D conv over (time, freq) with XLA SAME padding and no bias.
+    """2-D conv over (time, freq) with XLA SAME padding, without a bias
+    unless ``bias=True`` (flax ``nn.Conv``'s default, zero-initialized).
 
     Input and output are NCHW (B, C, T, F); ``weight`` is OIHW
     (Cout, Cin, Kt, Kf). The model runs it under ``precision.full_fp32``.
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size, strides,
-                 generator=None):
+                 generator=None, bias: bool = False):
         super().__init__()
         self.kernel_size = tuple(kernel_size)
         self.strides = tuple(strides)
@@ -67,13 +73,14 @@ class FrontConv(nn.Module):
             (features, in_channels, *self.kernel_size)))
         fan_in = in_channels * self.kernel_size[0] * self.kernel_size[1]
         _lecun_normal_(self.weight, fan_in, generator)
+        self.bias = nn.Parameter(torch.zeros(features)) if bias else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         (kt, kf), (st, sf) = self.kernel_size, self.strides
         pt = _same_pad(x.shape[2], kt, st)
         pf = _same_pad(x.shape[3], kf, sf)
         x = F.pad(x, (pf[0], pf[1], pt[0], pt[1]))
-        return F.conv2d(x, self.weight, stride=(st, sf))
+        return F.conv2d(x, self.weight, self.bias, stride=(st, sf))
 
 
 def _update_running(norm: nn.Module, mean: torch.Tensor,
