@@ -15,9 +15,9 @@ Phases, each fatal on failure:
      gather) at the shapes of the served model (B=128 utterances of 10 s at
      8 kHz, C=64, a 512 x 4 BiGRU, beam K=8), and the training kernels K5,
      K5b, K6, K6b at the shapes of the BASELINE config-3 train step (B=16 x
-     5 s, T'=249, U=24), and K8 (CapsNet routing) at the shapes of
-     BASELINE config 4 (B=8 and B=32 x 5 s, T'=249, I=256, Din=8, O=48,
-     D=16, 3 iterations);
+     5 s, T'=249, U=24), and K8 and K8b (CapsNet routing, forward and
+     backward) at the shapes of BASELINE config 4 (B=8 and B=32 x 5 s,
+     T'=249, I=256, Din=8, O=48, D=16, 3 iterations);
   4. the serving slice through Recognizer: the int8 arm (the default) and
      the bf16 arm, with launch counts, agreement with the plain path, and
      x-real-time of the kernel path and of the plain path; then the
@@ -33,7 +33,11 @@ Phases, each fatal on failure:
   7. the training slice through Trainer.train_step (config 3: the 512 x 4
      DeepSpeechCTC in float32, adamw, B=16 x 5 s, U=24): launch counts per
      step, step 1 against the plain path, the loss after 10 steps on the
-     repeated batch, and train-step ms at B=16 and B=64.
+     repeated batch, and train-step ms at B=16 and B=64;
+  8. the CapsNet training step through Trainer.train_step (config 4:
+     capsule1 with 48 classes, CTC, adamw 3e-4, B=8 x 5 s, U=16): launch
+     counts per step, step 1 against the plain path, the loss after 10
+     steps on the repeated batch, and train-step ms at B=8 and B=32.
 
 Weights are random, made from a seed. The line before the last holds
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}. Without
@@ -65,6 +69,7 @@ BEAM = 8
 SEED = 0
 ROOT = Path(__file__).resolve().parent
 # Config 3 (benchmarks/config3_deepspeech_train.py): the train step's batch.
+# Config 4's train step also takes utterances of TRAIN_SECONDS.
 TRAIN_B = 16
 TRAIN_SECONDS = 5.0
 TRAIN_U = 24
@@ -82,6 +87,12 @@ CAPS_SECONDS = 5.0
 CAPS_BATCHES = (8, 32)
 CAPS_W_SCALE = 20.0
 CAPS_UNITS = ["<blank>"] + [f"p{i}" for i in range(1, CAPS_CLASSES)]
+# Config 4's train step (benchmarks/config4_capsnet.py:22-37): U=16 tokens.
+CAPS_TRAIN_U = 16
+# K8b's bound: du and dW each within 2e-5 of its largest magnitude (float32
+# sums in other orders: dW over all B*T' rows, du over O*D terms; the
+# kernel rebuilds the coupling from u_hat . (v_0 + ... + v_{iters-2})).
+K8B_TOL = 2e-5
 # Published H100 SXM peaks: HBM bytes/s and dense operations/s by type.
 HBM_BPS = 3.35e12
 PEAK = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
@@ -625,119 +636,10 @@ def train_kernels(record, gen) -> None:
                pms, bd, lib)
 
 
-def train_slice(kernels, wrappers, card) -> None:
-    """Phase 7: config 3's train step through Trainer on the card."""
-    from tpuasr_torch.features import FeatureConfig
-    from tpuasr_torch.losses import ctc as ctc_mod
-    from tpuasr_torch.ops import gru as gru_mod
-    from tpuasr_torch.train import TrainConfig, Trainer
-
-    cfg = TrainConfig(model="deepspeech_ctc", num_classes=NUM_CLASSES,
-                      warmup_steps=1,
-                      model_kwargs=dict(rnn_hidden=HIDDEN, rnn_layers=LAYERS,
-                                        pallas_gru=True))
-    feat_cfg = FeatureConfig()
-    S = int(SR * TRAIN_SECONDS)
-
-    def make_batch(n):
-        rng = np.random.default_rng(SEED)
-        wav = (rng.standard_normal((n, S)) * 0.2).astype(np.float32)
-        tok = rng.integers(1, NUM_CLASSES, (n, TRAIN_U)).astype(np.int32)
-        return {k: torch.as_tensor(v, device="cuda") for k, v in dict(
-            wav=wav, wav_lens=np.full((n,), S, np.int32), tokens=tok,
-            token_lens=np.full((n,), TRAIN_U, np.int32),
-            real=np.ones((n,), np.float32)).items()}
-
-    def timed(trainer, state, batch, n):
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(n):
-            state, m = trainer.train_step(state, batch)
-        end.record()
-        torch.cuda.synchronize()
-        return state, m, start.elapsed_time(end) / n
-
-    trainer = Trainer(cfg, feat_cfg, device="cuda")
-    batch = make_batch(TRAIN_B)
-    state = trainer.init_state()
-    init = {k: v.clone() for k, v in state.model.state_dict().items()}
-    n_params = sum(p.numel() for p in state.model.parameters())
-
-    # The counted run of the training path: one step.
-    for w in wrappers.values():
-        w.launches = 0
-    state, m1 = trainer.train_step(state, batch)
-    torch.cuda.synchronize()
-    counts = {k: w.launches for k, w in wrappers.items()}
-    want = dict({k: 0 for k in wrappers}, K5=2 * LAYERS, K5b=2 * LAYERS,
-                K6=1, K6b=1)
-    phase(f"[7 train] {n_params} parameters; launch counts per step: "
-          f"{json.dumps(counts)}")
-    if counts != want:
-        fail(f"train launch counts {counts} != {want}")
-    for k in ("K5", "K5b", "K6", "K6b"):
-        kernels[k]["launches"] = counts[k]
-
-    # Step 1 on the plain path: same weights, same dropout stream.
-    plain = trainer.init_state()
-    plain.model.load_state_dict(init)
-    patches = ((gru_mod, "gru_scan_fwd", gru_mod.gru_scan_plain),
-               (gru_mod, "gru_scan_bwd", gru_mod.gru_scan_bwd_plain),
-               (ctc_mod, "ctc_alphas_kernel", ctc_mod.ctc_alphas_plain),
-               (ctc_mod, "ctc_betas_kernel", ctc_mod.ctc_betas_plain))
-    before = sum(w.launches for w in wrappers.values())
-    with contextlib.ExitStack() as stack:
-        for mod, name, fn in patches:
-            stack.enter_context(mock.patch.object(mod, name, fn))
-        t0 = time.perf_counter()
-        plain, p1 = trainer.train_step(plain, batch)
-        torch.cuda.synchronize()
-        plain_s = time.perf_counter() - t0
-    if sum(w.launches for w in wrappers.values()) != before:
-        fail("the plain training path launched a kernel")
-    got = {k: float(v) for k, v in m1.items()}
-    ref = {k: float(v) for k, v in p1.items()}
-    rel = {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in got}
-    phase(f"[7 train] step 1: loss {got['loss']:.6f} grad_norm "
-          f"{got['grad_norm']:.6f}; plain path {ref['loss']:.6f} "
-          f"{ref['grad_norm']:.6f} ({plain_s:.2f} s, host clock); relative "
-          f"differences {rel['loss']:.3e} {rel['grad_norm']:.3e} (tol 1e-4)")
-    if not (all(np.isfinite(list(got.values())))
-            and max(rel.values()) <= 1e-4):
-        fail("the training step disagrees with its plain path")
-
-    # Step 2 warms up; then 10 timed steps on the repeated batch.
-    state, m2 = trainer.train_step(state, batch)
-    loss2 = float(m2["loss"])
-    state, m12, ms = timed(trainer, state, batch, 10)
-    loss12 = float(m12["loss"])
-    phase(f"[7 train] loss step 2 {loss2:.4f} -> step 12 {loss12:.4f} "
-          "(must fall)")
-    if not (np.isfinite(loss12) and loss12 < loss2):
-        fail("the loss did not fall over 10 steps on the repeated batch")
-    results = [(TRAIN_B, ms, trainer, state, batch)]
-    trainer64 = Trainer(cfg, feat_cfg, device="cuda")
-    batch64 = make_batch(64)
-    state64, _ = trainer64.train_step(trainer64.init_state(), batch64)
-    state64, m64, ms64 = timed(trainer64, state64, batch64, 10)
-    if not np.isfinite(float(m64["loss"])):
-        fail("non-finite loss at B=64")
-    results.append((64, ms64, trainer64, state64, batch64))
-    for n, ms_n, tr, st, bt in results:
-        phase(f"[7 train] B={n} x {TRAIN_SECONDS:.0f} s f32: train step "
-              f"{ms_n:.2f} ms (CUDA events, mean of 10 after a warm-up) = "
-              f"{n / (ms_n / 1e3):.1f} utt/s [{card}]")
-        phase(f"[7 train] B={n} device time of one step by kernel "
-              f"(torch.profiler): "
-              f"{device_breakdown(lambda: tr.train_step(st, bt), top=8)}")
-    torch.cuda.synchronize()
-
-
 def capsnet_kernels(record, gen) -> None:
-    """Phase 3 for K8 at config 4's shapes: u (B, 249, 256, 8) from the
-    model's squash, W (256, 8, 48 * 16), 3 iterations, B = 8 and 32."""
+    """Phase 3 for K8 and K8b at config 4's shapes: u (B, 249, 256, 8) from
+    the model's squash, W (256, 8, 48 * 16), a seeded dv for K8b, 3
+    iterations, B = 8 and 32."""
     from tpuasr_torch.features import FeatureConfig
     from tpuasr_torch.features.reference import num_frames
     from tpuasr_torch.ops import routing as routing_mod
@@ -752,6 +654,8 @@ def capsnet_kernels(record, gen) -> None:
                                * 2.0).to("cuda").contiguous()
         W = (torch.randn(I, Din, O * D, generator=gen) * 0.5).to(
             "cuda").contiguous()
+        dv = torch.randn(Bc, T, O, D, generator=gen).to("cuda")
+        timed = Bc == CAPS_BATCHES[0]
 
         def kern():
             return routing_mod.routed_caps(u, W, O, D, iters)
@@ -759,7 +663,13 @@ def capsnet_kernels(record, gen) -> None:
         def plain():
             return routing_mod.routed_caps_plain(u, W, O, D, iters)
 
-        # rtol 2e-5 / atol 2e-6: the JAX package's bound for its Pallas
+        def kern_bwd():
+            return routing_mod.routed_caps_bwd(u, W, dv, O, D, iters)
+
+        def plain_bwd():
+            return routing_mod.routed_caps_bwd_plain(u, W, dv, O, D, iters)
+
+        # K8: rtol 2e-5 / atol 2e-6, the JAX package's bound for its Pallas
         # kernel against the einsum path (float32 sums in other orders).
         with full_fp32():
             got, ref = kern(), plain()
@@ -779,12 +689,38 @@ def capsnet_kernels(record, gen) -> None:
               f"({bd[1]}); no PyTorch call computes it")
         if not ok:
             fail(f"K8 disagrees with its plain version at B={Bc}")
-        timed = Bc == CAPS_BATCHES[0]
         record("K8", "routed_caps (routing forward)",
                "tpuasr_torch/csrc/routing.cu",
                "tpuasr/ops/pallas_routing.py:161", err,
                *((ms, pms, bd) if timed else ()))
-        del u, W, got, ref
+        del got, ref
+
+        # K8b: du and dW each within K8B_TOL of its largest magnitude.
+        with full_fp32():
+            got, ref = kern_bwd(), plain_bwd()
+            errs = [(a - r).abs().max().item() for a, r in zip(got, ref)]
+            tops = [r.abs().max().item() for r in ref]
+            ms = cuda_ms(kern_bwd, 10)
+            torch.cuda.reset_peak_memory_stats()
+            pms = cuda_ms(plain_bwd, 2)
+            plain_gb = torch.cuda.max_memory_allocated() / 1e9
+        # Operations the gradient needs per row: u_hat, the routing to the
+        # final s, du_hat, du and dW; bytes: u, W and dv in, du and dW out.
+        ops = Bc * T * (6 * Din + 4 * iters - 1) * O * D * I
+        bd = bound(nbytes(u, W, dv, *got), ops, "fp32")
+        phase(f"[3 K8b] routed_caps_bwd B={Bc}: du max_abs_err {errs[0]:.3e}"
+              f" of |du| max {tops[0]:.3e} (rel {errs[0] / tops[0]:.2e}), dW "
+              f"{errs[1]:.3e} of {tops[1]:.3e} (rel {errs[1] / tops[1]:.2e};"
+              f" tol {K8B_TOL:g} of each) kernel {ms:.3f} ms plain "
+              f"{pms:.3f} ms (peak memory {plain_gb:.2f} GB) bound "
+              f"{bd[0]:.4f} ms ({bd[1]}); no PyTorch call computes it")
+        if not all(e <= K8B_TOL * t for e, t in zip(errs, tops)):
+            fail(f"K8b disagrees with its plain version at B={Bc}")
+        record("K8b", "routed_caps_bwd (routing backward)",
+               "tpuasr_torch/csrc/routing_bwd.cu",
+               "tpuasr/ops/pallas_routing.py:180", max(errs),
+               *((ms, pms, bd) if timed else ()))
+        del u, W, dv, got, ref
     torch.cuda.empty_cache()
 
 
@@ -919,6 +855,208 @@ def capsnet_slice(kernels, wrappers, card, plain_path) -> None:
                 prt = cuda_ms(lambda: rec(wav_d, lens_d), 2)
             phase(f"[4 capsnet {arm}] plain path {prt:.3f} ms per batch = "
                   f"{audio_s / (prt / 1e3):.1f}x real time [{card}]")
+
+
+def train_phase(tag, cfg, U, sizes, want, count, patches, kernels,
+                wrappers, card, prepare=None, check=None) -> None:
+    """A train step through Trainer on the card, on a batch of seeded noise
+    (sizes[0] utterances of TRAIN_SECONDS, U tokens each): the launch counts
+    of one step (which must equal want; the counts of the kernels in count
+    are kept), step 1 against the plain path (patches) within rtol 1e-4 on
+    the same weights and dropout stream, the loss over 10 more steps on the
+    repeated batch, and train-step ms at each batch size in sizes.
+    prepare(model) adjusts the seeded weights in place; check(trainer,
+    batch, fresh_state, metrics, plain_path) adds checks of step 1, where
+    fresh_state() gives a state with step 1's weights."""
+    from tpuasr_torch.features import FeatureConfig
+    from tpuasr_torch.train import Trainer
+
+    S = int(SR * TRAIN_SECONDS)
+
+    def make_batch(n):
+        rng = np.random.default_rng(SEED)
+        wav = (rng.standard_normal((n, S)) * 0.2).astype(np.float32)
+        tok = rng.integers(1, cfg.num_classes, (n, U)).astype(np.int32)
+        return {k: torch.as_tensor(v, device="cuda") for k, v in dict(
+            wav=wav, wav_lens=np.full((n,), S, np.int32), tokens=tok,
+            token_lens=np.full((n,), U, np.int32),
+            real=np.ones((n,), np.float32)).items()}
+
+    def new_state(trainer, weights=None):
+        state = trainer.init_state()
+        with torch.no_grad():
+            if weights is not None:
+                state.model.load_state_dict(weights)
+            elif prepare is not None:
+                prepare(state.model)
+        return state
+
+    def timed(trainer, state, batch, n):
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            state, m = trainer.train_step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        return state, m, start.elapsed_time(end) / n
+
+    @contextlib.contextmanager
+    def plain_path():
+        with contextlib.ExitStack() as stack:
+            for mod, name, fn in patches:
+                stack.enter_context(mock.patch.object(mod, name, fn))
+            yield
+
+    trainer = Trainer(cfg, FeatureConfig(), device="cuda")
+    batch = make_batch(sizes[0])
+    state = new_state(trainer)
+    init = {k: v.clone() for k, v in state.model.state_dict().items()}
+    n_params = sum(p.numel() for p in state.model.parameters())
+
+    # The counted run of the training path: one step.
+    for w in wrappers.values():
+        w.launches = 0
+    state, m1 = trainer.train_step(state, batch)
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    want = dict({k: 0 for k in wrappers}, **want)
+    phase(f"[{tag}] {n_params} parameters; launch counts per step: "
+          f"{json.dumps(counts)}")
+    if counts != want:
+        fail(f"{tag}: launch counts {counts} != {want}")
+    for k in count:
+        kernels[k]["launches"] = counts[k]
+
+    # Step 1 on the plain path: same weights, same dropout stream.
+    plain = new_state(trainer, init)
+    before = sum(w.launches for w in wrappers.values())
+    with plain_path():
+        t0 = time.perf_counter()
+        plain, p1 = trainer.train_step(plain, batch)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    if sum(w.launches for w in wrappers.values()) != before:
+        fail(f"{tag}: the plain training path launched a kernel")
+    got = {k: float(v) for k, v in m1.items()}
+    ref = {k: float(v) for k, v in p1.items()}
+    rel = {k: abs(got[k] - ref[k]) / abs(ref[k]) for k in got}
+    phase(f"[{tag}] step 1: loss {got['loss']:.6f} grad_norm "
+          f"{got['grad_norm']:.6f}; plain path {ref['loss']:.6f} "
+          f"{ref['grad_norm']:.6f} ({plain_s:.2f} s, host clock); relative "
+          f"differences {rel['loss']:.3e} {rel['grad_norm']:.3e} (tol 1e-4)")
+    if not (all(np.isfinite(list(got.values())))
+            and max(rel.values()) <= 1e-4):
+        fail(f"{tag}: the training step disagrees with its plain path")
+    del plain
+    if check is not None:
+        check(trainer, batch, lambda: new_state(trainer, init), got,
+              plain_path)
+
+    # Step 2 warms up; then 10 timed steps on the repeated batch.
+    state, m2 = trainer.train_step(state, batch)
+    loss2 = float(m2["loss"])
+    state, m12, ms = timed(trainer, state, batch, 10)
+    loss12 = float(m12["loss"])
+    phase(f"[{tag}] loss step 2 {loss2:.4f} -> step 12 {loss12:.4f} "
+          "(must fall)")
+    if not (np.isfinite(loss12) and loss12 < loss2):
+        fail(f"{tag}: the loss did not fall over 10 steps on the repeated "
+             "batch")
+    results = [(sizes[0], ms, trainer, state, batch)]
+    for n in sizes[1:]:
+        tr = Trainer(cfg, FeatureConfig(), device="cuda")
+        bt = make_batch(n)
+        st, _ = tr.train_step(new_state(tr), bt)
+        st, mn, ms_n = timed(tr, st, bt, 10)
+        if not np.isfinite(float(mn["loss"])):
+            fail(f"{tag}: non-finite loss at B={n}")
+        results.append((n, ms_n, tr, st, bt))
+    for n, ms_n, tr, st, bt in results:
+        phase(f"[{tag}] B={n} x {TRAIN_SECONDS:.0f} s f32: train step "
+              f"{ms_n:.2f} ms (CUDA events, mean of 10 after a warm-up) = "
+              f"{n / (ms_n / 1e3):.1f} utt/s [{card}]")
+        phase(f"[{tag}] B={n} device time of one step by kernel "
+              f"(torch.profiler): "
+              f"{device_breakdown(lambda: tr.train_step(st, bt), top=8)}")
+    torch.cuda.synchronize()
+
+
+def train_slice(kernels, wrappers, card) -> None:
+    """Phase 7: config 3's train step through Trainer on the card (the 512
+    x 4 DeepSpeechCTC in float32, adamw, B=16 and 64 x 5 s, U=24)."""
+    from tpuasr_torch.losses import ctc as ctc_mod
+    from tpuasr_torch.ops import gru as gru_mod
+    from tpuasr_torch.train import TrainConfig
+
+    cfg = TrainConfig(model="deepspeech_ctc", num_classes=NUM_CLASSES,
+                      warmup_steps=1,
+                      model_kwargs=dict(rnn_hidden=HIDDEN, rnn_layers=LAYERS,
+                                        pallas_gru=True))
+    counted = dict(K5=2 * LAYERS, K5b=2 * LAYERS, K6=1, K6b=1)
+    patches = ((gru_mod, "gru_scan_fwd", gru_mod.gru_scan_plain),
+               (gru_mod, "gru_scan_bwd", gru_mod.gru_scan_bwd_plain),
+               (ctc_mod, "ctc_alphas_kernel", ctc_mod.ctc_alphas_plain),
+               (ctc_mod, "ctc_betas_kernel", ctc_mod.ctc_betas_plain))
+    train_phase("7 train", cfg, TRAIN_U, (TRAIN_B, 64), counted, counted,
+                patches, kernels, wrappers, card)
+
+
+def capsnet_train_slice(kernels, wrappers, card) -> None:
+    """Phase 8: config 4's train step through Trainer on the card
+    (benchmarks/config4_capsnet.py:22-37: capsule1 with 48 classes, CTC,
+    adamw 3e-4, warmup_steps=1, B=8 and 32 x 5 s, U=16).
+
+    The weights are the seeded init with W_route scaled by CAPS_W_SCALE, as
+    in the serving phase: at the init scale the routing is nearly flat
+    (class capsules of length ~0.001), and the coupling would stay near
+    uniform. A grad-norm within rtol 1e-4 of the plain path is mostly the
+    convs' gradients, so the phase also prints W_route's share of it and
+    holds W_route's gradient itself to the plain path's."""
+    from tpuasr_torch.losses import ctc as ctc_mod
+    from tpuasr_torch.models import capsnet as capsnet_mod
+    from tpuasr_torch.ops import routing as routing_mod
+    from tpuasr_torch.precision import full_fp32
+    from tpuasr_torch.train import TrainConfig
+
+    cfg = TrainConfig(model="capsule1", num_classes=CAPS_CLASSES,
+                      warmup_steps=1)
+    patches = ((capsnet_mod, "routed_caps", routing_mod.routed_caps_plain),
+               (ctc_mod, "ctc_alphas_kernel", ctc_mod.ctc_alphas_plain),
+               (ctc_mod, "ctc_betas_kernel", ctc_mod.ctc_betas_plain))
+
+    def check(trainer, batch, fresh_state, got, plain_path):
+        # The gradients of step 1 on both paths: W_route's share of the
+        # grad-norm, and its gradient's error against the plain path's,
+        # within 1e-4 of its largest magnitude (as the card test holds the
+        # model's gradients): besides K8b's own error, K8's forward error
+        # reaches dv through the logits (logit_scale 10) and the CTC loss.
+        def grads(ctx):
+            st = fresh_state()
+            with full_fp32(), ctx:
+                loss, _, _ = trainer._loss_fn(st.model,
+                                              trainer._batch(batch), True)
+                loss.backward()
+            return st.model.W_route.grad
+
+        gk = grads(contextlib.nullcontext())
+        gp = grads(plain_path())
+        norm = gk.norm().item()
+        err = (gk - gp).abs().max().item() / gp.abs().max().item()
+        phase(f"[8 capsnet train] step 1: W_route's gradient norm "
+              f"{norm:.6f} = {norm / got['grad_norm']:.4f} of the "
+              f"grad-norm; its max error against the plain path {err:.2e} "
+              f"of its largest magnitude (tol 1e-4)")
+        if not err <= 1e-4:
+            fail("the CapsNet step's W_route gradient disagrees with the "
+                 "plain path")
+
+    train_phase("8 capsnet train", cfg, CAPS_TRAIN_U, CAPS_BATCHES,
+                dict(K8=1, K8b=1, K6=1, K6b=1), ("K8b",), patches, kernels,
+                wrappers, card,
+                prepare=lambda model: model.W_route.mul_(CAPS_W_SCALE),
+                check=check)
 
 
 def main() -> int:
@@ -1133,7 +1271,7 @@ def main() -> int:
     # K5 / K5b / K6 / K6b at the config-3 train step's shapes.
     train_kernels(record, gen)
 
-    # K8 at config 4's shapes.
+    # K8 and K8b at config 4's shapes.
     capsnet_kernels(record, gen)
 
     # ---- 4. the full slice through Recognizer ---------------------------------
@@ -1162,6 +1300,7 @@ def main() -> int:
                 "K3": beam_mod.beam_scan,
                 "K10": gather_mod.gather_rows,
                 "K8": routing_mod.routed_caps,
+                "K8b": routing_mod.routed_caps_bwd,
                 "K5": gru_mod.gru_scan_fwd,
                 "K5b": gru_mod.gru_scan_bwd,
                 "K6": ctc_mod.ctc_alphas_kernel,
@@ -1349,8 +1488,11 @@ def main() -> int:
     # ---- 7. the training slice through Trainer.train_step ---------------------
     train_slice(kernels, wrappers, card)
 
-    order = ("K1", "K2", "K4", "K3", "K3-LM", "K10", "K8", "K5", "K5b", "K6",
-             "K6b")
+    # ---- 8. the CapsNet training step through Trainer.train_step ----------
+    capsnet_train_slice(kernels, wrappers, card)
+
+    order = ("K1", "K2", "K4", "K3", "K3-LM", "K10", "K8", "K8b", "K5", "K5b",
+             "K6", "K6b")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

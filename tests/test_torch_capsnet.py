@@ -277,17 +277,12 @@ def test_cli_predict_capsule1_rejects_int8(tmp_path):
         _predict(tmp_path, "--int8")
 
 
-def test_training_and_margin_loss_not_ported():
+def test_capsnet_rejects_other_feature_width():
     tm = create_model("capsule1", num_classes=C, **SMALL, in_features=40)
-    feats, lens = _features()
-    tm.train()
-    with pytest.raises(NotImplementedError, match="K8b"):
-        tm(torch.tensor(feats), torch.tensor(lens))
-    with pytest.raises(NotImplementedError, match="K8b"):
-        capsnet_mod.margin_loss(torch.ones(2, 3), torch.ones(2, 3))
-    tm.eval()
-    with pytest.raises(ValueError, match="40 features"):
-        tm(torch.zeros(1, 9, 64), torch.tensor([9]))
+    for train in (False, True):
+        tm.train(train)
+        with pytest.raises(ValueError, match="40 features"):
+            tm(torch.zeros(1, 9, 64), torch.tensor([9]))
 
 
 def test_seeded_capsnet_init():

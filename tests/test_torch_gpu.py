@@ -10,6 +10,7 @@ small ragged shapes that a kernel edit can be iterated on.
 """
 
 import ctypes
+from unittest import mock
 
 import pytest
 import torch
@@ -29,7 +30,12 @@ from tpuasr_torch.ops.gru import (gru_scan_bwd, gru_scan_bwd_plain,
                                   gru_scan_xfused_q8, gru_scan_xfused_q8_plain,
                                   prev_states)
 from tpuasr_torch.ops.quant import quantize_per_channel
-from tpuasr_torch.ops.routing import routed_caps, routed_caps_plain, squash
+from tpuasr_torch.models import capsnet as capsnet_mod
+from tpuasr_torch.models import create_model
+from tpuasr_torch.ops import routing as routing_mod
+from tpuasr_torch.ops.routing import (routed_caps, routed_caps_bwd,
+                                      routed_caps_bwd_plain,
+                                      routed_caps_plain, squash)
 from tpuasr_torch.precision import full_fp32
 
 pytestmark = pytest.mark.gpu
@@ -271,6 +277,9 @@ def _routing_case(dev, B, T, I, Din, O, D, seed=10):
 # lanes with a row's chunk of u, Din = 1 leaves all but two idle; O = 128
 # and 96 at D = 16 read W from L2 (their chunks do not fit the shared
 # memory of the 512- and 384-thread launch shapes), the others stage it.
+# K8b's second pass has an instance per (Din <= 8 or <= 16, up to 256 or
+# 512 class threads): O = 72 at D = 16 (288 threads) with Din = 12 takes
+# the last of them.
 K8_CASES = [
     (3, 7, 96, 8, 10, 4, 3),
     (2, 11, 256, 8, 48, 16, 3),
@@ -282,6 +291,7 @@ K8_CASES = [
     (1, 5, 64, 8, 96, 16, 3),
     (2, 3, 17, 16, 9, 8, 2),
     (1, 6, 33, 1, 4, 4, 3),
+    (1, 5, 20, 12, 72, 16, 3),
 ]
 
 
@@ -325,3 +335,146 @@ def test_k8_launch_code_checked(dev):
     with pytest.raises(ValueError, match="contiguous"):
         routed_caps(u.transpose(2, 3).contiguous().transpose(2, 3), W, 6, 16)
     assert routed_caps.launches == before
+
+
+# K8b's bound: each output within 2e-5 of its largest magnitude. Float32
+# sums in other orders (dW over all rows, du over O*D terms), and the
+# coupling from b rebuilt as u_hat . (v_0 + ... ) where the plain version
+# adds the agreement iteration by iteration (as for K8).
+K8B_TOL = 2e-5
+
+
+@pytest.mark.parametrize("B,T,I,Din,O,D,iters", K8_CASES)
+def test_k8b(dev, B, T, I, Din, O, D, iters):
+    """K8b against routed_caps_bwd_plain (TF32 off), within K8B_TOL of
+    each output's largest magnitude; a row with u = 0 (s = 0: the squash
+    VJP's eps) gets du = 0; a second call gives the same bits (no
+    atomics)."""
+    u, W = _routing_case(dev, B, T, I, Din, O, D)
+    u[0, 0] = 0.0
+    g = torch.Generator().manual_seed(11)
+    dv = torch.randn(B, T, O, D, generator=g).to(dev)
+    before = routed_caps_bwd.launches
+    with full_fp32():
+        got = routed_caps_bwd(u, W, dv, O, D, iters)
+        torch.cuda.synchronize()
+        ref = routed_caps_bwd_plain(u, W, dv, O, D, iters)
+        again = routed_caps_bwd(u, W, dv, O, D, iters)
+    assert routed_caps_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert got[0].shape == u.shape and got[1].shape == W.shape
+    assert not got[0][0, 0].any()
+    for a, r in zip(got, ref):
+        tol = K8B_TOL * r.abs().max().item()
+        torch.testing.assert_close(a, r, rtol=0, atol=tol)
+
+
+def _no_plain(*a, **k):
+    raise AssertionError("a plain routing version ran on CUDA tensors")
+
+
+def test_routed_caps_autograd_runs_k8_then_k8b(dev):
+    """Under autograd on CUDA, routed_caps launches K8 in the forward and
+    K8b in the backward, once each, and runs no plain version; the
+    gradients are autograd's through the plain version within K8B_TOL."""
+    B, T, I, Din, O, D = 2, 11, 256, 8, 48, 16
+    u, W = _routing_case(dev, B, T, I, Din, O, D)
+    tgt = torch.randn(B, T, O, D, generator=torch.Generator().manual_seed(3))
+    tgt = tgt.to(dev)
+    k8, k8b = routed_caps.launches, routed_caps_bwd.launches
+    with full_fp32():
+        ku, kW = u.clone().requires_grad_(), W.clone().requires_grad_()
+        with mock.patch.object(routing_mod, "routed_caps_plain", _no_plain), \
+                mock.patch.object(routing_mod, "routed_caps_bwd_plain",
+                                  _no_plain):
+            v = routed_caps(ku, kW, O, D)
+            assert (routed_caps.launches, routed_caps_bwd.launches) == (
+                k8 + 1, k8b)
+            torch.sum((v - tgt) ** 2).backward()
+            torch.cuda.synchronize()
+        assert (routed_caps.launches, routed_caps_bwd.launches) == (
+            k8 + 1, k8b + 1)
+        pu, pW = u.clone().requires_grad_(), W.clone().requires_grad_()
+        torch.sum((routed_caps_plain(pu, pW, O, D) - tgt) ** 2).backward()
+    for a, r in ((ku.grad, pu.grad), (kW.grad, pW.grad)):
+        torch.testing.assert_close(a, r, rtol=0,
+                                   atol=K8B_TOL * r.abs().max().item())
+    # Without a gradient, nothing is saved and only K8 runs.
+    with torch.no_grad():
+        routed_caps(ku, kW, O, D)
+    assert routed_caps_bwd.launches == k8b + 1
+
+
+def test_capsnet_training_step_on_cuda(dev):
+    """A CapsNetCTC training forward and backward on CUDA (K8, K8b)
+    against the same model with the plain routing: log-probs within 1e-4,
+    every gradient within 1e-4 of its largest magnitude (the convs'
+    gradients sum over the batch in cuDNN's order on both), the batch-norm
+    statistics within 1e-6."""
+    kw = dict(num_classes=12, conv_channels=8, primary_caps=4,
+              primary_dim=4, class_dim=4, in_features=40)
+    g = torch.Generator().manual_seed(0)
+    kern = create_model("capsule1", **kw, generator=g)
+    with torch.no_grad():
+        kern.W_route.mul_(20.0)
+    plain = create_model("capsule1", **kw)
+    plain.load_state_dict(kern.state_dict())
+    feats = torch.randn(3, 37, 40, generator=g).to(dev)
+    lens = torch.tensor([37, 22, 5]).to(dev)
+    wts = torch.randn(3, 19, 12, generator=g).to(dev)
+    k8, k8b = routed_caps.launches, routed_caps_bwd.launches
+    outs = []
+    for model in (kern, plain):
+        model.to(dev).train()
+        ctx = (mock.patch.object(capsnet_mod, "routed_caps",
+                                 routed_caps_plain) if model is plain
+               else mock.patch.object(routing_mod, "routed_caps_plain",
+                                      _no_plain))
+        with full_fp32(), ctx:
+            logp, ol = model(feats, lens)
+            torch.sum(logp * wts).backward()
+        torch.cuda.synchronize()
+        outs.append((logp.detach(), ol))
+    assert (routed_caps.launches, routed_caps_bwd.launches) == (k8 + 1,
+                                                                k8b + 1)
+    torch.testing.assert_close(outs[0][0], outs[1][0], rtol=0, atol=1e-4)
+    assert torch.equal(outs[0][1], outs[1][1])
+    for (name, a), b in zip(kern.named_parameters(), plain.parameters()):
+        torch.testing.assert_close(a.grad, b.grad, rtol=0,
+                                   atol=1e-4 * b.grad.abs().max().item(),
+                                   msg=name)
+    for name in ("mean", "var"):
+        torch.testing.assert_close(getattr(kern.stem_bn, name),
+                                   getattr(plain.stem_bn, name), rtol=0,
+                                   atol=1e-6)
+
+
+def test_k8b_launch_code_checked(dev):
+    """A launch K8b refuses returns its CUDA error; the wrapper refuses
+    such shapes, another dtype and a non-contiguous dv before launching."""
+    u, W = _routing_case(dev, 1, 3, 8, 4, 200, 16)
+    dv = torch.zeros(1, 3, 200, 16, device=dev)
+    scratch = [torch.empty(3, 200, 16, device=dev) for _ in range(2)]
+    du, dW = torch.empty_like(u), torch.empty_like(W)
+    fn = _build.lib().tpuasr_routing_bwd
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    code = fn(_build.ptr(u), _build.ptr(W), _build.ptr(dv),
+              *[_build.ptr(t) for t in scratch], _build.ptr(du),
+              _build.ptr(dW), _build.ptr(dW), 3, 8, 4, 200, 16, 3, 1,
+              _build.stream_ptr(u))
+    assert code != 0
+    before = routed_caps_bwd.launches
+    with pytest.raises(ValueError, match="at most 128 classes"):
+        routed_caps_bwd(u, W, dv, 200, 16)
+    u, W = _routing_case(dev, 2, 3, 8, 4, 6, 16)
+    dv = torch.zeros(2, 3, 6, 16, device=dev)
+    with pytest.raises(ValueError, match="dtype"):
+        routed_caps_bwd(u, W, dv.double(), 6, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        routed_caps_bwd(u, W, dv.transpose(2, 3).contiguous().transpose(2, 3),
+                        6, 16)
+    with pytest.raises(ValueError, match="shape"):
+        routed_caps_bwd(u, W, dv[:, :2].contiguous(), 6, 16)
+    assert routed_caps_bwd.launches == before

@@ -62,6 +62,10 @@
 //    Any O * D, also one that is not a multiple of 8: lanes past D, past
 //    O or past the last row carry zeros and write nothing.
 //
+// The backward K8b (routing_bwd.cu) runs this kernel as its first pass
+// (tpuasr_routing_bwd_prep): given dv, the last iteration writes each
+// row's V and the squash VJP ds of its final s in place of v.
+//
 // IEEE arithmetic only: expf, correctly rounded division and sqrtf (the
 // build never passes --use_fast_math).
 #include <cuda_runtime.h>
@@ -136,6 +140,9 @@ __global__ void __launch_bounds__(MAXT, MINB)
 routing_fwd_kernel(const float* __restrict__ u,    // (R, I, Din)
                    const float* __restrict__ W,    // (I, Din, O*D)
                    float* __restrict__ v,          // (R, O, D)
+                   const float* __restrict__ dv,   // (R, O, D) or null
+                   float* __restrict__ Vo,         // (R, O, D) if dv
+                   float* __restrict__ dso,        // (R, O, D) if dv
                    int R, int I, int Din, int O, int D, int iters, int Gp,
                    int col_threads, bool vec, bool vec16) {
   extern __shared__ float4 smem4[];
@@ -305,7 +312,9 @@ routing_fwd_kernel(const float* __restrict__ u,    // (R, I, Din)
         }
     }
 
-    // v = squash(s) per (row, o); the last iteration's v is the output.
+    // v = squash(s) per (row, o); the last iteration's v is the output,
+    // or, given dv, V and ds = g dv + 2 (s . dv) g'(a) s with a = |s|^2
+    // and g, g' as at tpuasr/ops/pallas_routing.py:136-143.
     const bool last = it + 1 == iters;
 #pragma unroll
     for (int tr = 0; tr < kTR; ++tr) {
@@ -313,8 +322,30 @@ routing_fwd_kernel(const float* __restrict__ u,    // (R, I, Din)
 #pragma unroll
       for (int tc = 0; tc < kTC; ++tc) a = fmaf(s[tr][tc], s[tr][tc], a);
       a = group_sum(a, Gp);
-      const float scale = a / (1.0f + a) * (1.0f / sqrtf(a + kEps));
+      const float inv_sq = 1.0f / sqrtf(a + kEps);
+      const float scale = a / (1.0f + a) * inv_sq;
       const int row = row0 + rloc0 + tr;
+      if (last && dv != nullptr) {
+        const size_t base = (static_cast<size_t>(row) * O + o) * D + d0;
+        float dvv[kTC];
+        float dot = 0.0f;
+#pragma unroll
+        for (int tc = 0; tc < kTC; ++tc) {
+          dvv[tc] = tc < nvalid && row < R ? dv[base + tc] : 0.0f;
+          dot = fmaf(s[tr][tc], dvv[tc], dot);
+        }
+        dot = group_sum(dot, Gp);
+        const float gp = (1.0f / ((1.0f + a) * (1.0f + a))) * inv_sq -
+                         0.5f * a / (1.0f + a) * inv_sq / (a + kEps);
+#pragma unroll
+        for (int tc = 0; tc < kTC; ++tc) {
+          if (tc < nvalid && row < R) {
+            Vo[base + tc] = V[tr][tc];
+            dso[base + tc] = scale * dvv[tc] + 2.0f * dot * gp * s[tr][tc];
+          }
+        }
+        continue;
+      }
 #pragma unroll
       for (int tc = 0; tc < kTC; ++tc) {
         const float vv = scale * s[tr][tc];
@@ -330,7 +361,8 @@ routing_fwd_kernel(const float* __restrict__ u,    // (R, I, Din)
 }
 
 template <int MAXT, int MINB, bool STAGE>
-cudaError_t launch_kernel(const float* u, const float* W, float* v, int R,
+cudaError_t launch_kernel(const float* u, const float* W, float* v,
+                          const float* dv, float* Vo, float* dso, int R,
                           int I, int Din, int O, int D, int iters, int Gp,
                           int col_threads, int RG, bool vec, size_t smem,
                           cudaStream_t stream) {
@@ -351,13 +383,15 @@ cudaError_t launch_kernel(const float* u, const float* W, float* v, int R,
   const bool vec16 = (static_cast<size_t>(Din) * O * D) % 4 == 0 &&
                      (reinterpret_cast<uintptr_t>(W) & 15) == 0;
   kernel<<<(R + rows - 1) / rows, RG * col_threads, smem, stream>>>(
-      u, W, v, R, I, Din, O, D, iters, Gp, col_threads, vec, vec16);
+      u, W, v, dv, Vo, dso, R, I, Din, O, D, iters, Gp, col_threads, vec,
+      vec16);
   return cudaGetLastError();
 }
 
 // Stages W when the block's shared memory stays within smem_max.
 template <int MAXT, int MINB>
-cudaError_t launch_shape(const float* u, const float* W, float* v, int R,
+cudaError_t launch_shape(const float* u, const float* W, float* v,
+                         const float* dv, float* Vo, float* dso, int R,
                          int I, int Din, int O, int D, int iters, int Gp,
                          int col_threads, int RG, bool vec, size_t smem_max,
                          cudaStream_t stream) {
@@ -368,36 +402,33 @@ cudaError_t launch_shape(const float* u, const float* W, float* v, int R,
       base + sizeof(float) * 2 * kIC * static_cast<size_t>(Din) * O * D;
   if (staged <= smem_max)
     return launch_kernel<MAXT, MINB, true>(
-        u, W, v, R, I, Din, O, D, iters, Gp, col_threads, RG, vec, staged,
-        stream);
+        u, W, v, dv, Vo, dso, R, I, Din, O, D, iters, Gp, col_threads, RG,
+        vec, staged, stream);
   return launch_kernel<MAXT, MINB, false>(
-      u, W, v, R, I, Din, O, D, iters, Gp, col_threads, RG, vec, base,
-      stream);
+      u, W, v, dv, Vo, dso, R, I, Din, O, D, iters, Gp, col_threads, RG,
+      vec, base, stream);
 }
 
 // The launch shape for this many class threads.
-cudaError_t launch(const float* u, const float* W, float* v, int R, int I,
-                   int Din, int O, int D, int iters, int Gp, int col_threads,
-                   bool vec, cudaStream_t stream) {
+cudaError_t launch(const float* u, const float* W, float* v, const float* dv,
+                   float* Vo, float* dso, int R, int I, int Din, int O, int D,
+                   int iters, int Gp, int col_threads, bool vec,
+                   cudaStream_t stream) {
   if (col_threads <= kPairThreads) {
     const int RG = 2 * col_threads <= kPairThreads ? 2 : 1;
     return launch_shape<kPairThreads, kPairBlocks>(
-        u, W, v, R, I, Din, O, D, iters, Gp, col_threads, RG, vec, kPairSmem,
-        stream);
+        u, W, v, dv, Vo, dso, R, I, Din, O, D, iters, Gp, col_threads, RG,
+        vec, kPairSmem, stream);
   }
   return launch_shape<kWideThreads, 1>(
-      u, W, v, R, I, Din, O, D, iters, Gp, col_threads, 1, vec, kWideSmem,
-      stream);
+      u, W, v, dv, Vo, dso, R, I, Din, O, D, iters, Gp, col_threads, 1, vec,
+      kWideSmem, stream);
 }
 
-}  // namespace
-
-// Shapes this kernel takes: Din in [1, 16], D in [1, 128], I >= 1,
-// iters >= 1, O * Gp <= 512 with Gp = next_pow2(ceil(D / 4)). Anything else
-// returns cudaErrorInvalidValue without launching.
-extern "C" int tpuasr_routing_fwd(const float* u, const float* W, float* v,
-                                  int R, int I, int Din, int O, int D,
-                                  int iters, cudaStream_t stream) {
+// Checks the shape and launches: v, or (dv given) V and ds.
+int routing(const float* u, const float* W, float* v, const float* dv,
+            float* Vo, float* dso, int R, int I, int Din, int O, int D,
+            int iters, cudaStream_t stream) {
   if (R < 0 || I < 1 || Din < 1 || Din > 16 || O < 1 || D < 1 || iters < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int G = (D + kTC - 1) / kTC;
@@ -409,7 +440,28 @@ extern "C" int tpuasr_routing_fwd(const float* u, const float* W, float* v,
     return static_cast<int>(cudaErrorInvalidValue);
   if (R == 0) return 0;
   const bool vec = D % kTC == 0 && (reinterpret_cast<uintptr_t>(W) & 15) == 0;
-  const cudaError_t e = launch(u, W, v, R, I, Din, O, D, iters, Gp,
-                               col_threads, vec, stream);
+  const cudaError_t e = launch(u, W, v, dv, Vo, dso, R, I, Din, O, D, iters,
+                               Gp, col_threads, vec, stream);
   return static_cast<int>(e);
+}
+
+}  // namespace
+
+// Shapes this kernel takes: Din in [1, 16], D in [1, 128], I >= 1,
+// iters >= 1, O * Gp <= 512 with Gp = next_pow2(ceil(D / 4)). Anything else
+// returns cudaErrorInvalidValue without launching.
+extern "C" int tpuasr_routing_fwd(const float* u, const float* W, float* v,
+                                  int R, int I, int Din, int O, int D,
+                                  int iters, cudaStream_t stream) {
+  return routing(u, W, v, nullptr, nullptr, nullptr, R, I, Din, O, D, iters,
+                 stream);
+}
+
+// K8b's first pass: for each row, V = v_0 + ... + v_{iters-2} and the
+// squash VJP ds of the final s for the output gradient dv, all (R, O, D).
+extern "C" int tpuasr_routing_bwd_prep(const float* u, const float* W,
+                                       const float* dv, float* V, float* ds,
+                                       int R, int I, int Din, int O, int D,
+                                       int iters, cudaStream_t stream) {
+  return routing(u, W, nullptr, dv, V, ds, R, I, Din, O, D, iters, stream);
 }

@@ -1,20 +1,22 @@
-"""Capsule-network CTC acoustic model with dynamic routing, for serving.
+"""Capsule-network CTC acoustic model with dynamic routing.
 
-Counterpart of ``tpuasr/models/capsnet.py`` (BASELINE config 4) in eval
-mode: a (time, freq) stem conv + batch norm + ReLU, re-zeroed on padded
-frames; a primary-capsule conv (with bias) whose channels split into
-capsules; squash; routing by agreement to one class capsule per output
-class (kernel K8, ``ops.routing.routed_caps``); capsule lengths times
-``logit_scale`` as logits; log-softmax, zeroed past ``out_lens``.
+Counterpart of ``tpuasr/models/capsnet.py`` (BASELINE config 4), in eval
+and in training mode: a (time, freq) stem conv + batch norm + ReLU,
+re-zeroed on padded frames; a primary-capsule conv (with bias) whose
+channels split into capsules; squash; routing by agreement to one class
+capsule per output class (kernel K8, ``ops.routing.routed_caps``, whose
+backward is K8b); capsule lengths times ``logit_scale`` as logits;
+log-softmax, zeroed past ``out_lens``. In training the stem's batch norm
+takes the statistics of the batch over (B, T', F') with no mask and updates
+its running averages with momentum 0.9, as flax's ``nn.BatchNorm``.
 
 The constructor takes the JAX model's keyword arguments under the same
 names, so a checkpoint's ``model_kwargs`` carry over, plus ``in_features``
 (the mel bins), since ``W_route`` is sized here rather than at first call.
 ``pallas_routing`` is accepted and changes nothing: on a CUDA device the
 routing always runs the K8 kernel, on the CPU its plain version, which is
-the JAX einsum + ``dynamic_routing`` path. Training mode and
-``margin_loss`` are not ported yet (the routing backward K8b comes with
-them) and raise ``NotImplementedError``.
+the JAX einsum + ``dynamic_routing`` path. ``margin_loss`` is the
+reference's frame-wise objective; as in the JAX package, nothing calls it.
 """
 
 from __future__ import annotations
@@ -28,11 +30,6 @@ from tpuasr_torch.models.layers import (BatchNorm, FrontConv, _lecun_normal_,
                                         sequence_mask)
 from tpuasr_torch.ops.routing import dynamic_routing, routed_caps, squash
 from tpuasr_torch.precision import full_fp32
-
-_NOT_PORTED = ("CapsNet training (the routing backward K8b and margin_loss) "
-               "is not ported to tpuasr_torch yet; it is the next slice of "
-               "the port")
-
 
 class CapsNetCTC(nn.Module):
     supports_int8 = False      # no GRU for the predict CLI's --int8
@@ -69,12 +66,12 @@ class CapsNetCTC(nn.Module):
             self.to(device)
         self.eval()
 
-    def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor):
+    def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
+                generator: torch.Generator | None = None):
         """feats (B, T, F) f32, feat_lens (B,) -> (log_probs (B, T', C),
         out_lens (B,)) with T' = ceil(T / time_stride), padded frames
-        zero."""
-        if self.training:
-            raise NotImplementedError(_NOT_PORTED)
+        zero. ``generator`` is the dropout stream ``Trainer`` passes every
+        model; CapsNet has no dropout and leaves it unused."""
         if feats.shape[-1] != self.in_features:
             raise ValueError(f"CapsNetCTC was built for {self.in_features} "
                              f"features per frame, got {feats.shape[-1]}")
@@ -103,9 +100,12 @@ class CapsNetCTC(nn.Module):
 
 
 def margin_loss(caps_len, labels_onehot, m_plus=0.9, m_minus=0.1, lam=0.5):
-    """The frame-wise capsule margin loss (tpuasr/models/capsnet.py:116-121),
-    a training objective: not ported yet."""
-    raise NotImplementedError(_NOT_PORTED)
+    """Frame-wise capsule margin loss (tpuasr/models/capsnet.py:116-121):
+    caps_len (..., C) and labels_onehot (..., C) -> (...)."""
+    pos = torch.clamp(m_plus - caps_len, min=0.0) ** 2
+    neg = torch.clamp(caps_len - m_minus, min=0.0) ** 2
+    return torch.sum(labels_onehot * pos
+                     + lam * (1 - labels_onehot) * neg, dim=-1)
 
 
 __all__ = ["CapsNetCTC", "dynamic_routing", "margin_loss", "squash"]
