@@ -13,17 +13,22 @@ Phases, each fatal on failure:
      same function, that call's time: the serving kernels K1, K2, K4, K3
      (without and with bigram/trigram LM fusion) and K10 (the graph row
      gather) at the shapes of the served model (B=128 utterances of 10 s at
-     8 kHz, C=64, a 512 x 4 BiGRU, beam K=8), and the training kernels K5,
-     K5b, K6, K6b at the shapes of the BASELINE config-3 train step (B=16 x
-     5 s, T'=249, U=24), and K8 and K8b (CapsNet routing, forward and
+     8 kHz, C=64, a 512 x 4 BiGRU, beam K=8), K9 (the int8 conv2) at its
+     shapes in that model, K7 (both GRU directions in one launch) at the
+     served and trained shapes, and the training kernels K5, K5b, K7b, K6,
+     K6b at the shapes of the BASELINE config-3 train step (B=16 x 5 s,
+     T'=249, U=24), and K8 and K8b (CapsNet routing, forward and
      backward) at the shapes of BASELINE config 4 (B=8 and B=32 x 5 s,
      T'=249, I=256, Din=8, O=48, D=16, 3 iterations);
-  4. the serving slice through Recognizer: the int8 arm (the default) and
-     the bf16 arm, with launch counts, agreement with the plain path, and
-     x-real-time of the kernel path and of the plain path; then the
-     CapsNet arm (config 4's model, 48 classes), greedy and with the beam,
-     at B=8 and B=32 x 5 s and on a ragged B=8 batch, with the same
-     checks and its device time by kernel;
+  4. the serving slice through Recognizer: the int8 arm (the default), the
+     bf16 arm, the int8 arm with conv2 as K9 (int8_conv, bench.py's
+     --int8-conv) and the bf16 arm of a fused_bidir model (K7), with
+     launch counts (and cuDNN conv calls), agreement with the plain path,
+     and x-real-time of the kernel path and of the plain path, and the conv
+     frontend's time with and without K9; then the CapsNet arm (config 4's
+     model, 48 classes), greedy and with the beam, at B=8 and B=32 x 5 s
+     and on a ragged B=8 batch, with the same checks and its device time
+     by kernel;
   5. the LM and graph serving arms through Recognizer: the int8 arm with
      bigram fusion, and the graph-constrained search at class_topk 8 and
      63, with launch counts, agreement with the plain path and x-real-time;
@@ -33,7 +38,8 @@ Phases, each fatal on failure:
   7. the training slice through Trainer.train_step (config 3: the 512 x 4
      DeepSpeechCTC in float32, adamw, B=16 x 5 s, U=24): launch counts per
      step, step 1 against the plain path, the loss after 10 steps on the
-     repeated batch, and train-step ms at B=16 and B=64;
+     repeated batch, and train-step ms at B=16 and B=64; then the same
+     step with fused_bidir=True (K7 and K7b in place of K5 and K5b);
   8. the CapsNet training step through Trainer.train_step (config 4:
      capsule1 with 48 classes, CTC, adamw 3e-4, B=8 x 5 s, U=16): launch
      counts per step, step 1 against the plain path, the loss after 10
@@ -47,6 +53,7 @@ a CUDA device, or if any phase fails, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import subprocess
@@ -119,13 +126,16 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def library_gru_ms(T, B, D, H, dtype, backward, iters=3):
+def library_gru_ms(T, B, D, H, dtype, backward, iters=3,
+                   bidirectional=False):
     """ms of torch.nn.GRU (cuDNN, b_hh = 0) on (T, B, D): the forward, or
     the backward of a kept forward. It includes the input projection."""
-    gru = torch.nn.GRU(D, H).to("cuda", dtype)
+    gru = torch.nn.GRU(D, H, bidirectional=bidirectional).to("cuda", dtype)
     gru.flatten_parameters()
     with torch.no_grad():
-        gru.bias_hh_l0.zero_()
+        for name, p in gru.named_parameters():
+            if name.startswith("bias_hh"):
+                p.zero_()
     x = torch.randn(T, B, D, device="cuda", dtype=dtype,
                     requires_grad=backward)
     if not backward:
@@ -636,6 +646,178 @@ def train_kernels(record, gen) -> None:
                pms, bd, lib)
 
 
+def fused_bidir_state(state):
+    """A DeepSpeechCTC state dict under the fused BiGRU's names: the same
+    weights, rnn{i}.fwd.wx -> rnn{i}.fwd_wx and so on."""
+    out = {}
+    for k, v in state.items():
+        parts = k.split(".")
+        if len(parts) == 3 and parts[1] in ("fwd", "bwd"):
+            k = f"{parts[0]}.{parts[1]}_{parts[2]}"
+        out[k] = v
+    return out
+
+
+def conv_bidir_kernels(record, gen) -> None:
+    """Phase 3 for K9 at config 5's conv2 (B=128 x 10 s: T'=499 rows of F=32
+    x C=32 -> 16 x 32, Kt=11 taps), K7 at the serving shapes (B=128,
+    T'=499, H=512, bf16 and f32) and the training shapes (config 3:
+    B=16, T'=249, f32), and K7b at the training shapes."""
+    import torch.nn.functional as F
+
+    from tpuasr_torch.features import FeatureConfig
+    from tpuasr_torch.features.reference import num_frames
+    from tpuasr_torch.models.layers import (FrontConv, _same_pad,
+                                            reverse_sequences)
+    from tpuasr_torch.ops import conv as conv_mod
+    from tpuasr_torch.ops import gru as gru_mod
+    from tpuasr_torch.ops.quant import quantize_per_channel
+    from tpuasr_torch.precision import full_fp32
+
+    dev = torch.device("cuda")
+    T = -(-num_frames(FeatureConfig(), int(SR * SECONDS)) // 2)
+    C, Fi, Kt, Kf = 32, 32, 11, 21
+    F_out = -(-Fi // 2)
+    Kd, N = Fi * C, F_out * C
+    # conv2's seeded weight at flax's lecun-normal scale, folded into its
+    # band matrices and quantized per column, as FrontConv does per call.
+    w = torch.randn(C, C, Kt, Kf, generator=gen) / (C * Kt * Kf) ** 0.5
+    pf = _same_pad(Fi, Kf, 2)
+    m = FrontConv.band_matrices(w.permute(2, 3, 1, 0), Fi, F_out, Kf, 2,
+                                pf[0])
+    mq, sw = quantize_per_channel(m.reshape(-1, N))
+    mq, sw = mq.reshape(Kt, Kd, N).to(dev), sw.to(dev)
+    # conv2's input: post-ReLU activations of ragged utterances, zero past
+    # each length, padded in time by SAME's (5, 5).
+    lens = torch.randint(T // 2, T + 1, (B,), generator=gen)
+    lens[0] = T
+    x = torch.relu(torch.randn(B, T, Kd, generator=gen))
+    x = x * (torch.arange(T)[None, :, None] < lens[:, None, None])
+    pt = _same_pad(T, Kt, 1)
+    xf = F.pad(x, (0, 0, pt[0], pt[1])).to(dev).contiguous()
+    del x
+
+    def kern():
+        return conv_mod.conv_taps_q8(xf, mq, sw, T)
+
+    def plain():
+        return conv_mod.reference_q8_conv_taps(xf, mq, sw, T)
+
+    # K9 to f32 rounding: the quantized values and the int32 sums are
+    # exact; the dequant rounds as the plain version does.
+    got, ref = kern(), plain()
+    err = (got - ref).abs().max().item()
+    same = (got == ref).double().mean().item()
+    ok = bool(torch.allclose(got, ref, rtol=1e-6, atol=1e-6))
+    ms = cuda_ms(kern, 10)
+    pms = cuda_ms(plain, 2)
+    bd = bound(nbytes(xf, mq, sw, got), 2 * B * T * Kt * Kd * N, "int8")
+    # The layer it replaces: the sliding conv on the same input, fp32 with
+    # TF32 off, and in bf16.
+    x4 = F.pad(xf.reshape(B, T + Kt - 1, Fi, C).permute(0, 3, 1, 2),
+               (pf[0], pf[1]))
+    w4 = w.to(dev)
+    with full_fp32():
+        lib = cuda_ms(lambda: F.conv2d(x4, w4, stride=(1, 2)), 10)
+    x4b, w4b = x4.bfloat16(), w4.bfloat16()
+    lib_bf16 = cuda_ms(lambda: F.conv2d(x4b, w4b, stride=(1, 2)), 10)
+    phase(f"[3 K9] conv_taps_q8 B={B} T_out={T} Kt={Kt} Kd={Kd} N={N}: "
+          f"max_abs_err {err:.3e} (tol rtol 1e-6 atol 1e-6; |out| max "
+          f"{ref.abs().max().item():.3f}; {same:.6f} of the outputs equal "
+          f"bit for bit) kernel {ms:.3f} ms plain {pms:.3f} ms bound "
+          f"{bd[0]:.4f} ms ({bd[1]}) F.conv2d fp32 (TF32 off) {lib:.3f} ms,"
+          f" bf16 {lib_bf16:.3f} ms")
+    if not ok:
+        fail("K9 disagrees with its plain version")
+    record("K9", "conv_taps_q8 (int8 conv2, im2col)",
+           "tpuasr_torch/csrc/conv_q8.cu", "tpuasr/ops/pallas_conv.py:138",
+           err, ms, pms, bd, lib)
+    del xf, x4, x4b, got, ref
+
+    # K7 / K7b: xp = x@Wx + b of a 1024-wide layer, xpb from the per-row
+    # reversed x, as the fused BiGRU forms them.
+    H, D = HIDDEN, 2 * HIDDEN
+    T_tr = -(-num_frames(FeatureConfig(), int(SR * TRAIN_SECONDS)) // 2)
+    shapes = (("serving", T, B, (torch.bfloat16, torch.float32)),
+              ("training", T_tr, TRAIN_B, (torch.float32,)))
+    for label, Tn, Bn, dtypes in shapes:
+        ln = torch.randint(Tn // 2, Tn + 1, (Bn,), generator=gen)
+        ln[0], ln[1] = Tn, 1
+        mask = (torch.arange(Tn)[:, None] < ln[None, :]).float()[:, :, None]
+        mask = mask.to(dev).contiguous()
+        xs = torch.randn(Tn, Bn, D, generator=gen).to(dev)
+        xr = reverse_sequences(xs, ln)
+        wx = [(torch.randn(D, 3 * H, generator=gen) / D ** 0.5).to(dev)
+              for _ in range(2)]
+        bx = [(torch.randn(3 * H, generator=gen) * 0.1).to(dev)
+              for _ in range(2)]
+        wh = [(torch.randn(H, 3 * H, generator=gen) / H ** 0.5).to(dev)
+              for _ in range(2)]
+        macs = 2 * Tn * Bn * H * 3 * H            # both directions' h @ Wh
+        for dt in dtypes:
+            with full_fp32():
+                xp = [(a.reshape(Tn * Bn, D).to(dt) @ wx[i].to(dt)
+                       + bx[i].to(dt)).reshape(Tn, Bn, 3 * H)
+                      for i, a in enumerate((xs, xr))]
+            args = (*xp, wh[0].to(dt), wh[1].to(dt), mask)
+            # f32: within 1e-4 (K5's bound); bf16: K2's 2e-2.
+            tol = 2e-2 if dt == torch.bfloat16 else 1e-4
+            got = gru_mod.gru_scan_bidir_fwd(*args)
+            with full_fp32():
+                ref, pms = timed_once(
+                    lambda: gru_mod.gru_scan_bidir_plain(*args))
+            err = max((g.float() - r.float()).abs().max().item()
+                      for g, r in zip(got, ref))
+            ms = cuda_ms(lambda: gru_mod.gru_scan_bidir_fwd(*args), 5)
+            kind = "bf16" if dt == torch.bfloat16 else "fp32"
+            bd = bound(nbytes(*args, *got), 2 * macs, kind)
+            lib = library_gru_ms(Tn, Bn, D, H, dt, False, bidirectional=True)
+            phase(f"[3 K7] gru_scan_bidir {label} {kind} T={Tn} B={Bn} "
+                  f"H={H}: max_abs_err {err:.3e} (tol {tol}) kernel "
+                  f"{ms:.3f} ms plain {pms:.3f} ms bound {bd[0]:.4f} ms "
+                  f"({bd[1]}) torch.nn.GRU bidirectional {kind} forward "
+                  f"(input projection included) {lib:.3f} ms")
+            if not err <= tol:
+                fail(f"K7 {label} {kind} disagrees with its plain version")
+            served = label == "serving" and dt == torch.bfloat16
+            record("K7", "gru_scan_bidir_fwd (bf16 serving; f32 checked)",
+                   "tpuasr_torch/csrc/gru_bidir.cu",
+                   "tpuasr/ops/pallas_gru.py:406", err,
+                   *((ms, pms, bd, lib) if served else ()))
+        if label != "training":
+            continue
+        # K7b: each output within 1e-4 of its largest magnitude (dWh sums
+        # T*B = 3,984 outer products per direction).
+        dys = [torch.randn(Tn, Bn, H, generator=gen).to(dev)
+               for _ in range(2)]
+        ysp = [gru_mod.prev_states(r, False) for r in ref]
+        bargs = (xp[0], xp[1], *ysp, wh[0], wh[1], mask, *dys)
+        got = gru_mod.gru_scan_bidir_bwd(*bargs)
+        with full_fp32():
+            want = gru_mod.gru_scan_bidir_bwd_plain(*bargs)
+            pms = cuda_ms(lambda: gru_mod.gru_scan_bidir_bwd_plain(*bargs), 2)
+        errs = [(a - r).abs().max().item() for a, r in zip(got, want)]
+        tols = [1e-4 * r.abs().max().item() for r in want]
+        again = gru_mod.gru_scan_bidir_bwd(*bargs)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        ms = cuda_ms(lambda: gru_mod.gru_scan_bidir_bwd(*bargs), 10)
+        bd = bound(nbytes(*bargs, *got), 6 * macs, "fp32")
+        lib = library_gru_ms(Tn, Bn, D, H, torch.float32, True,
+                             bidirectional=True)
+        phase(f"[3 K7b] gru_scan_bidir_bwd T={Tn} B={Bn} H={H}: dxpf, dxpb,"
+              f" dwhf, dwhb max_abs_err "
+              f"{', '.join(f'{e:.3e}' for e in errs)} (tol "
+              f"{', '.join(f'{t:.3e}' for t in tols)}); two launches equal "
+              f"bit for bit {same} kernel {ms:.3f} ms plain {pms:.3f} ms "
+              f"bound {bd[0]:.4f} ms ({bd[1]}) torch.nn.GRU bidirectional "
+              f"backward {lib:.3f} ms")
+        if not (all(e <= t for e, t in zip(errs, tols)) and same):
+            fail("K7b disagrees with its plain version")
+        record("K7b", "gru_scan_bidir_bwd", "tpuasr_torch/csrc/gru_bidir.cu",
+               "tpuasr/ops/pallas_gru.py:437", max(errs), ms, pms, bd, lib)
+    torch.cuda.empty_cache()
+
+
 def capsnet_kernels(record, gen) -> None:
     """Phase 3 for K8 and K8b at config 4's shapes: u (B, 249, 256, 8) from
     the model's squash, W (256, 8, 48 * 16), a seeded dv for K8b, 3
@@ -927,7 +1109,7 @@ def train_phase(tag, cfg, U, sizes, want, count, patches, kernels,
     if counts != want:
         fail(f"{tag}: launch counts {counts} != {want}")
     for k in count:
-        kernels[k]["launches"] = counts[k]
+        kernels[k]["launches"] += counts[k]
 
     # Step 1 on the plain path: same weights, same dropout stream.
     plain = new_state(trainer, init)
@@ -995,11 +1177,22 @@ def train_slice(kernels, wrappers, card) -> None:
                       model_kwargs=dict(rnn_hidden=HIDDEN, rnn_layers=LAYERS,
                                         pallas_gru=True))
     counted = dict(K5=2 * LAYERS, K5b=2 * LAYERS, K6=1, K6b=1)
+    ctc_patches = ((ctc_mod, "ctc_alphas_kernel", ctc_mod.ctc_alphas_plain),
+                   (ctc_mod, "ctc_betas_kernel", ctc_mod.ctc_betas_plain))
     patches = ((gru_mod, "gru_scan_fwd", gru_mod.gru_scan_plain),
                (gru_mod, "gru_scan_bwd", gru_mod.gru_scan_bwd_plain),
-               (ctc_mod, "ctc_alphas_kernel", ctc_mod.ctc_alphas_plain),
-               (ctc_mod, "ctc_betas_kernel", ctc_mod.ctc_betas_plain))
+               *ctc_patches)
     train_phase("7 train", cfg, TRAIN_U, (TRAIN_B, 64), counted, counted,
+                patches, kernels, wrappers, card)
+    # The same step with fused_bidir=True: K7 and K7b once per layer, no
+    # K5/K5b. Its K7 launches add to the serving arm's.
+    cfg = dataclasses.replace(cfg, model_kwargs=dict(cfg.model_kwargs,
+                                                     fused_bidir=True))
+    patches = ((gru_mod, "gru_scan_bidir_fwd", gru_mod.gru_scan_bidir_plain),
+               (gru_mod, "gru_scan_bidir_bwd",
+                gru_mod.gru_scan_bidir_bwd_plain), *ctc_patches)
+    train_phase("7 train fused_bidir", cfg, TRAIN_U, (TRAIN_B, 64),
+                dict(K7=LAYERS, K7b=LAYERS, K6=1, K6b=1), ("K7", "K7b"),
                 patches, kernels, wrappers, card)
 
 
@@ -1088,6 +1281,7 @@ def main() -> int:
     from tpuasr_torch.models import capsnet as capsnet_mod
     from tpuasr_torch.models import create_model
     from tpuasr_torch.models import layers as layers_mod
+    from tpuasr_torch.ops import conv as conv_mod
     from tpuasr_torch.ops import gather as gather_mod
     from tpuasr_torch.ops import gru as gru_mod
     from tpuasr_torch.ops import routing as routing_mod
@@ -1271,6 +1465,9 @@ def main() -> int:
     # K5 / K5b / K6 / K6b at the config-3 train step's shapes.
     train_kernels(record, gen)
 
+    # K9, K7 and K7b at config 5's and config 3's shapes.
+    conv_bidir_kernels(record, gen)
+
     # K8 and K8b at config 4's shapes.
     capsnet_kernels(record, gen)
 
@@ -1280,6 +1477,13 @@ def main() -> int:
         "int8": dict(pallas_gru=True, bf16_gru=True, fused_proj=True,
                      int8_proj=True, int8_rec=True),
         "bf16": dict(pallas_gru=True, bf16_gru=True, fused_proj=True),
+        # bench.py:92-98 with --int8-conv: conv2 as K9.
+        "int8+int8_conv": dict(pallas_gru=True, bf16_gru=True,
+                               fused_proj=True, int8_proj=True,
+                               int8_rec=True, int8_conv=True),
+        # A fused_bidir checkpoint served in bf16: K7 per layer.
+        "bf16+fused_bidir": dict(pallas_gru=True, bf16_gru=True,
+                                 fused_bidir=True),
     }
     base = dict(num_classes=NUM_CLASSES, rnn_hidden=HIDDEN,
                 rnn_layers=LAYERS, in_features=feat_cfg.n_mels)
@@ -1297,6 +1501,9 @@ def main() -> int:
     wrappers = {"K1": fused_mod.fbank_power,
                 "K2": gru_mod.gru_scan_xfused,
                 "K4": gru_mod.gru_scan_xfused_q8,
+                "K9": conv_mod.conv_taps_q8,
+                "K7": gru_mod.gru_scan_bidir_fwd,
+                "K7b": gru_mod.gru_scan_bidir_bwd,
                 "K3": beam_mod.beam_scan,
                 "K10": gather_mod.gather_rows,
                 "K8": routing_mod.routed_caps,
@@ -1305,11 +1512,13 @@ def main() -> int:
                 "K5b": gru_mod.gru_scan_bwd,
                 "K6": ctc_mod.ctc_alphas_kernel,
                 "K6b": ctc_mod.ctc_betas_kernel}
-    serving = ("K1", "K2", "K4", "K3")
+    serving = ("K1", "K2", "K4", "K9", "K7", "K3")
     plain_patches = (
         (fused_mod, "fbank_power", fused_mod.fbank_power_plain),
         (layers_mod, "gru_scan_xfused", gru_mod.gru_scan_xfused_plain),
         (layers_mod, "gru_scan_xfused_q8", gru_mod.gru_scan_xfused_q8_plain),
+        (layers_mod, "conv_taps_q8", conv_mod.reference_q8_conv_taps),
+        (gru_mod, "gru_scan_bidir_fwd", gru_mod.gru_scan_bidir_plain),
         (beam_mod, "beam_scan", beam_mod.beam_scan_plain),
         (prefix_beam_mod, "gather_rows", gather_mod.gather_rows_plain),
         (capsnet_mod, "routed_caps", routing_mod.routed_caps_plain),
@@ -1325,25 +1534,41 @@ def main() -> int:
     recs = {}
     for arm, flags in arms.items():
         model = create_model("deepspeech_ctc", **base, **flags, device=dev)
-        model.load_state_dict(state)
+        model.load_state_dict(fused_bidir_state(state)
+                              if flags.get("fused_bidir") else state)
         recs[arm] = Recognizer(model, feat_cfg, bcfg, dev)
 
-    # The counted run of the main path: both arms, one batch each.
+    # The counted run of the main path: every arm, one batch each; the
+    # cuDNN convs (F.conv2d calls) are counted beside the kernels.
     for w in wrappers.values():
         w.launches = 0
-    per_arm, outs = {}, {}
+    per_arm, outs, convs = {}, {}, {}
+    conv2d = torch.nn.functional.conv2d
+
+    def counted_conv2d(*a, **k):
+        convs[arm] += 1
+        return conv2d(*a, **k)
+
     for arm, rec in recs.items():
         before = {k: w.launches for k, w in wrappers.items()}
-        outs[arm] = rec(wav_d, lens_d)
+        convs[arm] = 0
+        with mock.patch.object(torch.nn.functional, "conv2d",
+                               counted_conv2d):
+            outs[arm] = rec(wav_d, lens_d)
         torch.cuda.synchronize()
         per_arm[arm] = {k: w.launches - before[k] for k, w in wrappers.items()}
     launches = {k: w.launches for k, w in wrappers.items()}
-    phase(f"[4 slice] launch counts per batch: {json.dumps(per_arm)}")
+    phase(f"[4 slice] launch counts per batch: {json.dumps(per_arm)}; "
+          f"cuDNN conv calls per batch: {json.dumps(convs)}")
     none = {k: 0 for k in wrappers}
     want = {"int8": dict(none, K1=1, K4=2 * LAYERS, K3=1),
-            "bf16": dict(none, K1=1, K2=2 * LAYERS, K3=1)}
-    if per_arm != want:
-        fail(f"launch counts {per_arm} != {want}")
+            "bf16": dict(none, K1=1, K2=2 * LAYERS, K3=1),
+            "int8+int8_conv": dict(none, K1=1, K9=1, K4=2 * LAYERS, K3=1),
+            "bf16+fused_bidir": dict(none, K1=1, K7=LAYERS, K3=1)}
+    want_convs = {arm: 1 if arm == "int8+int8_conv" else 2 for arm in arms}
+    if per_arm != want or convs != want_convs:
+        fail(f"launch counts {per_arm} != {want} or cuDNN convs {convs} != "
+             f"{want_convs}")
     for k in serving:
         n = launches[k]
         kernels[k]["launches"] = n
@@ -1407,6 +1632,28 @@ def main() -> int:
               f"[{card}]")
         phase(f"[4 slice {arm}] device time of one batch by kernel "
               f"(torch.profiler): {device_breakdown(lambda: rec(wav_d, lens_d))}")
+
+    # The conv frontend alone (both convs, their norms and ReLUs) on the
+    # same features: cuDNN fp32 against conv1 in cuDNN and conv2 as K9.
+    with torch.inference_mode():
+        feats, flens = recs["int8"].featurizer.featurize(wav_d, lens_d)
+        fe = {arm: cuda_ms(lambda: recs[arm].model.conv_frontend(
+            feats, flens), 10) for arm in ("int8", "int8+int8_conv")}
+    phase(f"[4 slice] conv frontend B={B}: int8 arm {fe['int8']:.3f} ms "
+          f"(cuDNN fp32, TF32 off), int8+int8_conv arm "
+          f"{fe['int8+int8_conv']:.3f} ms (conv2 as K9) (CUDA events, mean "
+          f"of 10) [{card}]")
+    # The two int8 arms' batches in turns, so that drift between them
+    # does not read as a difference.
+    turns = {"int8": [], "int8+int8_conv": []}
+    for arm in ("int8", "int8+int8_conv", "int8+int8_conv", "int8"):
+        turns[arm].append(cuda_ms(lambda: recs[arm](wav_d, lens_d), 5))
+    phase(f"[4 slice] in turns (int8, int8+int8_conv, int8+int8_conv, "
+          f"int8; mean of 5 each): int8 arm "
+          f"{', '.join(f'{v:.2f}' for v in turns['int8'])} ms, "
+          f"int8+int8_conv arm "
+          f"{', '.join(f'{v:.2f}' for v in turns['int8+int8_conv'])} ms a "
+          f"batch [{card}]")
 
     # The CapsNet arm (config 4).
     capsnet_slice(kernels, wrappers, card, plain_path)
@@ -1491,8 +1738,8 @@ def main() -> int:
     # ---- 8. the CapsNet training step through Trainer.train_step ----------
     capsnet_train_slice(kernels, wrappers, card)
 
-    order = ("K1", "K2", "K4", "K3", "K3-LM", "K10", "K8", "K8b", "K5", "K5b",
-             "K6", "K6b")
+    order = ("K1", "K2", "K4", "K9", "K7", "K3", "K3-LM", "K10", "K8", "K8b",
+             "K5", "K5b", "K7b", "K6", "K6b")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

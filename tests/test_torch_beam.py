@@ -22,6 +22,15 @@ from tpuasr_torch.decode import (BeamSearchConfig, beam_scan,
 from tpuasr_torch.decode.beam import _wrap32, backtrack, logaddexp
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_jax_caches():
+    """Drop the executables that earlier test files in this process traced.
+    A file that ran the JAX package's Pallas kernels under
+    ``pltpu.force_tpu_interpret_mode()`` leaves executables whose host
+    callbacks dispatch JAX ops; reused here, they can deadlock."""
+    jax.clear_caches()
+
+
 def _logp(seed, B, T, C, scale=2.0):
     rng = np.random.default_rng(seed)
     logits = rng.standard_normal((B, T, C)).astype(np.float32) * scale

@@ -42,6 +42,15 @@ from tpuasr_torch.models import capsnet as capsnet_mod
 from tpuasr_torch.ops import routing as routing_mod
 from tpuasr_torch.serve.offline import Recognizer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_jax_caches():
+    """Drop the executables that earlier test files in this process traced.
+    A file that ran the JAX package's Pallas kernels under
+    ``pltpu.force_tpu_interpret_mode()`` leaves executables whose host
+    callbacks dispatch JAX ops; reused here, they can deadlock."""
+    jax.clear_caches()
+
 REPO = Path(__file__).resolve().parents[1]
 GOLDEN = REPO / "tests" / "data" / "golden"
 C = 12

@@ -38,6 +38,15 @@ from tpuasr_torch.models import create_model
 from tpuasr_torch.ops import routing as routing_mod
 from tpuasr_torch.train import TrainConfig, Trainer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_jax_caches():
+    """Drop the executables that earlier test files in this process traced.
+    A file that ran the JAX package's Pallas kernels under
+    ``pltpu.force_tpu_interpret_mode()`` leaves executables whose host
+    callbacks dispatch JAX ops; reused here, they can deadlock."""
+    jax.clear_caches()
+
 C = 16
 # The small model of tests/test_pallas_routing.py:98-99.
 SMALL = dict(conv_channels=8, primary_caps=4, primary_dim=4, class_dim=4)

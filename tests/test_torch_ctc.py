@@ -19,6 +19,15 @@ from tpuasr.losses.ctc_pallas import (ctc_alphas_pallas, ctc_betas_pallas,
 from tpuasr_torch.losses import ctc_loss, ctc_loss_ref, get_ctc_loss
 from tpuasr_torch.losses import ctc as ctc_mod
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_jax_caches():
+    """Drop the executables that earlier test files in this process traced.
+    A file that ran the JAX package's Pallas kernels under
+    ``pltpu.force_tpu_interpret_mode()`` leaves executables whose host
+    callbacks dispatch JAX ops; reused here, they can deadlock."""
+    jax.clear_caches()
+
 C, U = 9, 6
 
 

@@ -9,6 +9,7 @@ clamp of XLA's gather operation. The graph search never passes one (its
 state ids are >= 0).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +17,15 @@ import torch
 
 from tpuasr.ops.pallas_gather import gather_rows as j_gather_rows
 from tpuasr_torch.ops.gather import gather_rows, gather_rows_plain
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_jax_caches():
+    """Drop the executables that earlier test files in this process traced.
+    A file that ran the JAX package's Pallas kernels under
+    ``pltpu.force_tpu_interpret_mode()`` leaves executables whose host
+    callbacks dispatch JAX ops; reused here, they can deadlock."""
+    jax.clear_caches()
 
 
 def _packed_table(seed, S, C):

@@ -9,6 +9,7 @@ jax, so run these without the suite's jax conftest:
 small ragged shapes that a kernel edit can be iterated on.
 """
 
+import contextlib
 import ctypes
 from unittest import mock
 
@@ -24,7 +25,12 @@ from tpuasr_torch.features.reference import feature_tables, num_frames
 from tpuasr_torch.decode.prefix_beam import BeamSearchConfig
 from tpuasr_torch.losses import ctc as ctc_mod
 from tpuasr_torch.ops.gather import gather_rows, gather_rows_plain
-from tpuasr_torch.ops.gru import (gru_scan_bwd, gru_scan_bwd_plain,
+from tpuasr_torch.ops import gru as gru_mod
+from tpuasr_torch.ops.conv import conv_taps_q8, reference_q8_conv_taps
+from tpuasr_torch.ops.gru import (gru_scan_bidir, gru_scan_bidir_bwd,
+                                  gru_scan_bidir_bwd_plain,
+                                  gru_scan_bidir_fwd, gru_scan_bidir_plain,
+                                  gru_scan_bwd, gru_scan_bwd_plain,
                                   gru_scan_fwd, gru_scan_plain,
                                   gru_scan_xfused, gru_scan_xfused_plain,
                                   gru_scan_xfused_q8, gru_scan_xfused_q8_plain,
@@ -478,3 +484,184 @@ def test_k8b_launch_code_checked(dev):
     with pytest.raises(ValueError, match="shape"):
         routed_caps_bwd(u, W, dv[:, :2].contiguous(), 6, 16)
     assert routed_caps_bwd.launches == before
+
+
+# ---- K9: the int8 conv tap-GEMM --------------------------------------------
+
+
+def _conv_case(dev, B, T, K, N, Kt, seed=12):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(B, T + Kt - 1, K, generator=g)
+    x[0, T // 2] *= 40.0                 # one row's scale dominates windows
+    if B > 1:
+        x[1] = 0.0                       # zero rows: scale 1e-12/127
+    m = torch.randn(Kt, K, N, generator=g) * 0.1
+    mq, sw = quantize_per_channel(m.reshape(-1, N))
+    return x.to(dev), mq.reshape(Kt, K, N).to(dev), sw.to(dev)
+
+
+@pytest.mark.parametrize("B,T,K,N,Kt,cut", [
+    (1, 300, 128, 128, 7, 0),      # windows across the 128-row tiles
+    (3, 50, 256, 256, 11, 4),      # T_in short of T_out + Kt - 1
+    (2, 129, 1024, 512, 11, 0),    # conv2's widths, one row past a tile
+])
+def test_k9(dev, B, T, K, N, Kt, cut):
+    """K9 against its plain version to f32 rounding (rtol 1e-6, atol 1e-6:
+    the quantized values and int32 sums are exact, the dequant rounds in
+    the plain version's order)."""
+    x, mq, sw = _conv_case(dev, B, T, K, N, Kt)
+    x = x[:, :x.shape[1] - cut].contiguous()
+    before = conv_taps_q8.launches
+    got = conv_taps_q8(x, mq, sw, T)
+    assert conv_taps_q8.launches == before + 1
+    want = reference_q8_conv_taps(x, mq, sw, T)
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    if B > 1:
+        assert not got[1].any()
+
+
+def test_k9_integer_sums_exact(dev):
+    """Rows on the int8 grid (absmax 127, scale 1) with sw = 1: the output
+    is the int32 sum, equal to the plain version's bit for bit."""
+    g = torch.Generator().manual_seed(13)
+    B, T, K, N, Kt = 2, 200, 1024, 256, 11
+    x = torch.randint(-127, 128, (B, T + Kt - 1, K), generator=g).float()
+    x[:, :, 0] = 127.0
+    mq = torch.randint(-127, 128, (Kt, K, N), generator=g).to(torch.int8)
+    sw = torch.ones(N)
+    x, mq, sw = x.to(dev), mq.to(dev), sw.to(dev)
+    assert torch.equal(conv_taps_q8(x, mq, sw, T),
+                       reference_q8_conv_taps(x, mq, sw, T))
+
+
+def test_k9_refuses_unported_modes(dev):
+    x, mq, sw = _conv_case(dev, 1, 20, 128, 128, 3)
+    for mode in ("taps", "slab"):
+        with pytest.raises(NotImplementedError, match=mode):
+            conv_taps_q8(x, mq, sw, 20, mode=mode)
+
+
+# ---- K7 / K7b: the fused bidirectional scan ---------------------------------
+
+
+def _bidir_case(dev, H, B=7, T=37, dtype=torch.float32):
+    g = torch.Generator().manual_seed(14)
+    xpf, xpb = (torch.randn(T, B, 3 * H, generator=g) for _ in range(2))
+    whf, whb = (torch.randn(H, 3 * H, generator=g) / H ** 0.5
+                for _ in range(2))
+    dys = [torch.randn(T, B, H, generator=g) for _ in range(2)]
+    lens = torch.tensor([T, 30, 1, 0, 12, T, 5] * 3)[:B]
+    mask = (torch.arange(T)[:, None] < lens[None, :]).float()[:, :, None]
+    ins = [t.to(dev, dtype).contiguous() for t in (xpf, xpb, whf, whb)]
+    return ins, mask.to(dev).contiguous(), [d.to(dev) for d in dys]
+
+
+@pytest.mark.parametrize("H,B", [(40, 7), (130, 20), (512, 16)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_k7(dev, H, B, dtype, tol):
+    """K7 against its plain version: f32 within 1e-5 (K5's bound); bf16
+    streams within 2e-2 (K2's bf16 bound: a one-ulp difference of an f32
+    sum can flip a bf16 rounding of h and ride the recurrence)."""
+    ins, mask, _ = _bidir_case(dev, H, B, dtype=dtype)
+    before = gru_scan_bidir_fwd.launches
+    got = gru_scan_bidir_fwd(*ins, mask)
+    assert gru_scan_bidir_fwd.launches == before + 1
+    with full_fp32():
+        want = gru_scan_bidir_plain(*ins, mask)
+    for a, w in zip(got, want):
+        assert a.dtype == dtype
+        torch.testing.assert_close(a.float(), w.float(), rtol=0, atol=tol)
+    assert not got[0][:, 3].float().any()       # a row of length 0
+
+
+@pytest.mark.parametrize("H,B", [(40, 7), (130, 20), (512, 16)])
+def test_k7b(dev, H, B):
+    """K7b against its plain version, each output within 1e-4 of its
+    largest magnitude (float32 sums in another order, dWh over all T*B
+    rows); two launches give the same bits (no atomics)."""
+    ins, mask, dys = _bidir_case(dev, H, B)
+    with full_fp32():
+        ys = gru_scan_bidir_plain(*ins, mask)
+    ysp = [prev_states(y, False) for y in ys]
+    args = (ins[0], ins[1], *ysp, ins[2], ins[3], mask, *dys)
+    before = gru_scan_bidir_bwd.launches
+    got = gru_scan_bidir_bwd(*args)
+    again = gru_scan_bidir_bwd(*args)
+    assert gru_scan_bidir_bwd.launches == before + 2
+    with full_fp32():
+        want = gru_scan_bidir_bwd_plain(*args)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, w, rtol=0,
+                                   atol=1e-4 * w.abs().max().item())
+    assert not got[0][:, 3].any()
+
+
+def test_bidir_autograd_runs_k7_then_k7b(dev):
+    """Under autograd on CUDA, gru_scan_bidir launches K7 in the forward
+    and K7b in the backward, and no plain version; the gradients match
+    autograd through the plain version within 1e-4 of their largest
+    magnitude. Under no_grad only K7 runs."""
+    ins, mask, dys = _bidir_case(dev, 64, 9)
+    k7, k7b = gru_scan_bidir_fwd.launches, gru_scan_bidir_bwd.launches
+    leaves = [t.clone().requires_grad_() for t in ins]
+    with full_fp32(), \
+            mock.patch.object(gru_mod, "gru_scan_bidir_plain", _no_plain), \
+            mock.patch.object(gru_mod, "gru_scan_bidir_bwd_plain",
+                              _no_plain):
+        ys = gru_scan_bidir(*leaves, mask)
+        torch.autograd.backward(ys, dys)
+        torch.cuda.synchronize()
+    assert (gru_scan_bidir_fwd.launches,
+            gru_scan_bidir_bwd.launches) == (k7 + 1, k7b + 1)
+    ref = [t.clone().requires_grad_() for t in ins]
+    with full_fp32():
+        torch.autograd.backward(gru_scan_bidir_plain(*ref, mask), dys)
+    for a, r in zip(leaves, ref):
+        torch.testing.assert_close(a.grad, r.grad, rtol=0,
+                                   atol=1e-4 * r.grad.abs().max().item())
+    with torch.no_grad():
+        gru_scan_bidir(*leaves, mask)
+    assert gru_scan_bidir_bwd.launches == k7b + 1
+
+
+def test_fused_bidir_training_step_on_cuda(dev):
+    """A DeepSpeechCTC(fused_bidir=True) training forward and backward on
+    CUDA (K7, K7b once per layer) against the same model with the plain
+    scans: log-probs within 1e-4, every gradient within 1e-4 of the
+    model's largest gradient magnitude. (Not of each tensor's own: a
+    batch-norm scale's gradient is a sum over every frame that cancels
+    to far below its terms, so its own largest entry measures the
+    cancellation; the kernels' own bounds are held per output above.)"""
+    kw = dict(num_classes=12, rnn_hidden=48, rnn_layers=2, conv_channels=4,
+              dropout=0.0, fused_bidir=True, pallas_gru=True, in_features=40)
+    g = torch.Generator().manual_seed(0)
+    kern = create_model("deepspeech_ctc", **kw, generator=g)
+    plain = create_model("deepspeech_ctc", **kw)
+    plain.load_state_dict(kern.state_dict())
+    feats = torch.randn(3, 37, 40, generator=g).to(dev)
+    lens = torch.tensor([37, 22, 5]).to(dev)
+    wts = torch.randn(3, 19, 12, generator=g).to(dev)
+    k7, k7b = gru_scan_bidir_fwd.launches, gru_scan_bidir_bwd.launches
+    outs = []
+    for model in (kern, plain):
+        model.to(dev).train()
+        ctx = (mock.patch.multiple(
+            gru_mod, gru_scan_bidir_fwd=gru_scan_bidir_plain,
+            gru_scan_bidir_bwd=gru_scan_bidir_bwd_plain)
+            if model is plain else contextlib.nullcontext())
+        with full_fp32(), ctx:
+            logp, _ = model(feats, lens)
+            torch.sum(logp * wts).backward()
+        torch.cuda.synchronize()
+        outs.append(logp.detach())
+    assert (gru_scan_bidir_fwd.launches,
+            gru_scan_bidir_bwd.launches) == (k7 + 2, k7b + 2)
+    torch.testing.assert_close(outs[0], outs[1], rtol=0, atol=1e-4)
+    grads = [(name, a.grad, b.grad) for (name, a), b in
+             zip(kern.named_parameters(), plain.parameters())]
+    top = max(b.abs().max().item() for _, _, b in grads)
+    for name, a, b in grads:
+        err = (a - b).abs().max().item()
+        assert err <= 1e-4 * top, f"{name}: {err:.3e} > 1e-4 * {top:.3e}"

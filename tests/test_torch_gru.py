@@ -30,6 +30,15 @@ from tpuasr_torch.ops.gru import (_pack_float, _pack_int8, gru_scan,
                                   prev_states)
 from tpuasr_torch.ops.quant import quantize_per_channel, quantize_rows
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_jax_caches():
+    """Drop the executables that earlier test files in this process traced.
+    A file that ran the JAX package's Pallas kernels under
+    ``pltpu.force_tpu_interpret_mode()`` leaves executables whose host
+    callbacks dispatch JAX ops; reused here, they can deadlock."""
+    jax.clear_caches()
+
 T, B, D, H = 12, 3, 24, 16
 
 

@@ -27,6 +27,15 @@ KERNEL_INT8 = dict(pallas_gru=True, bf16_gru=True, fused_proj=True,
 KERNEL_INT8_REC = dict(KERNEL_INT8, int8_rec=True)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_jax_caches():
+    """Drop the executables that earlier test files in this process traced.
+    A file that ran the JAX package's Pallas kernels under
+    ``pltpu.force_tpu_interpret_mode()`` leaves executables whose host
+    callbacks dispatch JAX ops; reused here, they can deadlock."""
+    jax.clear_caches()
+
+
 def _inputs():
     rng = np.random.default_rng(0)
     feats = rng.standard_normal((B, T, F)).astype(np.float32)
@@ -108,7 +117,7 @@ def test_seeded_init_is_deterministic():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(fused_bidir=True), dict(matmul_frontend=True), dict(int8_conv=True),
+    dict(bf16_conv=True),
     dict(bidirectional=False), dict(explicit_pad=True),
     dict(pallas_gru=True, bf16_gru=True),
 ])

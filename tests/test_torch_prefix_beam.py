@@ -26,6 +26,15 @@ from tpuasr_torch.decode import (BeamSearchConfig, GraphTables,
                                  apply_score_bias, ctc_beam_search_xla)
 from tpuasr_torch.decode.prefix_beam import topk_indices
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_jax_caches():
+    """Drop the executables that earlier test files in this process traced.
+    A file that ran the JAX package's Pallas kernels under
+    ``pltpu.force_tpu_interpret_mode()`` leaves executables whose host
+    callbacks dispatch JAX ops; reused here, they can deadlock."""
+    jax.clear_caches()
+
 B, T, C, K = 3, 10, 7, 4
 SYMS = ["<blk>", "a", "b", "c", "d", "e", "f"]
 SENTS = [["a", "b", "c"], ["c", "a"], ["b", "d", "e", "a"], ["e", "f", "b"],

@@ -34,6 +34,15 @@ from tpuasr_torch.lm import train_ngram
 from tpuasr_torch.models import create_model
 from tpuasr_torch.serve.offline import Recognizer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_jax_caches():
+    """Drop the executables that earlier test files in this process traced.
+    A file that ran the JAX package's Pallas kernels under
+    ``pltpu.force_tpu_interpret_mode()`` leaves executables whose host
+    callbacks dispatch JAX ops; reused here, they can deadlock."""
+    jax.clear_caches()
+
 C = 12
 BASE = dict(num_classes=C, rnn_hidden=24, rnn_layers=2, conv_channels=4,
             dropout=0.0)

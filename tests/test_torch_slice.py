@@ -37,6 +37,15 @@ from tpuasr_torch.ops import gru as gru_mod
 from tpuasr_torch.serve.offline import Recognizer
 from tpuasr_torch.train import TrainConfig, Trainer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_jax_caches():
+    """Drop the executables that earlier test files in this process traced.
+    A file that ran the JAX package's Pallas kernels under
+    ``pltpu.force_tpu_interpret_mode()`` leaves executables whose host
+    callbacks dispatch JAX ops; reused here, they can deadlock."""
+    jax.clear_caches()
+
 REPO = Path(__file__).resolve().parents[1]
 C = 16
 BASE = dict(num_classes=C, rnn_hidden=32, rnn_layers=2, conv_channels=4,

@@ -32,6 +32,15 @@ from tpuasr_torch.models import create_model
 from tpuasr_torch.train import TrainConfig, Trainer
 from tpuasr_torch.train.optim import Optimizer
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _fresh_jax_caches():
+    """Drop the executables that earlier test files in this process traced.
+    A file that ran the JAX package's Pallas kernels under
+    ``pltpu.force_tpu_interpret_mode()`` leaves executables whose host
+    callbacks dispatch JAX ops; reused here, they can deadlock."""
+    jax.clear_caches()
+
 REPO = Path(__file__).resolve().parents[1]
 C = 16
 MODEL = dict(rnn_hidden=32, rnn_layers=2, conv_channels=4, dropout=0.0,

@@ -5,9 +5,9 @@ All sources under ``tpuasr_torch/csrc/`` are compiled by ``nvcc`` (from
 process per source, all started together, and linked into one shared
 library with a plain C interface, for ``sm_90a`` (Hopper). The
 library lands in ``build/tpuasr_torch/`` at the repository root, named by a
-hash of the sources and the flags, so an edit rebuilds and an unchanged tree
-reuses the last build. A file lock keeps concurrent processes from building
-the same library at once.
+hash of the sources, their headers (``csrc/*.cuh``) and the flags, so an
+edit rebuilds and an unchanged tree reuses the last build. A file lock
+keeps concurrent processes from building the same library at once.
 
 Nothing here runs at import time. A missing ``nvcc`` or a failed build is an
 error that carries the compiler's output; nothing falls back to the plain
@@ -60,7 +60,7 @@ def _sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256()
-    for src in _sources():
+    for src in _sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -2,7 +2,10 @@
 
 A Flax model's variables are ``{"params": ..., "batch_stats": ...}`` nested
 by module name. The port's modules use the same names, so a leaf at
-``params/rnn0/fwd/wx`` becomes ``rnn0.fwd.wx``. Two layouts change:
+``params/rnn0/fwd/wx`` becomes ``rnn0.fwd.wx``. A ``fused_bidir`` BiGRU
+keeps JAX's six parameters on the layer itself (``fwd_wx``, ``fwd_wh``,
+``fwd_b``, ``bwd_wx``, ``bwd_wh``, ``bwd_b``), so ``params/rnn0/fwd_wx``
+becomes ``rnn0.fwd_wx`` by the same rule. Two layouts change:
 
 * a conv ``kernel`` HWIO (Kt, Kf, Cin, Cout) becomes ``weight`` OIHW
   (Cout, Cin, Kt, Kf);

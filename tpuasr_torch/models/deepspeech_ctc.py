@@ -12,7 +12,12 @@ with ``bf16_gru``, the int8 GRU kernel with ``int8_proj``/``int8_rec``.
 The port always runs the input projection inside the GRU kernel
 (``fused_proj``); in float32 that is the same math as JAX's separate
 projection, so ``pallas_gru=False`` and ``fused_proj=False`` are accepted
-there. Options whose JAX numerics the port does not reproduce raise
+there. ``matmul_frontend`` runs both convs as band-matrix matmuls;
+``int8_conv`` serves conv2 through K9 (int8 tap-GEMM; the sliding conv,
+or the band matmuls, in training); ``fused_bidir`` runs each BiGRU layer
+as one kernel for both directions (K7, K7b in training) on its own
+parameter layout. Options whose JAX numerics the port does not reproduce
+(``bf16_conv``, ``explicit_pad``, ``bidirectional=False``) raise
 ``NotImplementedError``.
 
 ``model.train()`` gives the JAX ``train=True`` forward in float32: batch
@@ -50,9 +55,7 @@ class DeepSpeechCTC(nn.Module):
                  int8_conv: bool = False, in_features: int = 64,
                  device=None, generator: torch.Generator | None = None):
         super().__init__()
-        unsupported = {"fused_bidir": fused_bidir,
-                       "matmul_frontend": matmul_frontend,
-                       "int8_conv": int8_conv, "bf16_conv": bf16_conv,
+        unsupported = {"bf16_conv": bf16_conv,
                        "explicit_pad": explicit_pad,
                        "bidirectional=False": not bidirectional}
         for name, on in unsupported.items():
@@ -61,18 +64,26 @@ class DeepSpeechCTC(nn.Module):
                     f"DeepSpeechCTC({name}) is not ported to tpuasr_torch")
         # JAX ignores int8 outside the kernel path (layers.py:117-126).
         int8 = pallas_gru and (int8_proj or int8_rec)
-        if bf16_gru and not (pallas_gru and (fused_proj or int8)):
+        if bf16_gru and not (fused_bidir
+                             or pallas_gru and (fused_proj or int8)):
             raise NotImplementedError(
                 "bf16_gru without the fused projection rounds x@Wx to bf16 "
                 "outside the scan; only the fused kernel path is ported")
         self.bf16_stream = pallas_gru and bf16_gru
         self.dropout = dropout
-        cd = torch.bfloat16 if self.bf16_stream else torch.float32
+        # The fused BiGRU takes bf16 from bf16_gru alone, as JAX's
+        # bf16_kernel (layers.py:242).
+        cd = (torch.bfloat16 if self.bf16_stream or (fused_bidir and bf16_gru)
+              else torch.float32)
         self.conv1 = FrontConv(1, conv_channels, (11, 41), (2, 2),
-                               generator=generator)
+                               generator=generator,
+                               use_matmul=matmul_frontend)
         self.conv1_bn = BatchNorm(conv_channels)
+        # int8_conv serves only: FrontConv takes use_matmul_q8 in eval().
         self.conv2 = FrontConv(conv_channels, conv_channels, (11, 21), (1, 2),
-                               generator=generator)
+                               generator=generator,
+                               use_matmul=matmul_frontend,
+                               use_matmul_q8=int8_conv)
         self.conv2_bn = BatchNorm(conv_channels)
         d = frontend_dim(in_features, conv_channels)
         for i in range(rnn_layers):
@@ -80,7 +91,8 @@ class DeepSpeechCTC(nn.Module):
             self.add_module(f"rnn{i}", BiGRU(
                 d, rnn_hidden, compute_dtype=cd, int8_proj=int8,
                 int8_rec=int8 and int8_rec,
-                fused_proj=pallas_gru and fused_proj, generator=generator))
+                fused_proj=pallas_gru and fused_proj, generator=generator,
+                fused_bidir=fused_bidir))
             d = 2 * rnn_hidden
         self.rnn_layers = rnn_layers
         self.head_bn = MaskedBatchNorm(d)
@@ -115,7 +127,14 @@ class DeepSpeechCTC(nn.Module):
         u = torch.rand(x.shape, generator=generator, device=x.device)
         return torch.where(u < keep, x / keep, torch.zeros((), device=x.device))
 
-    def _forward(self, feats, feat_lens, generator=None):
+    def conv_frontend(self, feats, feat_lens):
+        """The two conv + norm + ReLU layers: feats (B, T, F), feat_lens
+        -> (x (T', B, F'*C) f32 time-major, mask_t (T', B, 1) f32,
+        out_lens (B,)), padded frames zero."""
+        with full_fp32():
+            return self._conv_frontend(feats, feat_lens)
+
+    def _conv_frontend(self, feats, feat_lens):
         x = feats.to(torch.float32)[:, None]              # (B, 1, T, F)
         x = F.relu(self.conv1_bn(self.conv1(x)))
         out_lens = conv_out_length(feat_lens, 11, 2, "SAME")
@@ -127,7 +146,10 @@ class DeepSpeechCTC(nn.Module):
         # NHWC flatten order (f * C + c), time-major for the RNN stack.
         x = x.permute(2, 0, 3, 1).reshape(Tp, B, Fp * C)
         mask_t = sequence_mask(out_lens, Tp).T[:, :, None].to(torch.float32)
-        x = x * mask_t
+        return x * mask_t, mask_t, out_lens
+
+    def _forward(self, feats, feat_lens, generator=None):
+        x, mask_t, out_lens = self._conv_frontend(feats, feat_lens)
         if self.bf16_stream:
             x = x.to(torch.bfloat16)
         for i in range(self.rnn_layers):

@@ -16,8 +16,11 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from tpuasr_torch.ops.gru import gru_scan, gru_scan_xfused, gru_scan_xfused_q8
+from tpuasr_torch.ops.conv import conv_taps_q8
+from tpuasr_torch.ops.gru import (gru_scan, gru_scan_bidir, gru_scan_xfused,
+                                  gru_scan_xfused_q8)
 from tpuasr_torch.ops.quant import quantize_per_channel
+from tpuasr_torch.precision import full_fp32
 
 
 def sequence_mask(lengths: torch.Tensor, maxlen: int) -> torch.Tensor:
@@ -62,25 +65,86 @@ class FrontConv(nn.Module):
 
     Input and output are NCHW (B, C, T, F); ``weight`` is OIHW
     (Cout, Cin, Kt, Kf). The model runs it under ``precision.full_fp32``.
+
+    As JAX's ``FrontConv`` (layers.py:285-379), two formulations over the
+    same weight: ``use_matmul`` runs Kt shifted f32 matmuls of the
+    (B, T, F*Cin) rows against per-tap freq-Toeplitz band matrices;
+    ``use_matmul_q8`` quantizes the band matrices per output column on
+    each call and runs K9 (``ops.conv.conv_taps_q8``, time stride 1).
+    ``use_matmul_q8`` serves only: in training (``train()``) the module
+    takes ``use_matmul`` or the sliding conv, as the JAX model passes
+    ``int8_conv and not train`` (deepspeech_ctc.py:75-78).
     """
 
     def __init__(self, in_channels: int, features: int, kernel_size, strides,
-                 generator=None, bias: bool = False):
+                 generator=None, bias: bool = False, use_matmul: bool = False,
+                 use_matmul_q8: bool = False):
         super().__init__()
         self.kernel_size = tuple(kernel_size)
         self.strides = tuple(strides)
+        self.use_matmul = use_matmul
+        self.use_matmul_q8 = use_matmul_q8
         self.weight = nn.Parameter(torch.empty(
             (features, in_channels, *self.kernel_size)))
         fan_in = in_channels * self.kernel_size[0] * self.kernel_size[1]
         _lecun_normal_(self.weight, fan_in, generator)
         self.bias = nn.Parameter(torch.zeros(features)) if bias else None
 
+    @staticmethod
+    def band_matrices(w, F, F_out, Kf, sf, pf_lo):
+        """(Kt, Kf, Cin, Cout) HWIO kernel -> (Kt, F*Cin, F_out*Cout)
+        per-tap band matrices, JAX's layout (layers.py:317-331):
+        M[t, (fi, ci), (fo, co)] = w[t, fi - fo*sf + pf_lo, ci, co] where
+        that tap index is valid, else 0 (the zero freq padding)."""
+        Kt = w.shape[0]
+        fi = torch.arange(F, device=w.device)[:, None]
+        fo = torch.arange(F_out, device=w.device)[None, :]
+        d = fi - fo * sf + pf_lo                          # (F, F_out)
+        valid = (d >= 0) & (d < Kf)
+        wt = torch.where(valid[None, :, :, None, None],
+                         w[:, d.clamp(0, Kf - 1)], 0.0)   # (Kt,F,Fo,Ci,Co)
+        return wt.permute(0, 1, 3, 2, 4).reshape(
+            Kt, F * w.shape[2], F_out * w.shape[3])
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         (kt, kf), (st, sf) = self.kernel_size, self.strides
         pt = _same_pad(x.shape[2], kt, st)
         pf = _same_pad(x.shape[3], kf, sf)
-        x = F.pad(x, (pf[0], pf[1], pt[0], pt[1]))
-        return F.conv2d(x, self.weight, self.bias, stride=(st, sf))
+        q8 = self.use_matmul_q8 and not self.training
+        if not (self.use_matmul or q8):
+            x = F.pad(x, (pf[0], pf[1], pt[0], pt[1]))
+            return F.conv2d(x, self.weight, self.bias, stride=(st, sf))
+        B, Cin, T, Fq = x.shape
+        Cout = self.weight.shape[0]
+        T_out = (T + pt[0] + pt[1] - kt) // st + 1
+        F_out = (Fq + pf[0] + pf[1] - kf) // sf + 1
+        N = F_out * Cout
+        w = self.weight.permute(2, 3, 1, 0)               # HWIO
+        # NHWC rows with the freq and channel axes flattened f * Cin + c.
+        xp = F.pad(x.permute(0, 2, 3, 1), (0, 0, 0, 0, pt[0], pt[1]))
+        xf = xp.reshape(B, T + pt[0] + pt[1], Fq * Cin)
+        if q8:
+            if st != 1:
+                raise ValueError("use_matmul_q8 needs time stride 1 "
+                                 "(ops/conv.py)")
+            if (Fq * Cin) % 128 or N % 128:
+                raise ValueError(f"use_matmul_q8 needs lane-aligned dims, "
+                                 f"got K={Fq * Cin}, N={N}")
+            m = self.band_matrices(w.to(torch.float32), Fq, F_out, kf, sf,
+                                   pf[0])
+            mq, sw = quantize_per_channel(m.reshape(-1, N))
+            out = conv_taps_q8(xf.to(torch.float32).contiguous(),
+                               mq.reshape(kt, Fq * Cin, N), sw, T_out)
+        else:
+            m = self.band_matrices(w, Fq, F_out, kf, sf, pf[0])
+            out = x.new_zeros((B, T_out, N))
+            for t in range(kt):
+                xs = xf[:, t:t + (T_out - 1) * st + 1:st]
+                out = out + xs @ m[t]
+        out = out.reshape(B, T_out, F_out, Cout).permute(0, 3, 1, 2)
+        if self.bias is not None:
+            out = out + self.bias[None, :, None, None]
+        return out
 
 
 def _update_running(norm: nn.Module, mean: torch.Tensor,
@@ -226,15 +290,71 @@ class GRULayer(nn.Module):
         return ys * mask_t
 
 
-class BiGRU(nn.Module):
-    """Concat of a forward and a reverse GRULayer on (T, B, D) input."""
+def reverse_sequences(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """Time-major (T, B, ...) -> each row's first ``lengths[b]`` steps
+    reversed, the padding left in place (JAX's layers.py:199-204)."""
+    T = x.shape[0]
+    t = torch.arange(T, device=x.device)[:, None]
+    L = lengths.to(device=x.device, dtype=torch.long)[None, :]
+    idx = torch.where(t < L, L - 1 - t, t)                 # (T, B)
+    idx = idx.reshape(*idx.shape, *([1] * (x.ndim - 2))).expand_as(x)
+    return torch.gather(x, 0, idx)
 
-    def __init__(self, in_features: int, hidden: int, generator=None, **kw):
+
+class BiGRU(nn.Module):
+    """Concat of a forward and a reverse GRU on (T, B, D) input.
+
+    By default two ``GRULayer``s (``fwd``, ``bwd``). With ``fused_bidir``,
+    JAX's fused form (layers.py:226-260): the parameters ``fwd_wx``,
+    ``fwd_wh``, ``fwd_b``, ``bwd_wx``, ``bwd_wh``, ``bwd_b`` sit on this
+    module, xp_f = x@Wx_f + b_f and xp_b = reverse(x)@Wx_b + b_b are
+    matmuls in ``compute_dtype`` (bf16 with ``bf16_gru``), and both
+    recursions run in one kernel (``gru_scan_bidir``: K7, and K7b in
+    training, float32 only). As in JAX, that branch ignores ``fused_proj``,
+    ``int8_proj`` and ``int8_rec``.
+    """
+
+    def __init__(self, in_features: int, hidden: int, generator=None,
+                 fused_bidir: bool = False, **kw):
         super().__init__()
-        self.fwd = GRULayer(in_features, hidden, reverse=False,
-                            generator=generator, **kw)
-        self.bwd = GRULayer(in_features, hidden, reverse=True,
-                            generator=generator, **kw)
+        self.fused_bidir = fused_bidir
+        if not fused_bidir:
+            self.fwd = GRULayer(in_features, hidden, reverse=False,
+                                generator=generator, **kw)
+            self.bwd = GRULayer(in_features, hidden, reverse=True,
+                                generator=generator, **kw)
+            return
+        self.compute_dtype = kw.get("compute_dtype", torch.float32)
+        for pre in ("fwd", "bwd"):
+            wx = nn.Parameter(torch.empty((in_features, 3 * hidden)))
+            wh = nn.Parameter(torch.empty((hidden, 3 * hidden)))
+            _lecun_normal_(wx, in_features, generator)
+            with torch.no_grad():
+                nn.init.orthogonal_(wh, generator=generator)
+            setattr(self, f"{pre}_wx", wx)
+            setattr(self, f"{pre}_wh", wh)
+            setattr(self, f"{pre}_b", nn.Parameter(torch.zeros(3 * hidden)))
 
     def forward(self, x: torch.Tensor, mask_t: torch.Tensor) -> torch.Tensor:
+        if self.fused_bidir:
+            return self._fused_forward(x, mask_t)
         return torch.cat([self.fwd(x, mask_t), self.bwd(x, mask_t)], dim=-1)
+
+    def _fused_forward(self, x, mask_t):
+        T, B, D = x.shape
+        cd = self.compute_dtype
+        lengths = mask_t.reshape(T, B).sum(0).round().long()
+
+        def proj(inp, wx, b):
+            return (inp.reshape(T * B, D).to(cd) @ wx.to(cd)
+                    + b.to(cd)).reshape(T, B, -1)
+
+        with full_fp32():
+            xpf = proj(x, self.fwd_wx, self.fwd_b)
+            xpb = proj(reverse_sequences(x, lengths), self.bwd_wx,
+                       self.bwd_b)
+        ysf, ysb = gru_scan_bidir(xpf, xpb, self.fwd_wh.to(cd),
+                                  self.bwd_wh.to(cd), mask_t)
+        y = torch.cat([ysf.to(x.dtype),
+                       reverse_sequences(ysb.to(x.dtype), lengths)], dim=-1)
+        return y * mask_t.to(x.dtype)

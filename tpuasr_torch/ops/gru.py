@@ -10,7 +10,11 @@ Counterparts of tpuasr/ops/pallas_gru.py:
   ``_xf_bwd_recompute`` (pallas_gru.py:891-926): xp recomputed by a matmul,
   K5b, then dx, dWx and db by matmuls;
 * ``gru_scan_xfused_q8`` (K4, pallas_gru.py:1045): int8 projection, forward
-  only.
+  only;
+* ``gru_scan_bidir`` (K7 forward, K7b backward; pallas_gru.py:501): both
+  directions of a BiGRU over precomputed projections in one launch,
+  differentiable in float32. Its kernels are ``gru_scan_bidir_fwd`` and
+  ``gru_scan_bidir_bwd`` (``csrc/gru_bidir.cu``).
 
 Every kernel wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors. Layouts follow the JAX package: x (T, B, D)
@@ -402,3 +406,161 @@ def gru_scan_xfused_q8(x, wxq, sw, b, wh, mask, reverse=False,
 
 
 gru_scan_xfused_q8.launches = 0
+
+
+# ---- K7 / K7b: both directions in one launch, with BPTT -------------------
+
+
+def gru_scan_bidir_plain(xpf, xpb, whf, whb, mask):
+    """Plain version of K7: each direction as ``gru_recurrence`` over its
+    own xp (xpb already reversed per row, so both run forward in time).
+    xpf, xpb (T, B, 3H) and whf, whb (H, 3H) in one dtype (f32 or bf16),
+    mask (T, B, 1) -> (ysf, ysb) (T, B, H) in that dtype. xp is widened to
+    f32, h is rounded to Wh's dtype for h @ Wh, the gates are f32."""
+
+    def one(xp, wh):
+        wh32 = wh.to(torch.float32)
+
+        def hp_fn(h):
+            with full_fp32():
+                return h.to(wh.dtype).to(torch.float32) @ wh32
+
+        return gru_recurrence(xp.to(torch.float32), hp_fn, mask, False,
+                              xp.dtype)
+
+    return one(xpf, whf), one(xpb, whb)
+
+
+def gru_scan_bidir_bwd_plain(xpf, xpb, yspf, yspb, whf, whb, mask, dysf,
+                             dysb):
+    """Plain version of K7b: ``gru_scan_bwd_plain`` per direction, both
+    forward in time. -> (dxpf, dxpb, dwhf, dwhb), f32."""
+    dxpf, dwhf = gru_scan_bwd_plain(xpf, yspf, whf, mask, dysf)
+    dxpb, dwhb = gru_scan_bwd_plain(xpb, yspb, whb, mask, dysb)
+    return dxpf, dxpb, dwhf, dwhb
+
+
+def _check_bidir(xpf, xpb, whf, whb, mask, dtypes):
+    T, B, H3 = xpf.shape
+    H = whf.shape[0]
+    if H3 != 3 * H:
+        raise ValueError(f"xpf has {H3} columns, expected 3 * {H}")
+    dt = (xpf.dtype,)
+    _build.check_tensor("xpf", xpf, xpf.device, dtypes, (T, B, 3 * H))
+    _build.check_tensor("xpb", xpb, xpf.device, dt, (T, B, 3 * H))
+    _build.check_tensor("whf", whf, xpf.device, dt, (H, 3 * H))
+    _build.check_tensor("whb", whb, xpf.device, dt, (H, 3 * H))
+    return T, B, H, _mask_2d(mask, T, B, xpf.device)
+
+
+def gru_scan_bidir_fwd(xpf, xpb, whf, whb, mask):
+    """K7: (ysf, ysb) (T, B, H) in xpf's dtype from xpf, xpb (T, B, 3H),
+    whf, whb (H, 3H), all f32 or all bf16, and mask (T, B, 1) f32."""
+    if xpf.device.type == "cpu":
+        return gru_scan_bidir_plain(xpf, xpb, whf, whb, mask)
+    if xpf.device.type != "cuda":
+        raise ValueError(f"gru_scan_bidir_fwd: unsupported device "
+                         f"{xpf.device}")
+    T, B, H, mask2 = _check_bidir(xpf, xpb, whf, whb, mask,
+                                  (torch.float32, torch.bfloat16))
+    ysf = torch.empty((T, B, H), dtype=xpf.dtype, device=xpf.device)
+    ysb = torch.empty_like(ysf)
+    if ysf.numel() == 0:
+        return ysf, ysb
+    hbuf = torch.empty((2, 2, B, H), dtype=torch.float32, device=xpf.device)
+    fn = _build.lib().tpuasr_gru_bidir_fwd
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    bar = _barrier(xpf.device)
+    with torch.cuda.device(xpf.device):
+        code = fn(int(xpf.dtype == torch.bfloat16), _build.ptr(xpf),
+                  _build.ptr(xpb), _build.ptr(whf), _build.ptr(whb),
+                  _build.ptr(mask2), _build.ptr(ysf), _build.ptr(ysb),
+                  _build.ptr(hbuf), _build.ptr(bar), T, B, H,
+                  _build.stream_ptr(xpf))
+    gru_scan_bidir_fwd.launches += 1
+    _build.check(code, "gru_scan_bidir_fwd")
+    return ysf, ysb
+
+
+gru_scan_bidir_fwd.launches = 0
+
+
+def gru_scan_bidir_bwd(xpf, xpb, yspf, yspb, whf, whb, mask, dysf, dysb):
+    """K7b: (dxpf, dxpb (T, B, 3H), dwhf, dwhb (H, 3H)) f32 from xpf, xpb,
+    yspf = prev_states(ysf), yspb, whf, whb, mask (T, B, 1) and dysf, dysb
+    (T, B, H); both dWh are summed inside the kernel. Each block keeps both
+    directions' weights, dWh sums and per-row state in shared memory, which
+    bounds B: at H=512 it takes up to 74 rows (the launch fails past it)."""
+    if xpf.device.type == "cpu":
+        return gru_scan_bidir_bwd_plain(xpf, xpb, yspf, yspb, whf, whb,
+                                        mask, dysf, dysb)
+    if xpf.device.type != "cuda":
+        raise ValueError(f"gru_scan_bidir_bwd: unsupported device "
+                         f"{xpf.device}")
+    T, B, H, mask2 = _check_bidir(xpf, xpb, whf, whb, mask,
+                                  (torch.float32,))
+    for name, t in (("yspf", yspf), ("yspb", yspb), ("dysf", dysf),
+                    ("dysb", dysb)):
+        _build.check_tensor(name, t, xpf.device, (torch.float32,),
+                            (T, B, H))
+    dxpf, dxpb = torch.empty_like(xpf), torch.empty_like(xpb)
+    if xpf.numel() == 0:
+        return dxpf, dxpb, torch.zeros_like(whf), torch.zeros_like(whb)
+    dwhf, dwhb = torch.empty_like(whf), torch.empty_like(whb)
+    scratch = torch.empty((2, 2, 3, B, H), dtype=torch.float32,
+                          device=xpf.device)
+    fn = _build.lib().tpuasr_gru_bidir_bwd
+    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    bar = _barrier(xpf.device)
+    with torch.cuda.device(xpf.device):
+        code = fn(*map(_build.ptr, (xpf, xpb, yspf, yspb, whf, whb, mask2,
+                                    dysf, dysb, dxpf, dxpb, dwhf, dwhb,
+                                    scratch, bar)),
+                  T, B, H, _build.stream_ptr(xpf))
+    gru_scan_bidir_bwd.launches += 1
+    _build.check(code, "gru_scan_bidir_bwd")
+    return dxpf, dxpb, dwhf, dwhb
+
+
+gru_scan_bidir_bwd.launches = 0
+
+
+class _BidirScan(torch.autograd.Function):
+    """K7 forward, K7b backward (the plain versions for CPU tensors), as
+    JAX's custom VJP (pallas_gru.py:501-559). Float32 only."""
+
+    @staticmethod
+    def forward(ctx, xpf, xpb, whf, whb, mask):
+        if xpf.dtype != torch.float32:
+            raise NotImplementedError(
+                "the backward of gru_scan_bidir is ported for float32 only")
+        ysf, ysb = gru_scan_bidir_fwd(xpf, xpb, whf, whb, mask)
+        ctx.save_for_backward(xpf, xpb, whf, whb, mask, ysf, ysb)
+        return ysf, ysb
+
+    @staticmethod
+    def backward(ctx, dysf, dysb):
+        xpf, xpb, whf, whb, mask, ysf, ysb = ctx.saved_tensors
+        grads = gru_scan_bidir_bwd(
+            xpf, xpb, prev_states(ysf, False), prev_states(ysb, False), whf,
+            whb, mask, dysf.contiguous(), dysb.contiguous())
+        return (*grads, None)
+
+
+def gru_scan_bidir(xpf, xpb, whf, whb, mask):
+    """Both GRU directions over precomputed projections, with JAX's
+    semantics (pallas_gru.py:501): xpb comes from the per-row reversed
+    input, and both recursions run forward in time under ``mask``.
+    xpf, xpb (T, B, 3H), whf, whb (H, 3H), mask (T, B, 1) -> (ysf, ysb)
+    (T, B, H). Differentiable in float32 (K7, then K7b); with no input
+    requiring grad, K7 alone runs and nothing is saved."""
+    args = (xpf.contiguous(), xpb.contiguous(), whf.contiguous(),
+            whb.contiguous(), mask)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (xpf, xpb, whf, whb)):
+        return _BidirScan.apply(*args)
+    return gru_scan_bidir_fwd(*args)
