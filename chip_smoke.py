@@ -17,12 +17,15 @@ Phases, each fatal on failure:
      shapes in that model, K7 (both GRU directions in one launch) at the
      served and trained shapes, and the training kernels K5, K5b, K7b, K6,
      K6b at the shapes of the BASELINE config-3 train step (B=16 x 5 s,
-     T'=249, U=24), and K8 and K8b (CapsNet routing, forward and
-     backward) at the shapes of BASELINE config 4 (B=8 and B=32 x 5 s,
-     T'=249, I=256, Din=8, O=48, D=16, 3 iterations);
+     T'=249, U=24), K2b (the fused-projection scan's fused backward) at
+     the deepspeech_var step's shapes (H=384, D=512 and 768), K9's taps and
+     slab bodies beside its im2col body, and K8 and K8b (CapsNet routing,
+     forward and backward) at the shapes of BASELINE config 4 (B=8 and
+     B=32 x 5 s, T'=249, I=256, Din=8, O=48, D=16, 3 iterations);
   4. the serving slice through Recognizer: the int8 arm (the default), the
      bf16 arm, the int8 arm with conv2 as K9 (int8_conv, bench.py's
-     --int8-conv) and the bf16 arm of a fused_bidir model (K7), with
+     --int8-conv; once with each of K9's three bodies, chosen by
+     TPUASR_CONV_Q8_MODE) and the bf16 arm of a fused_bidir model (K7), with
      launch counts (and cuDNN conv calls), agreement with the plain path,
      and x-real-time of the kernel path and of the plain path, and the conv
      frontend's time with and without K9; then the CapsNet arm (config 4's
@@ -43,7 +46,12 @@ Phases, each fatal on failure:
   8. the CapsNet training step through Trainer.train_step (config 4:
      capsule1 with 48 classes, CTC, adamw 3e-4, B=8 x 5 s, U=16): launch
      counts per step, step 1 against the plain path, the loss after 10
-     steps on the repeated batch, and train-step ms at B=8 and B=32.
+     steps on the repeated batch, and train-step ms at B=8 and B=32;
+  9. the deepspeech_var preset's train step (384 x 6, adamw 3e-4, clip 5,
+     with the Pallas GRU and the fused projection) through Trainer at
+     config 3's batch: K2 and K2b in every GRU direction, with the same
+     checks and timings as phase 7; then the same step with the backward
+     forced to the recompute route (K5b between matmuls).
 
 Weights are random, made from a seed. The line before the last holds
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}. Without
@@ -56,6 +64,7 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -646,6 +655,92 @@ def train_kernels(record, gen) -> None:
                pms, bd, lib)
 
 
+def xfb_kernels(record, gen) -> None:
+    """Phase 3 for K2b, the fused-projection scan's fused backward, at the
+    shapes of the deepspeech_var train step (phase 9: T'=249, B=16, H=384,
+    D=512 for layer 1 and 768 for layers 2-6, both directions, float32):
+    against its plain version, and timed at D=768 and B=16 and 64 beside
+    the recompute route it replaces (xp by a matmul, K5b, three matmuls)
+    and cuDNN's GRU backward."""
+    from tpuasr_torch.features import FeatureConfig
+    from tpuasr_torch.features.reference import num_frames
+    from tpuasr_torch.ops import gru as gru_mod
+    from tpuasr_torch.precision import full_fp32
+    from tpuasr_torch.utils.params import preset_for
+
+    dev = torch.device("cuda")
+    T = -(-num_frames(FeatureConfig(), int(SR * TRAIN_SECONDS)) // 2)
+    H = preset_for("deepspeech_var")[0]["rnn_hidden"]
+    for D in (512, 2 * H):
+        for Bt in ((TRAIN_B, 64) if D == 2 * H else (TRAIN_B,)):
+            lens = torch.randint(T // 2, T + 1, (Bt,), generator=gen)
+            lens[0], lens[1] = T, 1
+            mask = (torch.arange(T)[:, None] < lens[None, :]).float()
+            mask = mask[:, :, None].to(dev).contiguous()
+            x = torch.randn(T, Bt, D, generator=gen).to(dev)
+            wx = (torch.randn(D, 3 * H, generator=gen) / D ** 0.5).to(dev)
+            b = (torch.randn(3 * H, generator=gen) * 0.1).to(dev)
+            wh = (torch.randn(H, 3 * H, generator=gen) / H ** 0.5).to(dev)
+            dys = torch.randn(T, Bt, H, generator=gen).to(dev)
+            if not gru_mod.xfused_bwd_is_fused(D, H):
+                fail(f"JAX's rule does not take K2b at D={D}, H={H}")
+            for rev in ((False, True) if Bt == TRAIN_B else (False,)):
+                with full_fp32():
+                    ys = gru_mod.gru_scan_xfused_plain(x, wx, b, wh, mask,
+                                                       rev)
+                    ysp = gru_mod.prev_states(ys, rev)
+                    args = (x, ysp, wx, b, wh, mask, dys, rev)
+                    got = gru_mod.gru_scan_xfused_bwd(*args)
+                    want, pms = timed_once(
+                        lambda: gru_mod.gru_scan_xfused_bwd_plain(*args))
+                # Each output within 1e-4 of its largest magnitude (K5b's
+                # gate; dWx and dWh sum T*B outer products).
+                errs = [(a - w).abs().max().item() for a, w in zip(got, want)]
+                tols = [1e-4 * w.abs().max().item() for w in want]
+                same = all(torch.equal(a, c) for a, c in
+                           zip(got, gru_mod.gru_scan_xfused_bwd(*args)))
+                phase(f"[3 K2b] gru_scan_xfused_bwd T={T} B={Bt} D={D} H={H}"
+                      f" reverse={rev}: dx, dwx, db, dwh max_abs_err "
+                      f"{', '.join(f'{e:.3e}' for e in errs)} (tol "
+                      f"{', '.join(f'{t:.3e}' for t in tols)}); two launches"
+                      f" equal bit for bit {same}")
+                if not (all(e <= t for e, t in zip(errs, tols)) and same):
+                    fail(f"K2b disagrees with its plain version at D={D} "
+                         f"B={Bt} reverse={rev}")
+                timing = ()
+                if D == 2 * H and not rev:
+                    ms = cuda_ms(lambda: gru_mod.gru_scan_xfused_bwd(*args),
+                                 10)
+
+                    def recompute():
+                        with full_fp32():
+                            xp = (x.reshape(T * Bt, D) @ wx + b).reshape(
+                                T, Bt, 3 * H)
+                            dxp, dwh = gru_mod.gru_scan_bwd(xp, ysp, wh, mask,
+                                                            dys, rev)
+                            dxp2 = dxp.reshape(T * Bt, 3 * H)
+                            return (dxp2 @ wx.T, x.reshape(T * Bt, D).T @ dxp2,
+                                    dxp2.sum(0), dwh)
+
+                    rms = cuda_ms(recompute, 10)
+                    # 9 B H (D + H) multiply-adds a step: xp, dx and dWx
+                    # against Wx, hp, dhp Wh^T and dWh against Wh.
+                    bd = bound(nbytes(x, ysp, wx, b, wh, mask, dys, *got),
+                               18 * T * Bt * H * (D + H), "fp32")
+                    lib = library_gru_ms(T, Bt, D, H, torch.float32, True)
+                    phase(f"[3 K2b] B={Bt} D={D}: kernel {ms:.3f} ms plain "
+                          f"{pms:.3f} ms (one call) bound {bd[0]:.4f} ms "
+                          f"({bd[1]}); the recompute route it replaces (xp "
+                          f"matmul, K5b, three matmuls) {rms:.3f} ms; "
+                          f"torch.nn.GRU backward {lib:.3f} ms")
+                    if Bt == TRAIN_B:
+                        timing = (ms, pms, bd, lib)
+                record("K2b", "gru_scan_xfused_bwd",
+                       "tpuasr_torch/csrc/gru_xfb.cu",
+                       "tpuasr/ops/pallas_gru.py:736", max(errs), *timing)
+    torch.cuda.empty_cache()
+
+
 def fused_bidir_state(state):
     """A DeepSpeechCTC state dict under the fused BiGRU's names: the same
     weights, rnn{i}.fwd.wx -> rnn{i}.fwd_wx and so on."""
@@ -732,6 +827,28 @@ def conv_bidir_kernels(record, gen) -> None:
     record("K9", "conv_taps_q8 (int8 conv2, im2col)",
            "tpuasr_torch/csrc/conv_q8.cu", "tpuasr/ops/pallas_conv.py:138",
            err, ms, pms, bd, lib)
+    # The taps and slab bodies (TPUASR_CONV_Q8_MODE) on the same input, to
+    # f32 rounding as im2col; the same operations, bound and library call.
+    for mode in ("taps", "slab"):
+        got = conv_mod.conv_taps_q8(xf, mq, sw, T, mode=mode)
+        ref = conv_mod.reference_q8_conv_taps(xf, mq, sw, T, mode)
+        err = (got - ref).abs().max().item()
+        same = (got == ref).double().mean().item()
+        ok = bool(torch.allclose(got, ref, rtol=1e-6, atol=1e-6))
+        ms = cuda_ms(lambda: conv_mod.conv_taps_q8(xf, mq, sw, T, mode=mode),
+                     10)
+        pms = cuda_ms(lambda: conv_mod.reference_q8_conv_taps(xf, mq, sw, T,
+                                                              mode), 2)
+        phase(f"[3 K9-{mode}] conv_taps_q8 mode={mode} B={B} T_out={T}: "
+              f"max_abs_err {err:.3e} (tol rtol 1e-6 atol 1e-6; {same:.6f} "
+              f"of the outputs equal bit for bit) kernel {ms:.3f} ms plain "
+              f"{pms:.3f} ms bound {bd[0]:.4f} ms ({bd[1]}) F.conv2d fp32 "
+              f"{lib:.3f} ms")
+        if not ok:
+            fail(f"K9 {mode} disagrees with its plain version")
+        record(f"K9-{mode}", f"conv_taps_q8 (int8 conv2, {mode})",
+               "tpuasr_torch/csrc/conv_q8.cu",
+               "tpuasr/ops/pallas_conv.py:138", err, ms, pms, bd, lib)
     del xf, x4, x4b, got, ref
 
     # K7 / K7b: xp = x@Wx + b of a 1024-wide layer, xpb from the per-row
@@ -1196,6 +1313,40 @@ def train_slice(kernels, wrappers, card) -> None:
                 patches, kernels, wrappers, card)
 
 
+def var_train_slice(kernels, wrappers, card) -> None:
+    """Phase 9: the deepspeech_var preset's train step through Trainer on
+    the card (tpuasr/utils/params.py:13-16: 384 x 6, conv 32, dropout 0.1,
+    adamw 3e-4, clip 5; trained with the Pallas GRU and the fused
+    projection, tpuasr/cli/batch_train.py:91-101), float32, 64 classes and
+    64 mels, at config 3's batch (B=16 and 64 x 5 s, U=24). JAX's rule takes
+    K2b for every GRU direction of this model; the step runs a second time
+    with the rule forced to the recompute route (K5b between matmuls), so
+    that the two backwards stand side by side."""
+    from tpuasr_torch.losses import ctc as ctc_mod
+    from tpuasr_torch.models import layers as layers_mod
+    from tpuasr_torch.ops import gru as gru_mod
+    from tpuasr_torch.train import TrainConfig
+    from tpuasr_torch.utils.params import preset_for
+
+    kwargs, train = preset_for("deepspeech_var")
+    cfg = TrainConfig(model="deepspeech_var", num_classes=NUM_CLASSES,
+                      warmup_steps=1, **train,
+                      model_kwargs=dict(kwargs, pallas_gru=True,
+                                        fused_proj=True))
+    dirs = 2 * kwargs["rnn_layers"]
+    patches = ((layers_mod, "gru_scan_xfused", gru_mod.gru_scan_xfused_plain),
+               (ctc_mod, "ctc_alphas_kernel", ctc_mod.ctc_alphas_plain),
+               (ctc_mod, "ctc_betas_kernel", ctc_mod.ctc_betas_plain))
+    train_phase("9 train deepspeech_var", cfg, TRAIN_U, (TRAIN_B, 64),
+                dict(K2=dirs, K2b=dirs, K6=1, K6b=1), ("K2", "K2b"), patches,
+                kernels, wrappers, card)
+    with mock.patch.object(gru_mod, "xfused_bwd_is_fused",
+                           lambda D, H: False):
+        train_phase("9 train deepspeech_var recompute", cfg, TRAIN_U,
+                    (TRAIN_B, 64), dict(K2=dirs, K5b=dirs, K6=1, K6b=1), (),
+                    patches, kernels, wrappers, card)
+
+
 def capsnet_train_slice(kernels, wrappers, card) -> None:
     """Phase 8: config 4's train step through Trainer on the card
     (benchmarks/config4_capsnet.py:22-37: capsule1 with 48 classes, CTC,
@@ -1254,6 +1405,7 @@ def capsnet_train_slice(kernels, wrappers, card) -> None:
 
 def main() -> int:
     # ---- 1. environment -------------------------------------------------
+    clock = [("start", time.perf_counter())]     # (phase, its end)
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke test needs a "
              "CUDA device")
@@ -1465,11 +1617,16 @@ def main() -> int:
     # K5 / K5b / K6 / K6b at the config-3 train step's shapes.
     train_kernels(record, gen)
 
+    # K2b at the deepspeech_var train step's shapes.
+    xfb_kernels(record, gen)
+
     # K9, K7 and K7b at config 5's and config 3's shapes.
     conv_bidir_kernels(record, gen)
 
     # K8 and K8b at config 4's shapes.
     capsnet_kernels(record, gen)
+
+    clock.append(("1-3", time.perf_counter()))
 
     # ---- 4. the full slice through Recognizer ---------------------------------
     feat_cfg = FeatureConfig(sample_rate=SR, n_mels=64)
@@ -1485,6 +1642,20 @@ def main() -> int:
         "bf16+fused_bidir": dict(pallas_gru=True, bf16_gru=True,
                                  fused_bidir=True),
     }
+    # The int8 + int8_conv arm once more with each of K9's other bodies,
+    # chosen by TPUASR_CONV_Q8_MODE as in JAX (conv_body below).
+    for body in ("taps", "slab"):
+        arms[f"int8+int8_conv/{body}"] = arms["int8+int8_conv"]
+
+    def conv_body(arm):
+        """The environment of an arm's calls: TPUASR_CONV_Q8_MODE names
+        K9's body for the arms that carry one, and is unset otherwise."""
+        env = {k: v for k, v in os.environ.items()
+               if k != "TPUASR_CONV_Q8_MODE"}
+        if "/" in arm:
+            env["TPUASR_CONV_Q8_MODE"] = arm.split("/")[1]
+        return mock.patch.dict(os.environ, env, clear=True)
+
     base = dict(num_classes=NUM_CLASSES, rnn_hidden=HIDDEN,
                 rnn_layers=LAYERS, in_features=feat_cfg.n_mels)
     model0 = create_model("deepspeech_ctc", **base, **arms["int8"],
@@ -1501,7 +1672,9 @@ def main() -> int:
     wrappers = {"K1": fused_mod.fbank_power,
                 "K2": gru_mod.gru_scan_xfused,
                 "K4": gru_mod.gru_scan_xfused_q8,
-                "K9": conv_mod.conv_taps_q8,
+                "K9": conv_mod.conv_taps_q8.bodies["im2col"],
+                "K9-taps": conv_mod.conv_taps_q8.bodies["taps"],
+                "K9-slab": conv_mod.conv_taps_q8.bodies["slab"],
                 "K7": gru_mod.gru_scan_bidir_fwd,
                 "K7b": gru_mod.gru_scan_bidir_bwd,
                 "K3": beam_mod.beam_scan,
@@ -1510,14 +1683,17 @@ def main() -> int:
                 "K8b": routing_mod.routed_caps_bwd,
                 "K5": gru_mod.gru_scan_fwd,
                 "K5b": gru_mod.gru_scan_bwd,
+                "K2b": gru_mod.gru_scan_xfused_bwd,
                 "K6": ctc_mod.ctc_alphas_kernel,
                 "K6b": ctc_mod.ctc_betas_kernel}
-    serving = ("K1", "K2", "K4", "K9", "K7", "K3")
+    serving = ("K1", "K2", "K4", "K9", "K9-taps", "K9-slab", "K7", "K3")
     plain_patches = (
         (fused_mod, "fbank_power", fused_mod.fbank_power_plain),
         (layers_mod, "gru_scan_xfused", gru_mod.gru_scan_xfused_plain),
         (layers_mod, "gru_scan_xfused_q8", gru_mod.gru_scan_xfused_q8_plain),
-        (layers_mod, "conv_taps_q8", conv_mod.reference_q8_conv_taps),
+        (layers_mod, "conv_taps_q8",
+         lambda *a: conv_mod.reference_q8_conv_taps(
+             *a, mode=conv_mod.resolve_mode(None))),
         (gru_mod, "gru_scan_bidir_fwd", gru_mod.gru_scan_bidir_plain),
         (beam_mod, "beam_scan", beam_mod.beam_scan_plain),
         (prefix_beam_mod, "gather_rows", gather_mod.gather_rows_plain),
@@ -1553,7 +1729,7 @@ def main() -> int:
         before = {k: w.launches for k, w in wrappers.items()}
         convs[arm] = 0
         with mock.patch.object(torch.nn.functional, "conv2d",
-                               counted_conv2d):
+                               counted_conv2d), conv_body(arm):
             outs[arm] = rec(wav_d, lens_d)
         torch.cuda.synchronize()
         per_arm[arm] = {k: w.launches - before[k] for k, w in wrappers.items()}
@@ -1565,7 +1741,11 @@ def main() -> int:
             "bf16": dict(none, K1=1, K2=2 * LAYERS, K3=1),
             "int8+int8_conv": dict(none, K1=1, K9=1, K4=2 * LAYERS, K3=1),
             "bf16+fused_bidir": dict(none, K1=1, K7=LAYERS, K3=1)}
-    want_convs = {arm: 1 if arm == "int8+int8_conv" else 2 for arm in arms}
+    for body in ("taps", "slab"):
+        want[f"int8+int8_conv/{body}"] = dict(none, K1=1, K4=2 * LAYERS,
+                                              K3=1, **{f"K9-{body}": 1})
+    want_convs = {arm: 1 if arm.startswith("int8+int8_conv") else 2
+                  for arm in arms}
     if per_arm != want or convs != want_convs:
         fail(f"launch counts {per_arm} != {want} or cuDNN convs {convs} != "
              f"{want_convs}")
@@ -1586,7 +1766,7 @@ def main() -> int:
     # only catches a gross fault (a broken path decodes at a TER near 1).
     slice_tol = 5e-2
     ter_tol = 0.2
-    for arm, rec in recs.items():
+    def serving_checks(arm, rec):
         out = outs[arm]
         logp, ol = out["log_probs"], out["out_lens"]
         if not bool(torch.isfinite(logp).all()):
@@ -1623,8 +1803,8 @@ def main() -> int:
                 and ter <= ter_tol and torch.equal(ol, pout["out_lens"])):
             fail(f"{arm}: kernel path disagrees with the plain path")
         rt = cuda_ms(lambda: rec(wav_d, lens_d), 5)
-        with plain_path():
-            prt = cuda_ms(lambda: rec(wav_d, lens_d), 2)
+        with plain_path():       # warmed up by the check above
+            prt = cuda_ms(lambda: rec(wav_d, lens_d), 2, warmup=0)
         phase(f"[4 slice {arm}] B={B} x {SECONDS:.0f} s ({audio_s:.0f} s of "
               f"audio): kernel path {rt:.2f} ms = "
               f"{audio_s / (rt / 1e3):.1f}x real time; plain path "
@@ -1632,6 +1812,10 @@ def main() -> int:
               f"[{card}]")
         phase(f"[4 slice {arm}] device time of one batch by kernel "
               f"(torch.profiler): {device_breakdown(lambda: rec(wav_d, lens_d))}")
+
+    for arm, rec in recs.items():
+        with conv_body(arm):
+            serving_checks(arm, rec)
 
     # The conv frontend alone (both convs, their norms and ReLUs) on the
     # same features: cuDNN fp32 against conv1 in cuDNN and conv2 as K9.
@@ -1658,9 +1842,13 @@ def main() -> int:
     # The CapsNet arm (config 4).
     capsnet_slice(kernels, wrappers, card, plain_path)
 
+    clock.append(("4", time.perf_counter()))
+
     # ---- 5. the LM and graph serving arms --------------------------------
     lm_graph_slice(kernels, wrappers, recs["int8"].model, feat_cfg, wav_d,
                    lens_d, tabs_g, lms, plain_path, card, audio_s, T_out)
+
+    clock.append(("5", time.perf_counter()))
 
     # ---- 6. requests through the CLI --------------------------------------
     from scipy.io import wavfile
@@ -1732,14 +1920,26 @@ def main() -> int:
                 phase(f"    {Path(ln.split(chr(9))[0]).name}: "
                       f"{len(words)} {'words' if unit == 'w' else 'tokens'}")
 
+    clock.append(("6", time.perf_counter()))
+
     # ---- 7. the training slice through Trainer.train_step ---------------------
     train_slice(kernels, wrappers, card)
+    clock.append(("7", time.perf_counter()))
 
     # ---- 8. the CapsNet training step through Trainer.train_step ----------
     capsnet_train_slice(kernels, wrappers, card)
+    clock.append(("8", time.perf_counter()))
 
-    order = ("K1", "K2", "K4", "K9", "K7", "K3", "K3-LM", "K10", "K8", "K8b",
-             "K5", "K5b", "K7b", "K6", "K6b")
+    # ---- 9. the deepspeech_var train step, with K2b -----------------------
+    var_train_slice(kernels, wrappers, card)
+    clock.append(("9", time.perf_counter()))
+    phase("[time] seconds by phase (host clock): " + json.dumps(
+        {name: round(t - clock[i][1], 1)
+         for i, (name, t) in enumerate(clock[1:])}))
+
+    order = ("K1", "K2", "K4", "K9", "K9-taps", "K9-slab", "K7", "K3",
+             "K3-LM", "K10", "K8", "K8b", "K5", "K5b", "K7b", "K2b", "K6",
+             "K6b")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

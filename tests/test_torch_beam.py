@@ -22,13 +22,8 @@ from tpuasr_torch.decode import (BeamSearchConfig, beam_scan,
 from tpuasr_torch.decode.beam import _wrap32, backtrack, logaddexp
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _fresh_jax_caches():
-    """Drop the executables that earlier test files in this process traced.
-    A file that ran the JAX package's Pallas kernels under
-    ``pltpu.force_tpu_interpret_mode()`` leaves executables whose host
-    callbacks dispatch JAX ops; reused here, they can deadlock."""
-    jax.clear_caches()
+# Every test file starts with empty JAX caches (tests/jax_cache_isolation.py).
+pytest_plugins = ["jax_cache_isolation"]
 
 
 def _logp(seed, B, T, C, scale=2.0):

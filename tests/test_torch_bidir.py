@@ -36,13 +36,9 @@ from tpuasr_torch.ops.gru import (gru_scan_bidir, gru_scan_bidir_bwd_plain,
 from tpuasr_torch.train import TrainConfig, Trainer
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _fresh_jax_caches():
-    """Drop the executables that earlier test files in this process traced.
-    A file that ran the JAX package's Pallas kernels under
-    ``pltpu.force_tpu_interpret_mode()`` leaves executables whose host
-    callbacks dispatch JAX ops; reused here, they can deadlock."""
-    jax.clear_caches()
+# Every test file starts with empty JAX caches (tests/jax_cache_isolation.py).
+pytest_plugins = ["jax_cache_isolation"]
+
 
 T, B, D, H = 12, 4, 24, 16
 LENS = np.array([T, T - 5, 1, 7])        # ragged, one row of length 1

@@ -25,17 +25,14 @@ from tpuasr_torch.decode import greedy_decode
 from tpuasr_torch.models import create_model
 from tpuasr_torch.models import layers as layers_mod
 from tpuasr_torch.models.layers import FrontConv
+from tpuasr_torch.ops import conv as conv_mod
 from tpuasr_torch.ops.conv import conv_taps_q8, reference_q8_conv_taps
 from tpuasr_torch.ops.quant import quantize_per_channel, quantize_rows
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _fresh_jax_caches():
-    """Drop the executables that earlier test files in this process traced.
-    A file that ran the JAX package's Pallas kernels under
-    ``pltpu.force_tpu_interpret_mode()`` leaves executables whose host
-    callbacks dispatch JAX ops; reused here, they can deadlock."""
-    jax.clear_caches()
+# Every test file starts with empty JAX caches (tests/jax_cache_isolation.py).
+pytest_plugins = ["jax_cache_isolation"]
+
 
 # tests/test_quant_conv.py's shapes: (B, T_out, Kd, N, Kt).
 SHAPES = [(3, 50, 128, 256, 11), (1, 300, 128, 128, 7)]
@@ -73,7 +70,54 @@ def test_reference_and_wrapper_match_jax(shape, mode):
     np.testing.assert_allclose(got, want_kern, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("mode", ["im2col", "taps"])
+@pytest.mark.parametrize("cut,extra", [(0, 0), (4, 0), (0, 40)],
+                         ids=["exact", "short", "long"])
+@pytest.mark.parametrize("shape", SHAPES + [(2, 129, 256, 128, 5)],
+                         ids=["B3_T50_Kt11", "B1_T300_Kt7", "B2_T129_Kt5"])
+def test_slab_matches_jax_kernel(shape, cut, extra):
+    """The slab body, which JAX's oracle lacks: the port's plain version
+    and its wrapper on CPU tensors against JAX's Pallas kernel (interpret)
+    within rtol 1e-6 / atol 1e-6: one scale per time block of 128 output
+    rows, the absmax of the block's 128 + Kt - 1 input rows, including
+    rows past T_out + Kt - 1 where the input has them ("long") and zeros
+    where it is short. One row dominates its block's scale."""
+    B, T, K, N, Kt = shape
+    x, mq, sw = _case(4, *shape)
+    x = np.concatenate([x, np.random.default_rng(5).standard_normal(
+        (B, extra, K)).astype(np.float32)], axis=1)[:, :x.shape[1] - cut + extra]
+    x[0, T // 2] *= 40.0
+    want = np.asarray(j_conv_taps_q8(jnp.asarray(x), jnp.asarray(mq),
+                                     jnp.asarray(sw), T, mode="slab"))
+    args = (torch.tensor(x), torch.tensor(mq), torch.tensor(sw), T)
+    got_ref = reference_q8_conv_taps(*args, mode="slab").numpy()
+    got = conv_taps_q8(*args, mode="slab").numpy()
+    assert got.shape == (B, T, N)
+    np.testing.assert_array_equal(got, got_ref)
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["im2col", "taps", "slab"])
+def test_mode_from_environment(monkeypatch, mode):
+    """mode=None reads TPUASR_CONV_Q8_MODE, as JAX's conv_taps_q8 does
+    (pallas_conv.py:178-182): the port gives the named body's plain
+    version, and JAX's kernel, under the same variable, agrees."""
+    shape = SHAPES[0]
+    x, mq, sw = _case(6, *shape)
+    T = shape[1]
+    monkeypatch.setenv("TPUASR_CONV_Q8_MODE", mode)
+    args = (torch.tensor(x), torch.tensor(mq), torch.tensor(sw), T)
+    got = conv_taps_q8(*args).numpy()
+    np.testing.assert_array_equal(
+        got, reference_q8_conv_taps(*args, mode=mode).numpy())
+    want = np.asarray(j_conv_taps_q8(jnp.asarray(x), jnp.asarray(mq),
+                                     jnp.asarray(sw), T))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    assert conv_mod.resolve_mode(None) == mode
+    monkeypatch.delenv("TPUASR_CONV_Q8_MODE")
+    assert conv_mod.resolve_mode(None) == "im2col"
+
+
+@pytest.mark.parametrize("mode", ["im2col", "taps", "slab"])
 def test_integer_sums_exact(mode):
     """Rows on the int8 grid with absmax 127 quantize losslessly (scale
     exactly 1), and with sw = 1 the output is the int32 sum itself:
@@ -118,8 +162,7 @@ def test_conv_taps_q8_checks():
                      10)
     with pytest.raises(ValueError, match="mode"):
         conv_taps_q8(x, mq, sw, 10, mode="rows")
-    with pytest.raises(NotImplementedError, match="slab"):
-        conv_taps_q8(x, mq, sw, 10, mode="slab")
+    assert conv_taps_q8(x, mq, sw, 10, mode="slab").shape == (1, 10, 128)
     with pytest.raises(ValueError, match="int8"):
         conv_taps_q8(x, mq.float(), sw, 10)
 
@@ -306,6 +349,25 @@ def test_int8_conv_runs_k9_when_serving():
             torch.inference_mode():
         tm(torch.tensor(feats), torch.tensor(lens))
     assert calls == [(B, T // 2 + 10, 32 * 8)]
+
+
+@pytest.mark.parametrize("mode", ["taps", "slab"])
+def test_int8_conv_model_with_each_body(monkeypatch, mode):
+    """Under TPUASR_CONV_Q8_MODE both packages serve conv2 with that body:
+    the port's wrapper runs the body's plain version, out_lens are exact
+    and logp within test_model_matches_jax's int8_conv bound, 2e-3."""
+    monkeypatch.setenv("TPUASR_CONV_Q8_MODE", mode)
+    jm, v, tm, feats, lens = _models(dict(int8_conv=True))
+    lp_j, ol_j = jm.apply(v, jnp.asarray(feats), jnp.asarray(lens),
+                          train=False)
+    with mock.patch.object(conv_mod, "reference_q8_conv_taps",
+                           wraps=conv_mod.reference_q8_conv_taps) as ref, \
+            torch.inference_mode():
+        lp_t, ol_t = tm(torch.tensor(feats), torch.tensor(lens))
+    assert ref.call_count == 1 and ref.call_args.args[4] == mode
+    np.testing.assert_array_equal(ol_t.numpy(), np.asarray(ol_j))
+    np.testing.assert_allclose(lp_t.numpy(), np.asarray(lp_j), rtol=0,
+                               atol=2e-3)
 
 
 def test_int8_conv_train_falls_back():

@@ -20,13 +20,9 @@ from tpuasr_torch.losses import ctc_loss, ctc_loss_ref, get_ctc_loss
 from tpuasr_torch.losses import ctc as ctc_mod
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _fresh_jax_caches():
-    """Drop the executables that earlier test files in this process traced.
-    A file that ran the JAX package's Pallas kernels under
-    ``pltpu.force_tpu_interpret_mode()`` leaves executables whose host
-    callbacks dispatch JAX ops; reused here, they can deadlock."""
-    jax.clear_caches()
+# Every test file starts with empty JAX caches (tests/jax_cache_isolation.py).
+pytest_plugins = ["jax_cache_isolation"]
+
 
 C, U = 9, 6
 

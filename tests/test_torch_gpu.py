@@ -32,7 +32,9 @@ from tpuasr_torch.ops.gru import (gru_scan_bidir, gru_scan_bidir_bwd,
                                   gru_scan_bidir_fwd, gru_scan_bidir_plain,
                                   gru_scan_bwd, gru_scan_bwd_plain,
                                   gru_scan_fwd, gru_scan_plain,
-                                  gru_scan_xfused, gru_scan_xfused_plain,
+                                  gru_scan_xfused, gru_scan_xfused_bwd,
+                                  gru_scan_xfused_bwd_plain,
+                                  gru_scan_xfused_plain,
                                   gru_scan_xfused_q8, gru_scan_xfused_q8_plain,
                                   prev_states)
 from tpuasr_torch.ops.quant import quantize_per_channel
@@ -209,9 +211,9 @@ def test_k5_k5b(dev, reverse, H):
 
 
 def test_k2_backward_route(dev):
-    """gru_scan_xfused's backward on the card (K2 forward, then K5b between
-    matmuls) against autograd through its plain version: each gradient
-    within 1e-4 of its largest magnitude."""
+    """gru_scan_xfused's backward on the card (K2 forward, then K2b, which
+    JAX's rule picks at D=70, H=40) against autograd through its plain
+    version: each gradient within 1e-4 of its largest magnitude."""
     x, wx, wh, b, mask = _gru_case(dev, 70, 40, torch.float32)
     g = torch.Generator().manual_seed(5)
     dys = torch.randn(x.shape[0], x.shape[1], 40, generator=g).to(dev)
@@ -223,6 +225,73 @@ def test_k2_backward_route(dev):
     for a, r in zip(got, ref):
         tol = 1e-4 * r.grad.abs().max().item()
         torch.testing.assert_close(a.grad, r.grad, rtol=0, atol=tol)
+
+
+def _xfb_case(dev, D, H, B, T=37, seed=21):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(T, B, D, generator=g)
+    wx = torch.randn(D, 3 * H, generator=g) / D ** 0.5
+    b = torch.randn(3 * H, generator=g) * 0.1
+    wh = torch.randn(H, 3 * H, generator=g) / H ** 0.5
+    dys = torch.randn(T, B, H, generator=g)
+    lens = torch.randint(1, T + 1, (B,), generator=g)
+    lens[:4] = torch.tensor([T, 1, 0, 12])[:B]
+    mask = (torch.arange(T)[:, None] < lens[None, :]).float()[:, :, None]
+    return [t.to(dev).contiguous() for t in (x, wx, b, wh, mask, dys)]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("D,H,B", [(70, 40, 7), (130, 20, 5), (512, 384, 16),
+                                   (768, 384, 20)])
+def test_k2b(dev, D, H, B, reverse):
+    """K2b against its plain version: dx, dwx, db and dwh each within 1e-4
+    of its largest magnitude (K5b's gate: float32 sums in other orders,
+    the weight gradients over all T*B rows); two launches equal bit for
+    bit; the row of length 0 gets no dx."""
+    x, wx, b, wh, mask, dys = _xfb_case(dev, D, H, B)
+    with full_fp32():
+        ys = gru_scan_xfused_plain(x, wx, b, wh, mask, reverse)
+        ysp = prev_states(ys, reverse)
+        args = (x, ysp, wx, b, wh, mask, dys, reverse)
+        before = gru_scan_xfused_bwd.launches
+        got = gru_scan_xfused_bwd(*args)
+        assert gru_scan_xfused_bwd.launches == before + 1
+        want = gru_scan_xfused_bwd_plain(*args)
+    for a, w in zip(got, want):
+        tol = 1e-4 * w.abs().max().item()
+        torch.testing.assert_close(a, w, rtol=0, atol=tol)
+    assert all(torch.equal(a, c) for a, c in zip(got,
+                                                 gru_scan_xfused_bwd(*args)))
+    if B > 2:
+        assert not got[0][:, 2].any()
+
+
+def test_k2b_refuses_a_shape_it_cannot_hold(dev):
+    """Past its registers for dWx (D > 1024 at H=384) K2b raises before a
+    launch, and says why."""
+    x, wx, b, wh, mask, dys = _xfb_case(dev, 1100, 384, 2, T=3)
+    ysp = torch.zeros_like(dys)
+    before = gru_scan_xfused_bwd.launches
+    with pytest.raises(RuntimeError, match="cannot hold"):
+        gru_scan_xfused_bwd(x, ysp, wx, b, wh, mask, dys)
+    assert gru_scan_xfused_bwd.launches == before
+
+
+@pytest.mark.parametrize("D,H,fused", [(70, 40, True), (768, 384, True),
+                                       (1024, 512, False)])
+def test_xfused_backward_launches_by_rule(dev, D, H, fused):
+    """_XFusedScan.backward launches K2b where JAX's rule takes the fused
+    backward (xfused_bwd_is_fused), and K5b elsewhere; the gradients are
+    finite either way."""
+    assert gru_mod.xfused_bwd_is_fused(D, H) == fused
+    x, wx, b, wh, mask, _ = _xfb_case(dev, D, H, 4, T=9)
+    args = [t.requires_grad_() for t in (x, wx, b, wh)]
+    k2b, k5b = gru_scan_xfused_bwd.launches, gru_scan_bwd.launches
+    with full_fp32():
+        gru_scan_xfused(*args, mask).sum().backward()
+    assert (gru_scan_xfused_bwd.launches - k2b,
+            gru_scan_bwd.launches - k5b) == ((1, 0) if fused else (0, 1))
+    assert all(torch.isfinite(t.grad).all() for t in args)
 
 
 def test_ctc_kernels(dev):
@@ -535,10 +604,52 @@ def test_k9_integer_sums_exact(dev):
 
 
 def test_k9_refuses_unported_modes(dev):
+    """Every body of JAX's kernel is ported: only an unknown mode is
+    refused, before a launch."""
     x, mq, sw = _conv_case(dev, 1, 20, 128, 128, 3)
-    for mode in ("taps", "slab"):
-        with pytest.raises(NotImplementedError, match=mode):
-            conv_taps_q8(x, mq, sw, 20, mode=mode)
+    before = conv_taps_q8.launches
+    with pytest.raises(ValueError, match="mode"):
+        conv_taps_q8(x, mq, sw, 20, mode="rows")
+    assert conv_taps_q8.launches == before
+
+
+@pytest.mark.parametrize("mode", ["taps", "slab"])
+@pytest.mark.parametrize("B,T,K,N,Kt,cut", [
+    (1, 300, 128, 128, 7, 0),      # three time blocks
+    (3, 50, 256, 256, 11, 4),      # T_in short of T_out + Kt - 1
+    (2, 129, 1024, 512, 11, 0),    # conv2's widths, one row past a block
+])
+def test_k9_bodies(dev, monkeypatch, mode, B, T, K, N, Kt, cut):
+    """K9's taps and slab bodies against their plain versions to f32
+    rounding (rtol 1e-6, atol 1e-6), chosen by mode= and by
+    TPUASR_CONV_Q8_MODE; each launch counts for its body."""
+    x, mq, sw = _conv_case(dev, B, T, K, N, Kt)
+    x = x[:, :x.shape[1] - cut].contiguous()
+    want = reference_q8_conv_taps(x, mq, sw, T, mode)
+    before = conv_taps_q8.bodies[mode].launches
+    got = conv_taps_q8(x, mq, sw, T, mode=mode)
+    monkeypatch.setenv("TPUASR_CONV_Q8_MODE", mode)
+    again = conv_taps_q8(x, mq, sw, T)
+    assert conv_taps_q8.bodies[mode].launches == before + 2
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert torch.equal(got, again)
+    if B > 1:
+        assert not got[1].any()
+
+
+@pytest.mark.parametrize("mode", ["taps", "slab"])
+def test_k9_bodies_integer_sums_exact(dev, mode):
+    """Rows on the int8 grid (absmax 127, scale 1) with sw = 1: each body
+    gives the int32 sum, equal to its plain version bit for bit."""
+    g = torch.Generator().manual_seed(13)
+    B, T, K, N, Kt = 2, 200, 1024, 256, 11
+    x = torch.randint(-127, 128, (B, T + Kt - 1, K), generator=g).float()
+    x[:, :, 0] = 127.0
+    mq = torch.randint(-127, 128, (Kt, K, N), generator=g).to(torch.int8)
+    sw = torch.ones(N)
+    x, mq, sw = x.to(dev), mq.to(dev), sw.to(dev)
+    assert torch.equal(conv_taps_q8(x, mq, sw, T, mode=mode),
+                       reference_q8_conv_taps(x, mq, sw, T, mode))
 
 
 # ---- K7 / K7b: the fused bidirectional scan ---------------------------------

@@ -31,13 +31,9 @@ from tpuasr_torch.ops.gru import (_pack_float, _pack_int8, gru_scan,
 from tpuasr_torch.ops.quant import quantize_per_channel, quantize_rows
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _fresh_jax_caches():
-    """Drop the executables that earlier test files in this process traced.
-    A file that ran the JAX package's Pallas kernels under
-    ``pltpu.force_tpu_interpret_mode()`` leaves executables whose host
-    callbacks dispatch JAX ops; reused here, they can deadlock."""
-    jax.clear_caches()
+# Every test file starts with empty JAX caches (tests/jax_cache_isolation.py).
+pytest_plugins = ["jax_cache_isolation"]
+
 
 T, B, D, H = 12, 3, 24, 16
 
@@ -245,8 +241,10 @@ def test_k5b_bptt_matches_jax_vjp(reverse):
 
 @pytest.mark.parametrize("reverse", [False, True])
 def test_k2_backward_matches_jax_vjp(reverse):
-    """The fused-projection scan's backward (xp recomputed, K5b, then dx,
-    dWx and db by matmuls) against jax.vjp of the JAX gru_scan_xfused."""
+    """The fused-projection scan's backward against jax.vjp of the JAX
+    gru_scan_xfused. At these widths JAX's rule and the port's take the
+    fused backward (K2b's plain version); tests/test_torch_xfb.py holds the
+    rule and the recompute route."""
     x, wx, wh, b, mask = _case(8)
     dys = np.random.default_rng(9).standard_normal((T, B, H)).astype(
         np.float32)

@@ -27,13 +27,8 @@ KERNEL_INT8 = dict(pallas_gru=True, bf16_gru=True, fused_proj=True,
 KERNEL_INT8_REC = dict(KERNEL_INT8, int8_rec=True)
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _fresh_jax_caches():
-    """Drop the executables that earlier test files in this process traced.
-    A file that ran the JAX package's Pallas kernels under
-    ``pltpu.force_tpu_interpret_mode()`` leaves executables whose host
-    callbacks dispatch JAX ops; reused here, they can deadlock."""
-    jax.clear_caches()
+# Every test file starts with empty JAX caches (tests/jax_cache_isolation.py).
+pytest_plugins = ["jax_cache_isolation"]
 
 
 def _inputs():

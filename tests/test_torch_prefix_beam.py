@@ -27,13 +27,9 @@ from tpuasr_torch.decode import (BeamSearchConfig, GraphTables,
 from tpuasr_torch.decode.prefix_beam import topk_indices
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _fresh_jax_caches():
-    """Drop the executables that earlier test files in this process traced.
-    A file that ran the JAX package's Pallas kernels under
-    ``pltpu.force_tpu_interpret_mode()`` leaves executables whose host
-    callbacks dispatch JAX ops; reused here, they can deadlock."""
-    jax.clear_caches()
+# Every test file starts with empty JAX caches (tests/jax_cache_isolation.py).
+pytest_plugins = ["jax_cache_isolation"]
+
 
 B, T, C, K = 3, 10, 7, 4
 SYMS = ["<blk>", "a", "b", "c", "d", "e", "f"]

@@ -35,13 +35,9 @@ from tpuasr_torch.models import create_model
 from tpuasr_torch.serve.offline import Recognizer
 
 
-@pytest.fixture(autouse=True, scope="module")
-def _fresh_jax_caches():
-    """Drop the executables that earlier test files in this process traced.
-    A file that ran the JAX package's Pallas kernels under
-    ``pltpu.force_tpu_interpret_mode()`` leaves executables whose host
-    callbacks dispatch JAX ops; reused here, they can deadlock."""
-    jax.clear_caches()
+# Every test file starts with empty JAX caches (tests/jax_cache_isolation.py).
+pytest_plugins = ["jax_cache_isolation"]
+
 
 C = 12
 BASE = dict(num_classes=C, rnn_hidden=24, rnn_layers=2, conv_channels=4,

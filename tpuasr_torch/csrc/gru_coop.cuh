@@ -1,8 +1,8 @@
 // Shared pieces of the cooperative GRU kernels (csrc/gru_bptt.cu: K5,
-// K5b; csrc/gru_bidir.cu: K7, K7b): the block shape, the grid barrier,
-// row staging, the per-unit products with Wh resident in shared memory,
-// and the occupancy-checked cooperative launch. See gru_bptt.cu for the
-// design.
+// K5b; csrc/gru_bidir.cu: K7, K7b; csrc/gru_xfb.cu: K2b): the block
+// shape, the grid barrier, row staging, the per-unit products with Wh
+// resident in shared memory, and the occupancy-checked cooperative launch.
+// See gru_bptt.cu for the design.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -104,21 +104,27 @@ __device__ __forceinline__ void reduce_scatter(float* v, int lane) {
   }
 }
 
-// The [r, z, n, 0] column vectors of units u0 .. u0+U-1 as wcol[U][H]
-// (zero past H), widened to f32.
+// The [r, z, n, 0] column vectors of units u0 .. u0+U-1 of a (K, 3H)
+// weight as wcol[U][K] (zero past H), widened to f32.
 template <int U, typename W>
-__device__ void load_columns(float4* wcol, const W* wh, int H, int u0) {
+__device__ void load_columns(float4* wcol, const W* w, int K, int H, int u0) {
   const int H3 = 3 * H;
-  for (int i = threadIdx.x; i < H * U; i += kThreads) {
-    const int u = i / H;
-    const int k = i - u * H;
+  for (int i = threadIdx.x; i < K * U; i += kThreads) {
+    const int u = i / K;
+    const int k = i - u * K;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (u0 + u < H) {
-      const W* w = wh + static_cast<size_t>(k) * H3 + u0 + u;
-      v = make_float4(to_f32(w[0]), to_f32(w[H]), to_f32(w[2 * H]), 0.f);
+      const W* p = w + static_cast<size_t>(k) * H3 + u0 + u;
+      v = make_float4(to_f32(p[0]), to_f32(p[H]), to_f32(p[2 * H]), 0.f);
     }
     wcol[i] = v;
   }
+}
+
+// The same for Wh (K = H).
+template <int U, typename W>
+__device__ void load_columns(float4* wcol, const W* wh, int H, int u0) {
+  load_columns<U>(wcol, wh, H, H, u0);
 }
 
 // hp of the staged rows for the block's units: warp w takes unit w % U and

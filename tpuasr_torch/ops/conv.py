@@ -9,15 +9,18 @@ summed exactly in int32, then dequantized by the row scale and the
 per-column weight scale.
 
 ``conv_taps_q8`` launches ``csrc/conv_q8.cu`` for CUDA tensors and runs
-the plain ``reference_q8_conv_taps`` for CPU tensors. The plain version
-keeps both of JAX's oracle modes, ``im2col`` (the shipped kernel's math)
-and ``taps`` (per-input-row scales, one dequant per tap); the kernel ports
-``im2col`` only.
+the plain ``reference_q8_conv_taps`` for CPU tensors, with each of JAX's
+three kernel bodies: ``im2col`` (the shipped kernel's math), ``taps``
+(per-input-row scales, one dequant per tap) and ``slab`` (one scale per
+slab of a time block, the taps summed in int32). Like JAX's, it reads the
+body from ``TPUASR_CONV_Q8_MODE`` when ``mode`` is None.
 """
 
 from __future__ import annotations
 
 import ctypes
+import os
+import types
 
 import torch
 
@@ -27,6 +30,14 @@ from tpuasr_torch.precision import full_fp32
 
 T_BLK = 128             # JAX's time block; bounds Kt - 1 as there
 _EXACT_K = 1024         # contraction chunk whose f32 sums stay exact
+MODES = ("im2col", "taps", "slab")      # the kernel's bodies, in its order
+
+
+def resolve_mode(mode: str | None) -> str:
+    """``mode``, or when it is None ``TPUASR_CONV_Q8_MODE`` (default
+    "im2col"), as JAX's conv_taps_q8 picks its body (pallas_conv.py:178-182)."""
+    return os.environ.get("TPUASR_CONV_Q8_MODE", "im2col") if mode is None \
+        else mode
 
 
 def _int8_dot(a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:
@@ -49,7 +60,7 @@ def _int8_dot(a_q: torch.Tensor, b_q: torch.Tensor) -> torch.Tensor:
 
 def _check(xf, mq, sw, T_out, mode):
     """The conditions of pallas_conv.py:183-189."""
-    if mode not in ("im2col", "taps", "slab"):
+    if mode not in MODES:
         raise ValueError(f"unknown conv_taps_q8 mode {mode!r}")
     B, T_in, Kd = xf.shape
     Kt, Kd2, N = mq.shape
@@ -77,13 +88,20 @@ def reference_q8_conv_taps(xf, mq, sw, T_out: int, mode: str = "im2col"):
     each segment x / sx rounded half to even and clipped to +-127, one
     exact int32 product, then (acc * sx) * sw. taps: per-input-row scales,
     per-tap exact products dequantized by that row's scale and summed in
-    f32 in tap order, then * sw."""
+    f32 in tap order, then * sw. slab (JAX's oracle has none; this follows
+    its Pallas body, pallas_conv.py:93-110): for each time block of T_BLK
+    output rows one scale, the absmax of the block's slab of T_BLK + Kt - 1
+    input rows (zeros past the input), the taps summed in int32, then
+    acc * (sx * sw)."""
     B, T_in, Kd = xf.shape
     Kt, _, N = mq.shape
     need = T_out + Kt - 1
-    xf = xf.to(torch.float32)
-    if T_in < need:
-        xf = torch.cat([xf, xf.new_zeros((B, need - T_in, Kd))], dim=1)
+    if mode == "slab":
+        need = max(1, -(-T_out // T_BLK)) * T_BLK + Kt - 1
+    xf = xf.to(torch.float32)[:, :need]
+    if xf.shape[1] < need:
+        xf = torch.cat([xf, xf.new_zeros((B, need - xf.shape[1], Kd))],
+                       dim=1)
     sw = sw.to(torch.float32).reshape(1, 1, N)
     if mode == "im2col":
         rmax = xf.abs().amax(dim=2, keepdim=True)
@@ -98,10 +116,22 @@ def reference_q8_conv_taps(xf, mq, sw, T_out: int, mode: str = "im2col"):
             d = _int8_dot(seg, mq[t])
             acc = d if acc is None else acc + d
         return acc.to(torch.float32) * sx * sw
+    if mode == "slab":
+        outs = []
+        for i0 in range(0, need - Kt + 1, T_BLK):
+            slab = xf[:, i0:i0 + T_BLK + Kt - 1]
+            a = slab.abs().amax(dim=(1, 2), keepdim=True)       # (B, 1, 1)
+            sx = torch.clamp(a, min=1e-12) * (1.0 / 127.0)
+            xq = torch.clamp(torch.round(slab / sx), -127.0,
+                             127.0).to(torch.int8)
+            acc = None
+            for t in range(Kt):
+                d = _int8_dot(xq[:, t:t + T_BLK], mq[t])
+                acc = d if acc is None else acc + d
+            outs.append(acc.to(torch.float32) * (sx * sw))
+        return torch.cat(outs, dim=1)[:, :T_out]
     if mode != "taps":
-        raise NotImplementedError(
-            f"conv_taps_q8 mode {mode!r} has no plain version (JAX has no "
-            "oracle for it either)")
+        raise ValueError(f"unknown conv_taps_q8 mode {mode!r}")
     T_pad = xf.shape[1]
     xq, sx = quantize_rows(xf.reshape(B * T_pad, Kd))
     xq = xq.reshape(B, T_pad, Kd)
@@ -113,7 +143,7 @@ def reference_q8_conv_taps(xf, mq, sw, T_out: int, mode: str = "im2col"):
     return acc * sw
 
 
-def conv_taps_q8(xf, mq, sw, T_out: int, mode: str = "im2col"):
+def conv_taps_q8(xf, mq, sw, T_out: int, mode: str | None = None):
     """K9: the quantized Kt-tap GEMM convolution over time.
 
     xf (B, T_in, Kd) f32 flattened (freq, channel) rows, time-padded so
@@ -122,18 +152,16 @@ def conv_taps_q8(xf, mq, sw, T_out: int, mode: str = "im2col"):
     sw (N,) f32 column scales -> (B, T_out, N) f32, equal to the plain
     version up to one f32 rounding of the dequant.
 
-    ``mode`` is JAX's A/B switch ("im2col", "taps", "slab"; JAX also
-    reads it from ``TPUASR_CONV_Q8_MODE``, the port does not): on CUDA only
-    "im2col" is ported, and "slab" has no plain version."""
+    ``mode`` is JAX's A/B switch of kernel bodies ("im2col", "taps",
+    "slab"); None reads ``TPUASR_CONV_Q8_MODE`` (default "im2col"), as JAX
+    does. ``launches`` counts every launch, and ``bodies[mode].launches``
+    those of each body."""
+    mode = resolve_mode(mode)
     _check(xf, mq, sw, T_out, mode)
     if xf.device.type == "cpu":
         return reference_q8_conv_taps(xf, mq, sw, T_out, mode)
     if xf.device.type != "cuda":
         raise ValueError(f"conv_taps_q8: unsupported device {xf.device}")
-    if mode != "im2col":
-        raise NotImplementedError(
-            f"conv_taps_q8 mode {mode!r} is not ported to CUDA (only "
-            "'im2col' is)")
     B, T_in, Kd = xf.shape
     Kt, _, N = mq.shape
     _build.check_tensor("xf", xf, xf.device, (torch.float32,), (B, T_in, Kd))
@@ -144,19 +172,22 @@ def conv_taps_q8(xf, mq, sw, T_out: int, mode: str = "im2col"):
         return out
     # The kernel reads each column's Kd contraction bytes contiguously.
     mqt = mq.permute(0, 2, 1).contiguous()                  # (Kt, N, Kd)
-    rmax = torch.empty((B, T_out + Kt - 1), dtype=torch.float32,
-                       device=xf.device)
+    # Row absmaxes of every row that a time block's slab covers.
+    T_rm = -(-T_out // T_BLK) * T_BLK + Kt - 1
+    rmax = torch.empty((B, T_rm), dtype=torch.float32, device=xf.device)
     fn = _build.lib().tpuasr_conv_q8
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(xf.device):
         code = fn(_build.ptr(xf), _build.ptr(mqt), _build.ptr(sw),
                   _build.ptr(rmax), _build.ptr(out), B, T_in, T_out, Kt, Kd,
-                  N, _build.stream_ptr(xf))
+                  N, MODES.index(mode), _build.stream_ptr(xf))
     conv_taps_q8.launches += 1
+    conv_taps_q8.bodies[mode].launches += 1
     _build.check(code, "conv_taps_q8")
     return out
 
 
 conv_taps_q8.launches = 0
+conv_taps_q8.bodies = {m: types.SimpleNamespace(launches=0) for m in MODES}

@@ -6,9 +6,12 @@ Counterparts of tpuasr/ops/pallas_gru.py:
   recurrence over xp = x@Wx+b, differentiable. Its kernels are
   ``gru_scan_fwd`` and ``gru_scan_bwd`` (``csrc/gru_bptt.cu``);
 * ``gru_scan_xfused`` (K2, pallas_gru.py:772): the input projection inside
-  the kernel (``csrc/gru_scan.cu``). Its backward takes the JAX route of
-  ``_xf_bwd_recompute`` (pallas_gru.py:891-926): xp recomputed by a matmul,
-  K5b, then dx, dWx and db by matmuls;
+  the kernel (``csrc/gru_scan.cu``). Its backward takes JAX's route
+  (``_xf_bwd``, pallas_gru.py:829-835): where wx, dwx, wh and dwh fit JAX's
+  11 MiB budget, the fully fused BPTT K2b (``gru_scan_xfused_bwd``,
+  ``csrc/gru_xfb.cu``; pallas_gru.py:736), which never writes xp or dxp;
+  elsewhere ``_xf_bwd_recompute`` (pallas_gru.py:891-926): xp recomputed by
+  a matmul, K5b, then dx, dWx and db by matmuls;
 * ``gru_scan_xfused_q8`` (K4, pallas_gru.py:1045): int8 projection, forward
   only;
 * ``gru_scan_bidir`` (K7 forward, K7b backward; pallas_gru.py:501): both
@@ -169,10 +172,139 @@ def _xfused_k2(x, wx, b, wh, mask, reverse):
 gru_scan_xfused.launches = 0
 
 
+# ---- K2b: the fully fused BPTT of the projection-fused scan ---------------
+
+# JAX's rule for the backward of gru_scan_xfused (pallas_gru.py:636-648,
+# :829-835): the fused kernel where its resident f32 weights and their
+# accumulators fit 11 MiB, with D and H padded to 128; the recompute route
+# elsewhere. The port keeps the rule as it is, so that it takes JAX's route.
+_XFB_RESIDENT_BUDGET = 11 * 2 ** 20
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _xfb_resident_bytes(D: int, H: int) -> int:
+    """wx + dwx + wh + dwh (+ b, db), all f32: JAX's measure of K2b."""
+    return (2 * D * 3 * H + 2 * H * 3 * H + 2 * 3 * H) * 4
+
+
+def xfused_bwd_is_fused(D: int, H: int) -> bool:
+    """Whether JAX's ``_xf_bwd`` takes the fused K2b at input width D and
+    hidden width H (otherwise ``_xf_bwd_recompute``)."""
+    return (_xfb_resident_bytes(_round_up(D, 128), _round_up(H, 128))
+            <= _XFB_RESIDENT_BUDGET)
+
+
+def gru_scan_xfused_bwd_plain(x, ysp, wx, b, wh, mask, dys, reverse=False):
+    """Plain version of K2b, step by step as ``_bwd_xf_kernel``
+    (pallas_gru.py:661-727): xp = x[t]@Wx+b and hp = h_prev@Wh recomputed,
+    the gates, dhp and dxp masked on padded steps, then dx[t] = dxp@Wx^T and
+    the sums dWh, dWx and db. x (T, B, D), ysp = prev_states(ys) (T, B, H),
+    wx (D, 3H), b (3H,), wh (H, 3H), mask (T, B, 1), dys (T, B, H)
+    -> (dx (T, B, D), dwx (D, 3H), db (3H,), dwh (H, 3H)), f32."""
+    T, B, D = x.shape
+    H = wh.shape[0]
+    m = mask.to(torch.float32).reshape(T, B, 1)
+    wx32, wh32 = wx.to(torch.float32), wh.to(torch.float32)
+    b32 = b.to(torch.float32)
+    dh = x.new_zeros((B, H), dtype=torch.float32)
+    dwh = x.new_zeros((H, 3 * H), dtype=torch.float32)
+    dwx = x.new_zeros((D, 3 * H), dtype=torch.float32)
+    db = x.new_zeros((3 * H,), dtype=torch.float32)
+    dx = x.new_empty((T, B, D), dtype=torch.float32)
+    with full_fp32():
+        for t in (range(T) if reverse else range(T - 1, -1, -1)):
+            xt = x[t].to(torch.float32)
+            xp = xt @ wx32 + b32
+            h_prev = ysp[t].to(torch.float32)
+            hp = h_prev @ wh32
+            r = torch.sigmoid(xp[:, :H] + hp[:, :H])
+            z = torch.sigmoid(xp[:, H:2 * H] + hp[:, H:2 * H])
+            n = torch.tanh(xp[:, 2 * H:] + r * hp[:, 2 * H:])
+            d = dys[t].to(torch.float32) + dh
+            dz = d * (h_prev - n)
+            dn = d * (1.0 - z) * (1.0 - n * n)
+            dxr = dn * hp[:, 2 * H:] * r * (1.0 - r)
+            dxz = dz * z * (1.0 - z)
+            dhp = torch.cat([dxr, dxz, dn * r], dim=1) * m[t]
+            dxp = torch.cat([dxr, dxz, dn], dim=1) * m[t]
+            dh = m[t] * (d * z + dhp @ wh32.T) + (1.0 - m[t]) * d
+            dwh += h_prev.T @ dhp
+            dx[t] = dxp @ wx32.T
+            dwx += xt.T @ dxp
+            db += dxp.sum(0)
+    return dx, dwx, db, dwh
+
+
+def gru_scan_xfused_bwd(x, ysp, wx, b, wh, mask, dys, reverse=False):
+    """K2b: (dx (T, B, D), dwx (D, 3H), db (3H,), dwh (H, 3H)) f32 from
+    x (T, B, D), ysp = prev_states(ys) (T, B, H), wx (D, 3H), b (3H,),
+    wh (H, 3H), mask (T, B, 1) and dys (T, B, H), all f32; the weight
+    gradients are summed inside the kernel. A block keeps its units' Wh and
+    Wx columns in shared memory, which bounds the shape: one that does not
+    fit raises RuntimeError before a launch."""
+    if x.device.type == "cpu":
+        return gru_scan_xfused_bwd_plain(x, ysp, wx, b, wh, mask, dys,
+                                         reverse)
+    if x.device.type != "cuda":
+        raise ValueError(f"gru_scan_xfused_bwd: unsupported device "
+                         f"{x.device}")
+    T, B, D = x.shape
+    H = wh.shape[0]
+    f32 = (torch.float32,)
+    _build.check_tensor("x", x, x.device, f32, (T, B, D))
+    _build.check_tensor("wx", wx, x.device, f32, (D, 3 * H))
+    _build.check_tensor("b", b, x.device, f32, (3 * H,))
+    _build.check_tensor("wh", wh, x.device, f32, (H, 3 * H))
+    for name, t in (("ysp", ysp), ("dys", dys)):
+        _build.check_tensor(name, t, x.device, f32, (T, B, H))
+    mask2 = _mask_2d(mask, T, B, x.device)
+    if x.numel() == 0 or H == 0:
+        return (torch.zeros_like(x), torch.zeros_like(wx),
+                torch.zeros_like(b), torch.zeros_like(wh))
+    lib = _build.lib()
+    fits = lib.tpuasr_gru_xfb_fits
+    fits.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
+    fits.restype = ctypes.c_int
+    smem, budget = ctypes.c_longlong(0), ctypes.c_longlong(0)
+    dmax = ctypes.c_int(0)
+    with torch.cuda.device(x.device):
+        ok = fits(B, D, H, ctypes.byref(smem), ctypes.byref(budget),
+                  ctypes.byref(dmax))
+    if not ok:
+        raise RuntimeError(
+            f"gru_scan_xfused_bwd (K2b) cannot hold B={B}, D={D}, H={H}: a "
+            f"block needs {smem.value} bytes of shared memory (at most "
+            f"{budget.value}) and takes D <= {dmax.value} at this H")
+    dx = torch.empty_like(x)
+    dwx = torch.empty_like(wx)
+    db = torch.empty_like(b)
+    dwh = torch.empty_like(wh)
+    xbuf = torch.empty((2, B, 4 * H), dtype=torch.float32, device=x.device)
+    fn = lib.tpuasr_gru_xfb
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    bar = _barrier(x.device)
+    with torch.cuda.device(x.device):
+        code = fn(*map(_build.ptr, (x, ysp, wx, b, wh, mask2, dys, dx, dwx,
+                                    db, dwh, xbuf, bar)),
+                  T, B, D, H, int(bool(reverse)), _build.stream_ptr(x))
+    gru_scan_xfused_bwd.launches += 1
+    _build.check(code, "gru_scan_xfused_bwd")
+    return dx, dwx, db, dwh
+
+
+gru_scan_xfused_bwd.launches = 0
+
+
 class _XFusedScan(torch.autograd.Function):
-    """K2 forward; backward by the route JAX takes at H > 256
-    (``_xf_bwd_recompute``): xp = x@Wx+b by a matmul, K5b for dxp and dWh,
-    then dx, dWx and db by matmuls. Float32 only."""
+    """K2 forward; backward by JAX's rule (``xfused_bwd_is_fused``): K2b
+    where JAX takes ``_xf_bwd_fused``, otherwise ``_xf_bwd_recompute``'s
+    route, xp = x@Wx+b by a matmul, K5b for dxp and dWh, then dx, dWx and
+    db by matmuls. Float32 only."""
 
     @staticmethod
     def forward(ctx, x, wx, b, wh, mask, reverse):
@@ -189,10 +321,15 @@ class _XFusedScan(torch.autograd.Function):
         x, wx, b, wh, mask, ys = ctx.saved_tensors
         T, B, D = x.shape
         H3 = wx.shape[1]
+        ysp = prev_states(ys, ctx.reverse)
+        if xfused_bwd_is_fused(D, wh.shape[0]):
+            dx, dwx, db, dwh = gru_scan_xfused_bwd(
+                x, ysp, wx, b, wh, mask, dys.contiguous(), ctx.reverse)
+            return dx, dwx, db, dwh, None, None
         with full_fp32():
             xp = (x.reshape(T * B, D) @ wx + b).reshape(T, B, H3)
-        dxp, dwh = gru_scan_bwd(xp, prev_states(ys, ctx.reverse), wh, mask,
-                                dys.contiguous(), ctx.reverse)
+        dxp, dwh = gru_scan_bwd(xp, ysp, wh, mask, dys.contiguous(),
+                                ctx.reverse)
         dxp2 = dxp.reshape(T * B, H3)
         with full_fp32():
             dx = (dxp2 @ wx.T).reshape(T, B, D)
