@@ -13,15 +13,19 @@ Phases, each fatal on failure:
      same function, that call's time: the serving kernels K1, K2, K4, K3
      (without and with bigram/trigram LM fusion) and K10 (the graph row
      gather) at the shapes of the served model (B=128 utterances of 10 s at
-     8 kHz, C=64, a 512 x 4 BiGRU, beam K=8), K9 (the int8 conv2) at its
-     shapes in that model, K7 (both GRU directions in one launch) at the
-     served and trained shapes, and the training kernels K5, K5b, K7b, K6,
-     K6b at the shapes of the BASELINE config-3 train step (B=16 x 5 s,
-     T'=249, U=24), K2b (the fused-projection scan's fused backward) at
-     the deepspeech_var step's shapes (H=384, D=512 and 768), K9's taps and
-     slab bodies beside its im2col body, and K8 and K8b (CapsNet routing,
-     forward and backward) at the shapes of BASELINE config 4 (B=8 and
-     B=32 x 5 s, T'=249, I=256, Din=8, O=48, D=16, 3 iterations);
+     8 kHz, C=64, a 512 x 4 BiGRU, beam K=8; K2/K4 also on ragged batches
+     of 1 and 129 rows, with the projection and the recurrence of one call
+     timed apart), K2 in float32 at the deepspeech_var train step's
+     forward shapes (H=384, D=512 and 768, B=16 and 64), K9 (the int8
+     conv2) at its shapes in that model, K7 (both GRU directions in one
+     launch) at the served and trained shapes, and the training kernels
+     K5, K5b, K7b, K6, K6b at the shapes of the BASELINE config-3 train
+     step (B=16 x 5 s, T'=249, U=24), K2b (the fused-projection scan's
+     fused backward) at the deepspeech_var step's shapes (H=384, D=512 and
+     768), K9's taps and slab bodies beside its im2col body, and K8 and
+     K8b (CapsNet routing, forward and backward) at the shapes of BASELINE
+     config 4 (B=8 and B=32 x 5 s, T'=249, I=256, Din=8, O=48, D=16, 3
+     iterations);
   4. the serving slice through Recognizer: the int8 arm (the default), the
      bf16 arm, the int8 arm with conv2 as K9 (int8_conv, bench.py's
      --int8-conv; once with each of K9's three bodies, chosen by
@@ -460,7 +464,8 @@ def lm_graph_slice(kernels, wrappers, model, feat_cfg, wav_d, lens_d, tabs_g,
 
 
 def kernel_name(key: str) -> str:
-    """'void (anonymous namespace)::gru_scan_kernel<...>(...)' -> 'gru_scan_kernel'."""
+    """'void (anonymous namespace)::gru_rec_kernel<...>(...)' ->
+    'gru_rec_kernel'."""
     key = key.replace("(anonymous namespace)::", "")
     if key.startswith("void "):
         key = key[5:]
@@ -653,6 +658,110 @@ def train_kernels(record, gen) -> None:
             fail(f"{key} disagrees with its plain version")
         record(key, name, "tpuasr_torch/csrc/ctc_fb.cu", replaces, err, ms,
                pms, bd, lib)
+
+
+def xfused_cases(gru_mod, quantize_per_channel, x, wx, wh, bias, mask):
+    """K2/K4's served cases on one layer: (key, label, kernel, plain, args,
+    kwargs) for bf16 K2, int8 K4 and int8 K4 with rec_q8."""
+    wxq, sw = quantize_per_channel(wx)
+    whq, swh = quantize_per_channel(wh)
+    return (
+        ("K2", "bf16", gru_mod.gru_scan_xfused,
+         gru_mod.gru_scan_xfused_plain,
+         (x, wx.bfloat16(), bias, wh.bfloat16(), mask), {}),
+        ("K4", "int8", gru_mod.gru_scan_xfused_q8,
+         gru_mod.gru_scan_xfused_q8_plain,
+         (x, wxq, sw, bias, wh.bfloat16(), mask), {}),
+        ("K4", "int8+rec_q8", gru_mod.gru_scan_xfused_q8,
+         gru_mod.gru_scan_xfused_q8_plain,
+         (x, wxq, sw, bias, whq, mask), {"wh_scale": swh}),
+    )
+
+
+def xfused_split(gru_mod, key, args, kw) -> str:
+    """The two launches of one K2/K4 call timed apart (CUDA events, mean
+    of 3): the projection over all T*B rows, then the recurrence, with the
+    plan they ran under."""
+    if key == "K2":
+        x, wx, b, wh, mask = args
+        sw = swh = None
+        mode = gru_mod._MODE_K2
+    else:
+        x, wx, sw, b, wh, mask = args
+        swh = kw.get("wh_scale")
+        mode = gru_mod._MODE_Q8_REC if swh is not None else gru_mod._MODE_Q8
+    T, Bn, D = x.shape
+    H = wh.shape[0]
+    plan = gru_mod._scan_plan(Bn, D, H, mode, x.dtype,
+                              gru_mod._sm_count(x.device))
+    wxp, whp = gru_mod._pack_proj(wx, plan), gru_mod._pack_rec(wh, plan)
+    mask2 = mask.reshape(T, Bn)
+    xp = gru_mod._project(plan, x, wxp, b, sw)
+    p_ms = cuda_ms(lambda: gru_mod._project(plan, x, wxp, b, sw), 3)
+    r_ms = cuda_ms(lambda: gru_mod._recur(plan, xp, whp, swh, mask2, False,
+                                          x.dtype), 3)
+    return (f"one launch = projection ({plan.proj}) {p_ms:.3f} ms + "
+            f"recurrence ({plan.rec}) {r_ms:.3f} ms = {r_ms / T * 1e3:.2f} "
+            f"us a step (plan U={plan.U} R={plan.R} row groups {plan.rg} "
+            f"grid={plan.grid} smem={plan.smem} B)")
+
+
+def xfused_f32_kernels(record, gen, gru_mod) -> None:
+    """K2 in float32 at the deepspeech_var train step's forward shapes
+    (phase 9: T'=249, H=384, D=512 and 768, B=16 and 64, both directions)
+    against its plain version, each output within 1e-4 of its largest
+    magnitude; timed at D=768, B=16 beside its bound and cuDNN's float32
+    GRU forward on the same layer."""
+    from tpuasr_torch.precision import full_fp32
+
+    T, H, tol = 249, 384, 1e-4
+    for D in (512, 768):
+        for Bt in (TRAIN_B, 64):
+            x = torch.randn(T, Bt, D, generator=gen).cuda()
+            wx = (torch.randn(D, 3 * H, generator=gen) / D ** 0.5).cuda()
+            wh = (torch.randn(H, 3 * H, generator=gen) / H ** 0.5).cuda()
+            b = (torch.randn(3 * H, generator=gen) * 0.1).cuda()
+            ln = torch.randint(T // 2, T + 1, (Bt,), generator=gen)
+            ln[0] = T
+            mask = (torch.arange(T)[:, None] < ln[None, :]).float()
+            mask = mask[:, :, None].cuda().contiguous()
+            args = (x, wx, b, wh, mask)
+            for rev in (False, True):
+                with full_fp32():
+                    got = gru_mod.gru_scan_xfused(*args, rev)
+                    ref = gru_mod.gru_scan_xfused_plain(*args, rev)
+                abs_err = (got - ref).abs().max().item()
+                err = abs_err / ref.abs().max().item()
+                timed = D == 768 and Bt == TRAIN_B and not rev
+                extra = ""
+                ms = pms = bd = lib = None
+                if timed:
+                    with full_fp32():
+                        ms = cuda_ms(lambda: gru_mod.gru_scan_xfused(
+                            *args, False), 10)
+                        pms = cuda_ms(lambda: gru_mod.gru_scan_xfused_plain(
+                            *args, False), 1)
+                        lib = library_gru_ms(T, Bt, D, H, torch.float32,
+                                             False)
+                    bd = bound(nbytes(*args, got),
+                               2 * T * Bt * (D + H) * 3 * H, "fp32")
+                    extra = (f" kernel {ms:.3f} ms plain {pms:.3f} ms bound "
+                             f"{bd[0]:.4f} ms ({bd[1]}) torch.nn.GRU f32 "
+                             f"{lib:.3f} ms")
+                phase(f"[3 K2-f32] gru f32 T={T} B={Bt} D={D} H={H} "
+                      f"reverse={rev}: max_abs_err {abs_err:.3e} = "
+                      f"{err:.3e} of the largest magnitude (tol {tol})"
+                      f"{extra}")
+                if timed:
+                    with full_fp32():
+                        split = xfused_split(gru_mod, "K2", args, {})
+                    phase(f"[3 K2-f32] gru f32 D={D} B={Bt}: {split}")
+                if not err <= tol:
+                    fail(f"K2 f32 D={D} B={Bt} reverse={rev}: {err}")
+                record("K2-f32", "gru_scan_xfused (f32)",
+                       "tpuasr_torch/csrc/gru_scan.cu",
+                       "tpuasr/ops/pallas_gru.py:615", abs_err, ms, pms, bd,
+                       lib)
 
 
 def xfb_kernels(record, gen) -> None:
@@ -1157,13 +1266,16 @@ def capsnet_slice(kernels, wrappers, card, plain_path) -> None:
 
 
 def train_phase(tag, cfg, U, sizes, want, count, patches, kernels,
-                wrappers, card, prepare=None, check=None) -> None:
+                wrappers, card, prepare=None, check=None,
+                entries=None) -> None:
     """A train step through Trainer on the card, on a batch of seeded noise
     (sizes[0] utterances of TRAIN_SECONDS, U tokens each): the launch counts
     of one step (which must equal want; the counts of the kernels in count
     are kept), step 1 against the plain path (patches) within rtol 1e-4 on
     the same weights and dropout stream, the loss over 10 more steps on the
-    repeated batch, and train-step ms at each batch size in sizes.
+    repeated batch, and train-step ms at each batch size in sizes. The
+    launches of the wrappers in count add to their kernel entries, or to
+    the entry that entries names for a wrapper.
     prepare(model) adjusts the seeded weights in place; check(trainer,
     batch, fresh_state, metrics, plain_path) adds checks of step 1, where
     fresh_state() gives a state with step 1's weights."""
@@ -1171,6 +1283,7 @@ def train_phase(tag, cfg, U, sizes, want, count, patches, kernels,
     from tpuasr_torch.train import Trainer
 
     S = int(SR * TRAIN_SECONDS)
+    entries = entries or {}
 
     def make_batch(n):
         rng = np.random.default_rng(SEED)
@@ -1226,7 +1339,7 @@ def train_phase(tag, cfg, U, sizes, want, count, patches, kernels,
     if counts != want:
         fail(f"{tag}: launch counts {counts} != {want}")
     for k in count:
-        kernels[k]["launches"] += counts[k]
+        kernels[entries.get(k, k)]["launches"] += counts[k]
 
     # Step 1 on the plain path: same weights, same dropout stream.
     plain = new_state(trainer, init)
@@ -1339,7 +1452,7 @@ def var_train_slice(kernels, wrappers, card) -> None:
                (ctc_mod, "ctc_betas_kernel", ctc_mod.ctc_betas_plain))
     train_phase("9 train deepspeech_var", cfg, TRAIN_U, (TRAIN_B, 64),
                 dict(K2=dirs, K2b=dirs, K6=1, K6b=1), ("K2", "K2b"), patches,
-                kernels, wrappers, card)
+                kernels, wrappers, card, entries={"K2": "K2-f32"})
     with mock.patch.object(gru_mod, "xfused_bwd_is_fused",
                            lambda D, H: False):
         train_phase("9 train deepspeech_var recompute", cfg, TRAIN_U,
@@ -1525,20 +1638,8 @@ def main() -> int:
         wx = (torch.randn(D, 3 * H, generator=gen) / D ** 0.5).to(dev)
         wh = (torch.randn(H, 3 * H, generator=gen) / H ** 0.5).to(dev)
         bias = (torch.randn(3 * H, generator=gen) * 0.1).to(dev)
-        wxb, whb = wx.bfloat16(), wh.bfloat16()
-        wxq, sw = quantize_per_channel(wx)
-        whq, swh = quantize_per_channel(wh)
-        cases = (
-            ("K2", "bf16", gru_mod.gru_scan_xfused,
-             gru_mod.gru_scan_xfused_plain, (x, wxb, bias, whb, mask), {}),
-            ("K4", "int8", gru_mod.gru_scan_xfused_q8,
-             gru_mod.gru_scan_xfused_q8_plain,
-             (x, wxq, sw, bias, whb, mask), {}),
-            ("K4", "int8+rec_q8", gru_mod.gru_scan_xfused_q8,
-             gru_mod.gru_scan_xfused_q8_plain,
-             (x, wxq, sw, bias, whq, mask), {"wh_scale": swh}),
-        )
-        for key, label, kern, plain, args, kw in cases:
+        for key, label, kern, plain, args, kw in xfused_cases(
+                gru_mod, quantize_per_channel, x, wx, wh, bias, mask):
             for rev in (False, True):
                 got = kern(*args, reverse=rev, **kw)
                 ref = plain(*args, reverse=rev, **kw)
@@ -1559,6 +1660,9 @@ def main() -> int:
                       + (f" kernel {ms:.3f} ms plain {pms:.3f} ms bound "
                          f"{bd[0]:.4f} ms ({bd[1]}) torch.nn.GRU bf16 "
                          f"{lib:.3f} ms" if timed else ""))
+                if timed:
+                    phase(f"[3 {key}] gru {label} D={D}: "
+                          + xfused_split(gru_mod, key, args, kw))
                 if not err <= gru_tol:
                     fail(f"{key} {label} D={D} reverse={rev}: {err}")
                 if key == "K2":
@@ -1572,6 +1676,36 @@ def main() -> int:
                            "tpuasr/ops/pallas_gru.py:1020", err,
                            *((ms, pms, bd, lib) if label == "int8+rec_q8"
                              else ()))
+    # Ragged batches at the served widths: B=1, and B=129 (no multiple of
+    # a row pass or a tile) with one all-padded row, which must stay zero.
+    D = 1024
+    for Bn in (1, 129):
+        x = torch.randn(T_out, Bn, D, generator=gen).to(dev, torch.bfloat16)
+        ln = torch.randint(1, T_out + 1, (Bn,), generator=gen)
+        ln[0] = T_out
+        if Bn > 1:
+            ln[1] = 0
+        mk = (torch.arange(T_out)[:, None] < ln[None, :]).float()[:, :, None]
+        mk = mk.to(dev).contiguous()
+        for key, label, kern, plain, args, kw in xfused_cases(
+                gru_mod, quantize_per_channel, x, wx, wh, bias, mk):
+            for rev in (False, True):
+                got = kern(*args, reverse=rev, **kw)
+                ref = plain(*args, reverse=rev, **kw)
+                err = (got.float() - ref.float()).abs().max().item()
+                pad = Bn > 1 and bool(got[:, 1].any())
+                phase(f"[3 {key}] gru {label} ragged T={T_out} B={Bn} D={D} "
+                      f"H={H} reverse={rev}: max_abs_err {err:.3e} (tol "
+                      f"{gru_tol}); all-padded row nonzero: {pad}")
+                if not err <= gru_tol or pad:
+                    fail(f"{key} {label} ragged B={Bn} reverse={rev}: {err}")
+                kernels[key]["max_abs_err"] = max(
+                    kernels[key]["max_abs_err"], err)
+    # K2 in float32, the deepspeech_var train step's forward (T'=249,
+    # H=384, D=512 then 768, B=16 and 64): within 1e-4 of each output's
+    # largest magnitude (f32 sums in other orders, carried by the
+    # recurrence), under full_fp32() for the plain matmuls.
+    xfused_f32_kernels(record, gen, gru_mod)
 
     # K3 on identical log-probs: backpointers, final scores, tokens and
     # lengths must be exactly equal (same float ops in the same order).
@@ -1937,9 +2071,9 @@ def main() -> int:
         {name: round(t - clock[i][1], 1)
          for i, (name, t) in enumerate(clock[1:])}))
 
-    order = ("K1", "K2", "K4", "K9", "K9-taps", "K9-slab", "K7", "K3",
-             "K3-LM", "K10", "K8", "K8b", "K5", "K5b", "K7b", "K2b", "K6",
-             "K6b")
+    order = ("K1", "K2", "K2-f32", "K4", "K9", "K9-taps", "K9-slab", "K7",
+             "K3", "K3-LM", "K10", "K8", "K8b", "K5", "K5b", "K7b", "K2b",
+             "K6", "K6b")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -108,6 +108,96 @@ def test_k4(dev, reverse, rec_q8):
                                rtol=0, atol=2e-2)
 
 
+# K2 / K4 by (x dtype, kernel): K2 in f32 and bf16; K4 with the recurrence
+# in x's dtype or in int8 (rec_q8), for bf16 and f32 streams.
+XFUSED_KINDS = {
+    "k2_f32": (torch.float32, "k2"), "k2_bf16": (torch.bfloat16, "k2"),
+    "k4_bf16": (torch.bfloat16, "k4"), "k4_rec_bf16": (torch.bfloat16, "rec"),
+    "k4_f32": (torch.float32, "k4"), "k4_rec_f32": (torch.float32, "rec")}
+
+
+def _xfused_call(kind, T, B, D, H, reverse, dev, seed=3):
+    """(kernel wrapper, plain version, args, kwargs) of one K2/K4 case with
+    ragged rows: full length, length 1, all padding, and random lengths."""
+    dtype, which = XFUSED_KINDS[kind]
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(T, B, D, generator=g).to(dev, dtype)
+    wx = (torch.randn(D, 3 * H, generator=g) / D ** 0.5).to(dev)
+    wh = (torch.randn(H, 3 * H, generator=g) / H ** 0.5).to(dev)
+    b = (torch.randn(3 * H, generator=g) * 0.1).to(dev)
+    lens = torch.randint(1, T + 1, (B,), generator=g)
+    lens[:3] = torch.tensor([T, 1, 0])[:B]
+    mask = (torch.arange(T)[:, None] < lens[None, :]).float()[:, :, None]
+    mask = mask.to(dev).contiguous()
+    if which == "k2":
+        return (gru_scan_xfused, gru_scan_xfused_plain,
+                (x, wx.to(dtype), b, wh.to(dtype), mask, reverse), {})
+    wxq, sw = quantize_per_channel(wx)
+    if which == "rec":
+        whq, swh = quantize_per_channel(wh)
+        return (gru_scan_xfused_q8, gru_scan_xfused_q8_plain,
+                (x, wxq, sw, b, whq, mask, reverse), {"wh_scale": swh})
+    return (gru_scan_xfused_q8, gru_scan_xfused_q8_plain,
+            (x, wxq, sw, b, wh.to(dtype), mask, reverse), {})
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("T,B,D,H", [(37, 1, 70, 40), (37, 7, 96, 70),
+                                     (21, 129, 70, 520), (1, 7, 70, 40),
+                                     (9, 129, 1040, 70)])
+@pytest.mark.parametrize("kind", list(XFUSED_KINDS))
+def test_k2_k4_odd_shapes(dev, kind, T, B, D, H, reverse):
+    """K2 and K4 against their plain versions where H is no multiple of the
+    unit split (8), B none of the row pass (B=1, 7, 129), T=1, D unaligned
+    (70) and aligned, both directions: f32 within 1e-4 of the largest
+    magnitude, bf16 and int8 streams within 2e-2 (one bf16 ulp flipped
+    and carried, as chip_smoke's gate); two launches give the same bits; a
+    call counts one launch; an all-padded row stays zero."""
+    kern, plain, args, kw = _xfused_call(kind, T, B, D, H, reverse, dev)
+    before = kern.launches
+    with full_fp32():
+        got = kern(*args, **kw)
+        want = plain(*args, **kw)
+    assert kern.launches == before + 1
+    assert got.dtype == args[0].dtype and got.shape == (T, B, H)
+    tol = (1e-4 * want.abs().max().item() if got.dtype == torch.float32
+           else 2e-2)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    assert torch.equal(got, kern(*args, **kw))
+    if B > 2:
+        assert not got[:, 2].any()
+
+
+@pytest.mark.parametrize("kind", ["k2_bf16", "k4_rec_bf16", "k2_f32"])
+def test_k2_k4_refuse_an_unplannable_shape(dev, kind):
+    """A shape the plan cannot hold raises ValueError before any launch:
+    the counter does not move. bf16 at H=2048 needs more shared memory
+    than a block has; f32 at H=3000 more units a block than K5 takes; int8
+    recurrence past H=1040 is refused by its own check."""
+    H = {"k2_bf16": 2048, "k4_rec_bf16": 1100, "k2_f32": 3000}[kind]
+    kern, _, args, kw = _xfused_call(kind, 2, 1, 8, H, False, dev)
+    before = kern.launches
+    with pytest.raises(ValueError):
+        kern(*args, **kw)
+    assert kern.launches == before
+
+
+@pytest.mark.parametrize("kind", list(XFUSED_KINDS))
+@pytest.mark.parametrize("B,D,H", [(1, 70, 40), (128, 1024, 512),
+                                   (16, 768, 384), (129, 512, 520)])
+def test_scan_plan_matches_kernel_layout(dev, kind, B, D, H):
+    """The plan's shared memory is what the recurrence kernel lays out for
+    its (U, R): the launcher refuses any other."""
+    dtype, which = XFUSED_KINDS[kind]
+    mode = {"k2": gru_mod._MODE_K2, "k4": gru_mod._MODE_Q8,
+            "rec": gru_mod._MODE_Q8_REC}[which]
+    plan = gru_mod._scan_plan(B, D, H, mode, dtype, gru_mod._sm_count(dev))
+    fn = _build.lib().tpuasr_gru_rec_smem
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    assert fn(gru_mod._KINDS[plan.rec], H, plan.U, plan.R) == plan.smem
+
+
 @pytest.mark.parametrize("C,K,max_len", [(5, 8, 40), (30, 4, 6)])
 def test_k3_exact(dev, C, K, max_len):
     g = torch.Generator().manual_seed(2)

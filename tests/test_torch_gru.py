@@ -24,7 +24,8 @@ from tpuasr.ops.pallas_gru import gru_scan_xfused_q8 as j_xfused_q8
 from tpuasr.ops.quant import quantize_per_channel as j_qpc
 from tpuasr.ops.quant import quantize_rows as j_qrows
 from tpuasr_torch.ops import gru as gru_mod
-from tpuasr_torch.ops.gru import (_pack_float, _pack_int8, gru_scan,
+from tpuasr_torch.ops.gru import (_MODE_K2, _MODE_Q8_REC, _pack_proj,
+                                  _pack_rec, _scan_plan, gru_scan,
                                   gru_scan_bwd_plain, gru_scan_plain,
                                   gru_scan_xfused, gru_scan_xfused_q8,
                                   prev_states)
@@ -144,25 +145,65 @@ def test_q8_exact_on_int8_grid_equals_f32():
     torch.testing.assert_close(ys_q, ys_f, rtol=1e-5, atol=1e-5)
 
 
-def test_weight_packing_layouts():
-    """The kernel's weight layouts: gate vectors [r, z, n, 0] per
-    (contraction index, unit); int8 packed four per little-endian word."""
-    H = 4
-    w = torch.arange(-60, 60, dtype=torch.int8).reshape(10, 3 * H)
-    p = _pack_int8(w)
-    assert p.shape == (4, H, 4) and p.dtype == torch.int32
-    assert (p[:, :, 3] == 0).all()
-    bytes_ = p.contiguous().view(torch.uint8).view(torch.int8)  # (4, H, 16)
-    for g in range(3):
-        for u in range(H):
-            col = bytes_[:, u, 4 * g:4 * g + 4].reshape(16)
-            assert torch.equal(col[:10], w[:, g * H + u])
-            assert (col[10:] == 0).all()
-    wf = torch.randn(6, 3 * H)
-    pf = _pack_float(wf)
-    assert pf.shape == (8, H, 4)
-    assert torch.equal(pf[:6, :, :3], wf.reshape(6, 3, H).permute(0, 2, 1))
-    assert (pf[6:] == 0).all() and (pf[:, :, 3] == 0).all()
+def _want_proj(w, plan):
+    """numpy: the projection's weights zero-padded, (kp, np) in f32 and
+    W^T (np, kp) on the tensor-core paths."""
+    D, N = w.shape
+    if plan.proj == "f32":
+        out = np.zeros((plan.kp, plan.np), w.dtype)
+        out[:D, :N] = w
+    else:
+        out = np.zeros((plan.np, plan.kp), w.dtype)
+        out[:N, :D] = w.T
+    return out
+
+
+def _want_rec(wh, plan):
+    """numpy: unit group g's row q*U + u of (ceil(H / U), 3U, hk) holds
+    Wh's column q*H + g*U + u (gate q of unit g*U + u), zero past H."""
+    H = wh.shape[0]
+    G = -(-H // plan.U)
+    out = np.zeros((G, 3 * plan.U, plan.hk), wh.dtype)
+    for g in range(G):
+        for q in range(3):
+            for u in range(plan.U):
+                if g * plan.U + u < H:
+                    out[g, q * plan.U + u, :H] = wh[:, q * H + g * plan.U + u]
+    return out
+
+
+@pytest.mark.parametrize("mode,dtype,wdtype", [
+    (_MODE_K2, torch.float32, torch.float32),
+    (_MODE_K2, torch.bfloat16, torch.bfloat16),
+    (_MODE_Q8_REC, torch.bfloat16, torch.int8)])
+def test_weight_packing_layouts(mode, dtype, wdtype):
+    """The kernels' weight layouts (``_pack_proj``, ``_pack_rec``) against
+    numpy constructions of them, at widths that are no multiple of any tile
+    (D=70, H=20); f32's recurrence (K5's forward) takes Wh as it is."""
+    rng = np.random.default_rng(10)
+    D, H = 70, 20
+    if wdtype == torch.int8:
+        wx = rng.integers(-127, 128, (D, 3 * H)).astype(np.int8)
+        wh = rng.integers(-127, 128, (H, 3 * H)).astype(np.int8)
+    else:
+        wx = rng.standard_normal((D, 3 * H)).astype(np.float32)
+        wh = rng.standard_normal((H, 3 * H)).astype(np.float32)
+    plan = _scan_plan(5, D, H, mode, dtype)
+    # kp: D padded to 8 (f32) or to 64 bytes (a projection stage).
+    want_kp = {"f32": 72, "bf16": 96, "int8": 128}[plan.proj]
+    assert (plan.kp, plan.np) == (want_kp, 128)
+    px = _pack_proj(_t(wx).to(wdtype), plan)
+    pr = _pack_rec(_t(wh).to(wdtype), plan)
+    assert px.dtype == wdtype and pr.dtype == wdtype
+    wx_v = _t(wx).to(wdtype).float().numpy()
+    wh_v = _t(wh).to(wdtype).float().numpy()
+    np.testing.assert_array_equal(px.float().numpy(), _want_proj(wx_v, plan))
+    if plan.rec == "f32":
+        np.testing.assert_array_equal(pr.numpy(), wh)
+    else:
+        assert (plan.U, plan.grid, plan.hk) == (8, 3, 32)
+        np.testing.assert_array_equal(pr.float().numpy(),
+                                      _want_rec(wh_v, plan))
 
 
 def test_q8_rejects_wrong_dtype_and_wide_d():

@@ -10,10 +10,12 @@ unpacked under ``build/``), in the order other, this, this, other, each
 in its own process with its own kernel build. Each run also reports the
 kernels' largest error against their plain versions. Then it times
 kernels that do nothing but the 248 block meetings of one K5 launch (512
-threads per block, at 32, 64 and 128 blocks), in three forms: the grid
-barrier of csrc/gru_bptt.cu (one arrival counter that never resets), an
-earlier barrier with a counter reset by the last block and a generation
-word, and per-block step flags that one warp of every block polls.
+threads per block, at 32, 64 and 128 blocks), in four forms: one arrival
+counter that never resets, with fences around the add (the first form of
+the barrier in csrc/gru_coop.cuh) and with a release add and acquire
+polls (its form now), an earlier barrier with a counter reset by the last
+block and a generation word, and per-block step flags that one warp of
+every block polls.
 
 Needs one CUDA card and nvcc; exits non-zero without them.
 """
@@ -109,8 +111,9 @@ __device__ void grid_sync(unsigned* bar) {
 __global__ void barriers(unsigned* bar, int n) {
   for (int i = 0; i < n; ++i) grid_sync(bar);
 }
-// The grid barrier of csrc/gru_bptt.cu: the n-th meeting is complete when
-// the arrival count reaches n * gridDim.x.
+// The counter barrier in its first form: the n-th meeting is complete when
+// the arrival count reaches n * gridDim.x; fences around the add and the
+// volatile polls.
 __global__ void counter(unsigned* c, int n) {
   for (int i = 1; i <= n; ++i) {
     __syncthreads();
@@ -122,6 +125,24 @@ __global__ void counter(unsigned* c, int n) {
       while (*v < target) {
       }
       __threadfence();
+    }
+    __syncthreads();
+  }
+}
+// The counter barrier of csrc/gru_coop.cuh (group_sync): the same count,
+// arrived at with a release add and polled with acquire loads.
+__global__ void release_counter(unsigned* c, int n) {
+  for (int i = 1; i <= n; ++i) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n"
+                   :: "l"(c) : "memory");
+      const unsigned target = i * gridDim.x;
+      unsigned seen;
+      do {
+        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                     : "=r"(seen) : "l"(c) : "memory");
+      } while (seen < target);
     }
     __syncthreads();
   }
@@ -149,8 +170,10 @@ extern "C" float run(int kind, int blocks, int n, int reps) {
   unsigned* bar = nullptr;
   cudaMalloc(&bar, 4 * 1024);
   void* args[] = {&bar, &n};
-  void* fn = kind == 0 ? (void*)counter
-                       : kind == 1 ? (void*)barriers : (void*)flags;
+  void* fn = kind == 0   ? (void*)counter
+             : kind == 1 ? (void*)barriers
+             : kind == 2 ? (void*)flags
+                         : (void*)release_counter;
   cudaEvent_t a, b;
   cudaEventCreate(&a);
   cudaEventCreate(&b);
@@ -213,7 +236,8 @@ def main(argv=None) -> int:
             raise SystemExit(res.stderr)
         run = ctypes.CDLL(str(lib)).run
         run.restype = ctypes.c_float
-        for kind, name in ((0, "counter barrier"),
+        for kind, name in ((0, "counter barrier, fences"),
+                           (3, "counter barrier, release/acquire"),
                            (1, "generation barrier"), (2, "step flags")):
             for blocks in (32, 64, 128):
                 t = run(kind, blocks, 248, args.iters)

@@ -43,7 +43,8 @@
 // reduce-scatter of shuffles (each halving step sends half the values),
 // and the warps of a unit add up in shared memory.
 //   forward: the state lives in ys itself (ys[t_prev] is h), so nothing
-//   else crosses blocks.
+//   else crosses blocks. Its kernel is in gru_coop.cuh: K2's float32
+//   recurrence (csrc/gru_scan.cu) launches it too.
 //   backward: dhp of a step is written to a double-buffered (2, B, 3H)
 //   scratch; after the barrier each block stages it back and forms
 //   dhp Wh^T for its own units. dWh's columns of the block's units
@@ -53,60 +54,6 @@
 #include "gru_coop.cuh"
 
 namespace {
-
-template <int U>
-__global__ void __launch_bounds__(kThreads)
-gru_fwd_kernel(const float* __restrict__ xp,     // (T, B, 3H)
-               const float* __restrict__ wh,     // (H, 3H)
-               const float* __restrict__ mask,   // (T, B)
-               float* __restrict__ ys,           // (T, B, H)
-               unsigned* __restrict__ bar,       // arrival count, zeroed
-               int T, int B, int H, int reverse) {
-  extern __shared__ float4 smem4[];
-  float4* wcol = smem4;                                     // [U][H]
-  float* hs = reinterpret_cast<float*>(wcol + U * H);       // [kR][H]
-  float* red = hs + kR * H;                                 // [kWarps][kR][3]
-  const int H3 = 3 * H;
-  const int u0 = blockIdx.x * U;
-  load_columns<U>(wcol, wh, H, u0);
-  // Gate threads: one per (row, unit) of a pass.
-  const int gr = threadIdx.x / U;
-  const int gu = threadIdx.x % U;
-  const int j = u0 + gu;
-  const bool gate = threadIdx.x < kR * U && j < H;
-
-  for (int s = 0; s < T; ++s) {
-    const int t = reverse ? T - 1 - s : s;
-    const int tp = reverse ? t + 1 : t - 1;     // previous step, scan order
-    for (int b0 = 0; b0 < B; b0 += kR) {
-      const int b = b0 + gr;
-      const bool live = gate && b < B;
-      float xr = 0.f, xz = 0.f, xn = 0.f, m = 0.f;
-      if (live) {                               // loaded before the product
-        const size_t row = static_cast<size_t>(t) * B + b;
-        xr = xp[row * H3 + j];
-        xz = xp[row * H3 + H + j];
-        xn = xp[row * H3 + 2 * H + j];
-        m = mask[row];
-      }
-      stage_rows(hs, s ? ys + static_cast<size_t>(tp) * B * H : nullptr, b0,
-                 B, H);
-      __syncthreads();
-      rows_times_columns<U>(hs, wcol, red, H);
-      __syncthreads();
-      if (live) {
-        const float rg = sigmoid(xr + unit_sum<U>(red, gu, gr, 0, 3));
-        const float zg = sigmoid(xz + unit_sum<U>(red, gu, gr, 1, 3));
-        const float ng = tanhf(xn + rg * unit_sum<U>(red, gu, gr, 2, 3));
-        const float h = hs[gr * H + j];
-        const float hn = (1.f - zg) * ng + zg * h;
-        ys[(static_cast<size_t>(t) * B + b) * H + j] = m * hn + (1.f - m) * h;
-      }
-      __syncthreads();                          // hs and red are reused
-    }
-    if (s + 1 < T) grid_sync(bar, s + 1);
-  }
-}
 
 template <int U>
 __global__ void __launch_bounds__(kThreads)
@@ -264,24 +211,12 @@ gru_bwd_kernel(const float* __restrict__ xp,     // (T, B, 3H)
   }
 }
 
-size_t smem_bytes(bool bwd, int B, int H, int U) {
+size_t bwd_smem_bytes(int B, int H, int U) {
   const size_t H3 = 3 * static_cast<size_t>(H);
   const size_t red = sizeof(float) * kWarps * kR * 3;
-  if (!bwd)
-    return sizeof(float4) * U * H + sizeof(float) * kR * H + red;
   return 2 * sizeof(float4) * U * H + sizeof(float4) * kR * U +
          sizeof(float) * U * H3 + sizeof(float) * kR * H3 + red +
          3 * sizeof(float) * B * U;
-}
-
-template <int U>
-int fwd(const float* xp, const float* wh, const float* mask, float* ys,
-        unsigned* bar, int T, int B, int H, int reverse,
-        cudaStream_t stream) {
-  void* args[] = {&xp, &wh, &mask, &ys, &bar, &T, &B, &H, &reverse};
-  return launch_cooperative(reinterpret_cast<const void*>(gru_fwd_kernel<U>),
-                            (H + U - 1) / U, smem_bytes(false, B, H, U), args,
-                            stream);
 }
 
 template <int U>
@@ -292,7 +227,7 @@ int bwd(const float* xp, const float* ysp, const float* wh, const float* mask,
   void* args[] = {&xp,  &ysp, &wh, &mask, &dys, &dxp, &dwh, &dhp_buf,
                   &bar, &T,   &B,  &H,    &reverse};
   return launch_cooperative(reinterpret_cast<const void*>(gru_bwd_kernel<U>),
-                            (H + U - 1) / U, smem_bytes(true, B, H, U), args,
+                            (H + U - 1) / U, bwd_smem_bytes(B, H, U), args,
                             stream);
 }
 
@@ -308,7 +243,8 @@ extern "C" int tpuasr_gru_fwd(const float* xp, const float* wh,
   int nsm = 0;
   if (int err = sm_count(&nsm)) return err;
   const int U = units_per_block(H, nsm);
-#define TPUASR_FWD(N) fwd<N>(xp, wh, mask, ys, bar, T, B, H, reverse, stream)
+#define TPUASR_FWD(N)                                                          \
+  launch_fwd<N>(xp, wh, mask, ys, bar, T, B, H, reverse, stream)
   TPUASR_BY_UNITS(TPUASR_FWD)
 #undef TPUASR_FWD
 }

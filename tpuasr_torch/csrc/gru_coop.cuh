@@ -1,8 +1,10 @@
 // Shared pieces of the cooperative GRU kernels (csrc/gru_bptt.cu: K5,
-// K5b; csrc/gru_bidir.cu: K7, K7b; csrc/gru_xfb.cu: K2b): the block
-// shape, the grid barrier, row staging, the per-unit products with Wh
-// resident in shared memory, and the occupancy-checked cooperative launch.
-// See gru_bptt.cu for the design.
+// K5b; csrc/gru_bidir.cu: K7, K7b; csrc/gru_xfb.cu: K2b; csrc/gru_scan.cu:
+// K2, K4): the block shape, the grid barrier (and a group's, for K2/K4's
+// row groups), row staging, the per-unit products with Wh resident in
+// shared memory, the occupancy-checked
+// cooperative launch, and K5's forward kernel, which K2's float32
+// recurrence launches too. See gru_bptt.cu for the design.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,24 +26,32 @@ __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));
 }
 
-// All blocks of a cooperative launch meet here for the n-th time (n from
-// 1). *count (zeroed before the launch) counts every arrival of the
-// launch, so the n-th meeting is complete when it reaches n * gridDim.x:
-// the last block's arrival itself releases the others. Thread 0 fences its
-// block's writes (made visible to it by __syncthreads) before arriving,
-// and fences again after leaving.
-__device__ void grid_sync(unsigned* count, unsigned n) {
+// The `members` blocks of a group of a cooperative launch meet here for
+// the n-th time (n from 1). *count (zeroed before the launch) counts every
+// arrival of the group, so the n-th meeting is complete when it reaches
+// n * members: the last block's arrival itself releases the others. Thread
+// 0 arrives with a release add at GPU scope, which carries its block's
+// writes (made visible to it by __syncthreads), and polls with acquire
+// loads, so the writes of every block that arrived are visible to it --
+// and, after the second __syncthreads, to its whole block.
+__device__ void group_sync(unsigned* count, unsigned n, unsigned members) {
   __syncthreads();
   if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(count, 1u);
-    const unsigned target = n * gridDim.x;
-    const volatile unsigned* c = count;
-    while (*c < target) {
-    }
-    __threadfence();
+    asm volatile("red.release.gpu.global.add.u32 [%0], 1;\n"
+                 :: "l"(count) : "memory");
+    const unsigned target = n * members;
+    unsigned seen;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+                   : "=r"(seen) : "l"(count) : "memory");
+    } while (seen < target);
   }
   __syncthreads();
+}
+
+// All blocks of a cooperative launch meet here for the n-th time.
+__device__ void grid_sync(unsigned* count, unsigned n) {
+  group_sync(count, n, gridDim.x);
 }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -174,6 +184,69 @@ __device__ __forceinline__ float unit_sum(const float* red, int u, int r,
 }
 
 
+// K5's forward (csrc/gru_bptt.cu), shared with K2's float32 recurrence
+// (csrc/gru_scan.cu): ys (T, B, H) from xp (T, B, 3H) and Wh, f32, with the
+// state exchanged through ys itself.
+template <int U>
+__global__ void __launch_bounds__(kThreads)
+gru_fwd_kernel(const float* __restrict__ xp,     // (T, B, 3H)
+               const float* __restrict__ wh,     // (H, 3H)
+               const float* __restrict__ mask,   // (T, B)
+               float* __restrict__ ys,           // (T, B, H)
+               unsigned* __restrict__ bar,       // arrival count, zeroed
+               int T, int B, int H, int reverse) {
+  extern __shared__ float4 smem4[];
+  float4* wcol = smem4;                                     // [U][H]
+  float* hs = reinterpret_cast<float*>(wcol + U * H);       // [kR][H]
+  float* red = hs + kR * H;                                 // [kWarps][kR][3]
+  const int H3 = 3 * H;
+  const int u0 = blockIdx.x * U;
+  load_columns<U>(wcol, wh, H, u0);
+  // Gate threads: one per (row, unit) of a pass.
+  const int gr = threadIdx.x / U;
+  const int gu = threadIdx.x % U;
+  const int j = u0 + gu;
+  const bool gate = threadIdx.x < kR * U && j < H;
+
+  for (int s = 0; s < T; ++s) {
+    const int t = reverse ? T - 1 - s : s;
+    const int tp = reverse ? t + 1 : t - 1;     // previous step, scan order
+    for (int b0 = 0; b0 < B; b0 += kR) {
+      const int b = b0 + gr;
+      const bool live = gate && b < B;
+      float xr = 0.f, xz = 0.f, xn = 0.f, m = 0.f;
+      if (live) {                               // loaded before the product
+        const size_t row = static_cast<size_t>(t) * B + b;
+        xr = xp[row * H3 + j];
+        xz = xp[row * H3 + H + j];
+        xn = xp[row * H3 + 2 * H + j];
+        m = mask[row];
+      }
+      stage_rows(hs, s ? ys + static_cast<size_t>(tp) * B * H : nullptr, b0,
+                 B, H);
+      __syncthreads();
+      rows_times_columns<U>(hs, wcol, red, H);
+      __syncthreads();
+      if (live) {
+        const float rg = sigmoid(xr + unit_sum<U>(red, gu, gr, 0, 3));
+        const float zg = sigmoid(xz + unit_sum<U>(red, gu, gr, 1, 3));
+        const float ng = tanhf(xn + rg * unit_sum<U>(red, gu, gr, 2, 3));
+        const float h = hs[gr * H + j];
+        const float hn = (1.f - zg) * ng + zg * h;
+        ys[(static_cast<size_t>(t) * B + b) * H + j] = m * hn + (1.f - m) * h;
+      }
+      __syncthreads();                          // hs and red are reused
+    }
+    if (s + 1 < T) grid_sync(bar, s + 1);
+  }
+}
+
+// The forward's dynamic shared memory: Wh columns, one staged pass, sums.
+size_t fwd_smem_bytes(int H, int U) {
+  return sizeof(float4) * U * H + sizeof(float) * kR * H +
+         sizeof(float) * kWarps * kR * 3;
+}
+
 // Units per block: ceil(H / SMs) rounded up to a power of two <= 16, so the
 // kWarps warps split evenly over the units.
 int units_per_block(int H, int nsm) {
@@ -203,6 +276,16 @@ int launch_cooperative(const void* kernel, int grid, size_t smem,
                                     smem, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int U>
+int launch_fwd(const float* xp, const float* wh, const float* mask, float* ys,
+               unsigned* bar, int T, int B, int H, int reverse,
+               cudaStream_t stream) {
+  void* args[] = {&xp, &wh, &mask, &ys, &bar, &T, &B, &H, &reverse};
+  return launch_cooperative(reinterpret_cast<const void*>(gru_fwd_kernel<U>),
+                            (H + U - 1) / U, fwd_smem_bytes(H, U), args,
+                            stream);
 }
 
 int sm_count(int* nsm) {

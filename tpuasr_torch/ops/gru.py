@@ -5,8 +5,9 @@ Counterparts of tpuasr/ops/pallas_gru.py:
 * ``gru_scan`` (K5 forward, K5b backward; pallas_gru.py:238): the masked
   recurrence over xp = x@Wx+b, differentiable. Its kernels are
   ``gru_scan_fwd`` and ``gru_scan_bwd`` (``csrc/gru_bptt.cu``);
-* ``gru_scan_xfused`` (K2, pallas_gru.py:772): the input projection inside
-  the kernel (``csrc/gru_scan.cu``). Its backward takes JAX's route
+* ``gru_scan_xfused`` (K2, pallas_gru.py:772): the input projection fused
+  with the scan (``csrc/gru_scan.cu``: a tiled projection launch, then the
+  recurrence, planned by ``_scan_plan``). Its backward takes JAX's route
   (``_xf_bwd``, pallas_gru.py:829-835): where wx, dwx, wh and dwh fit JAX's
   11 MiB budget, the fully fused BPTT K2b (``gru_scan_xfused_bwd``,
   ``csrc/gru_xfb.cu``; pallas_gru.py:736), which never writes xp or dxp;
@@ -28,6 +29,7 @@ mask (T, B, 1).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -81,49 +83,250 @@ def gru_scan_xfused_plain(x, wx, b, wh, mask, reverse=False):
 gru_scan_xfused_q8_plain = reference_q8_gru_scan
 
 
-def _gate_vectors(w: torch.Tensor, k_pad: int) -> torch.Tensor:
-    """(K, 3H) -> (k_pad, H, 4): entry (k, u) is [w_r, w_z, w_n, 0] for
-    unit u, zero past K -- the kernel loads one gate vector per (k, u)."""
-    K, H3 = w.shape
-    H = H3 // 3
-    out = w.new_zeros((k_pad, H, 4))
-    out[:K, :, :3] = w.reshape(K, 3, H).permute(0, 2, 1)
+# ---- K2 / K4: the plan, the weights' layouts and the two launches --------
+
+# Dynamic shared memory a cooperative block may take (kSmemBudget in
+# csrc/gru_coop.cuh; the H100 allows 227 KB).
+_SMEM_BUDGET = 220 * 1024
+_REC_THREADS = 512          # kThreads in csrc/gru_coop.cuh
+_GATE_ITEMS = 2             # kGI in csrc/gru_scan.cu: (row, unit) a thread
+_PROJ_TILE = 128            # rows and columns of a projection tile
+_PROJ_STAGE = 64            # bytes of the contraction a projection stage
+_K5_ROWS = 16               # kR in csrc/gru_coop.cuh: K5's staged rows
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanPlan:
+    """How K2/K4 run a shape (``_scan_plan``). ``proj`` and ``rec`` are the
+    projection's and the recurrence's arithmetic ("f32", "bf16", "int8");
+    the recurrence runs ``grid`` blocks, ``rg`` row groups times
+    ceil(H / U) groups of ``U`` hidden units, stages ``R`` batch rows a pass
+    and takes ``smem`` bytes of shared memory a block; the projection's
+    weights are padded to ``kp`` x ``np`` and the resident Wh columns to
+    ``hk`` contraction indices."""
+    proj: str
+    rec: str
+    U: int
+    R: int
+    rg: int
+    grid: int
+    smem: int
+    kp: int
+    np: int
+    hk: int
+
+
+def _scan_plan(B: int, D: int, H: int, mode: int, dtype: torch.dtype,
+               n_sm: int = 132) -> ScanPlan:
+    """The launch plan of K2 (mode ``_MODE_K2``) or K4 (``_MODE_Q8``,
+    ``_MODE_Q8_REC``) at batch B, input width D, hidden width H, for x of
+    ``dtype`` on a card of ``n_sm`` SMs. Raises ValueError for a shape the
+    kernels cannot hold: a recurrence grid that cannot be resident at one
+    block an SM, or a block over the shared-memory budget.
+
+    The recurrence's arithmetic follows Wh's type: f32 runs K5's forward
+    (U = ceil(H / n_sm) rounded up to a power of two, 16 rows a pass); bf16
+    and int8 run on the tensor cores, U = 8 or 16 units a block (24 or 48
+    columns, whole n8 tiles), the rows split over as many row groups as the
+    SMs left allow (``_rows_plan``): the U that leaves a block the fewest
+    rows to stage each step, U = 8 on a tie."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be float32 or bfloat16, got {dtype}")
+    f32 = dtype == torch.float32
+    proj = "int8" if mode != _MODE_K2 else ("f32" if f32 else "bf16")
+    rec = "int8" if mode == _MODE_Q8_REC else ("f32" if f32 else "bf16")
+    es = {"f32": 4, "bf16": 2, "int8": 1}[proj]
+    kp = _round_up(D, 8) if proj == "f32" else _round_up(
+        D, _PROJ_STAGE // es)
+    np_ = _round_up(3 * H, _PROJ_TILE)
+    if rec == "f32":
+        U = 1
+        while U * n_sm < H:
+            U *= 2
+        R, rg, hk = _K5_ROWS, 1, H
+        smem = 16 * U * H + 4 * R * H + 4 * (_REC_THREADS // 32) * R * 3
+        if U > 16 or smem > _SMEM_BUDGET:
+            raise ValueError(
+                f"K2's f32 recurrence cannot hold H={H} on {n_sm} SMs: "
+                f"{U} units a block (at most 16), {smem} bytes of shared "
+                f"memory (at most {_SMEM_BUDGET})")
+    else:
+        options = []
+        for U in (8, 16):
+            if -(-H // U) <= n_sm:
+                R, rg, smem = _rows_plan(B, H, rec, U, n_sm)
+                if smem <= _SMEM_BUDGET:     # the fewest rows a block first
+                    options.append((-(-B // rg), U, R, rg, smem))
+        if not options:
+            raise ValueError(
+                f"K2/K4's recurrence ({rec}) cannot hold H={H}: more than "
+                f"{n_sm} resident blocks of 16 units, or more than "
+                f"{_SMEM_BUDGET} bytes of shared memory a block")
+        _, U, R, rg, smem = min(options)
+        es = 2 if rec == "bf16" else 1
+        hk = _round_up(H * es, 32) // es
+    return ScanPlan(proj, rec, U, R, rg, rg * -(-H // U), smem, kp, np_, hk)
+
+
+def _rows_plan(B: int, H: int, rec: str, U: int, n_sm: int):
+    """(R, rg, smem) of the tensor-core recurrence at U units a block. Every
+    block stages all rows of its row group each step, and the bytes an SM
+    pulls from L2 bound the step, so the rows split over rg row groups, as
+    many as fit beside the ceil(H / U) unit groups in n_sm blocks (no
+    fewer than 16 rows a group); a pass stages R rows, a power of two from
+    16 to 128 with R * U <= 1024 (two (row, unit) gate items a thread), no
+    more than a group needs, halved until the block fits the budget."""
+    rg = max(1, min(n_sm // -(-H // U), -(-B // 16)))
+    rows = -(-B // rg)
+    r_max = min(128, _GATE_ITEMS * _REC_THREADS // U)
+    R = 16
+    while R < r_max and R < rows:
+        R *= 2
+    smem = _rec_smem(rec, H, U, R)
+    while smem > _SMEM_BUDGET and R > 16:
+        R //= 2
+        smem = _rec_smem(rec, H, U, R)
+    return R, rg, smem
+
+
+def _rec_smem(rec: str, H: int, U: int, R: int) -> int:
+    """Shared memory of the tensor-core recurrence a block
+    (rec_smem_bytes in csrc/gru_scan.cu): Wh's 3U columns and the R-row
+    operand tile, rows of round_up(H bytes, 32) + 16; the partial sums
+    [256][3U]; and int8's row scales [R] (counted for bf16 too)."""
+    es = 2 if rec == "bf16" else 1
+    ld = _round_up(H * es, 32) + 16
+    return (3 * U + R) * ld + 4 * 256 * 3 * U + 4 * R
+
+
+def _rec_scratch(plan: ScanPlan, B: int, H: int, device) -> torch.Tensor:
+    """The recurrence's scratch, in f32 words: each block's own (B, H)
+    state; for int8 then, each part 16-byte aligned, the rows' absmax (2,
+    B), zeroed, and the quantized state (B, round_up(H, 16)) int8; none for
+    f32 (K5's forward exchanges the state through ys)."""
+    if plan.rec == "bf16":
+        return torch.empty((B * H,), dtype=torch.float32, device=device)
+    if plan.rec == "int8":
+        n = (_round_up(B * H, 4) + _round_up(2 * B, 4)
+             + B * _round_up(H, 16) // 4)
+        return torch.zeros((n,), dtype=torch.float32, device=device)
+    return torch.empty((1,), dtype=torch.float32, device=device)
+
+
+def _pack_proj(w: torch.Tensor, plan: ScanPlan) -> torch.Tensor:
+    """The projection's weights as its tiles read them, zero-padded: f32
+    (D, N) -> (kp, np); bf16 and int8 (D, N) -> W^T (np, kp), contraction
+    contiguous (the mma B operand)."""
+    D, N = w.shape
+    if plan.proj == "f32":
+        out = w.new_zeros((plan.kp, plan.np))
+        out[:D, :N] = w
+    else:
+        out = w.new_zeros((plan.np, plan.kp))
+        out[:N, :D] = w.T
     return out
 
 
-def _pack_int8(w: torch.Tensor) -> torch.Tensor:
-    """(K, 3H) int8 -> (ceil(K/16)*4, H, 4) int32 gate vectors of words;
-    a word holds contraction indices 4i..4i+3, element 4i+j in byte j."""
-    K, N = w.shape
-    K16 = -(-K // 16) * 16
-    if K16 != K:
-        w = torch.cat([w, w.new_zeros((K16 - K, N))])
-    words = (w.reshape(K16 // 4, 4, N).permute(0, 2, 1).contiguous()
-             .view(torch.int32).reshape(K16 // 4, N))
-    return _gate_vectors(words, K16 // 4)
+def _pack_rec(wh: torch.Tensor, plan: ScanPlan) -> torch.Tensor:
+    """Wh (H, 3H) as the recurrence's blocks keep it in shared memory:
+    (ceil(H / U), 3U, hk), unit group g's row q*U + u is Wh's column
+    q*H + g*U + u (gate q, unit g*U + u), contraction contiguous, zero past
+    H in both. f32 (K5's forward) takes Wh as it is."""
+    if plan.rec == "f32":
+        return wh
+    H = wh.shape[0]
+    U = plan.U
+    G = -(-H // U)
+    cols = wh.new_zeros((H, 3, G * U))
+    cols[:, :, :H] = wh.reshape(H, 3, H)
+    out = wh.new_zeros((G, 3 * U, plan.hk))
+    out[:, :, :H] = cols.reshape(H, 3, G, U).permute(2, 1, 3, 0).reshape(
+        G, 3 * U, H)
+    return out
 
 
-def _pack_float(w: torch.Tensor) -> torch.Tensor:
-    return _gate_vectors(w, -(-w.shape[0] // 4) * 4)
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _launch(mode, x, wx, b, wh, sw, swh, mask, reverse, H):
-    """wx, wh already packed (_pack_float / _pack_int8)."""
+_KINDS = {"f32": 0, "bf16": 1, "int8": 2}
+
+
+def _ptr_or_null(t):
+    return _build.ptr(t) if t is not None else ctypes.c_void_p(0)
+
+
+def _project(plan: ScanPlan, x, wxp, b, sw=None):
+    """The first launch: xp (T, B, 3H) f32 = x @ Wx + b (wxp from
+    ``_pack_proj``; sw, the int8 weights' scales). The f32 and bf16 tiles
+    read x's rows in 16-byte pieces: where they are not 16-byte aligned, x
+    is copied first into zero-padded rows of kp values."""
     T, B, D = x.shape
-    ys = torch.empty((T, B, H), dtype=x.dtype, device=x.device)
-    fn = _build.lib().tpuasr_gru_scan
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    N = b.shape[0]
+    M = T * B
+    xp = torch.empty((T, B, N), dtype=torch.float32, device=x.device)
+    xq = sx = None
+    lda = D
+    if plan.proj == "int8":
+        xq = torch.empty((M, plan.kp), dtype=torch.int8, device=x.device)
+        sx = torch.empty((M,), dtype=torch.float32, device=x.device)
+    elif x.data_ptr() % 16 or D * x.element_size() % 16:
+        xa = x.new_zeros((M, plan.kp))
+        xa[:, :D] = x.reshape(M, D)
+        x, lda = xa, plan.kp
+    fn = _build.lib().tpuasr_gru_proj
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    null = ctypes.c_void_p(0)
     with torch.cuda.device(x.device):
-        code = fn(mode, int(x.dtype == torch.bfloat16), _build.ptr(x),
-                  _build.ptr(wx), _build.ptr(b), _build.ptr(wh),
-                  _build.ptr(sw) if sw is not None else null,
-                  _build.ptr(swh) if swh is not None else null,
-                  _build.ptr(mask), _build.ptr(ys), T, B, D, H,
-                  int(bool(reverse)), _build.stream_ptr(x))
-    return code, ys
+        code = fn(_KINDS[plan.proj], int(x.dtype == torch.bfloat16),
+                  _build.ptr(x), lda, _build.ptr(wxp), _build.ptr(b),
+                  _ptr_or_null(sw), _ptr_or_null(xq), _ptr_or_null(sx),
+                  _build.ptr(xp), M, D, N, plan.kp, plan.np,
+                  _build.stream_ptr(x))
+    _build.check(code, "gru_scan_xfused (projection)")
+    return xp
+
+
+def _recur(plan: ScanPlan, xp, whp, swh, mask2, reverse, out_dtype):
+    """The second launch: ys (T, B, H) in ``out_dtype`` from xp, whp (from
+    ``_pack_rec``), swh (rec_q8's scales) and mask2 (T, B)."""
+    T, B, H3 = xp.shape
+    H = H3 // 3
+    ys = torch.empty((T, B, H), dtype=out_dtype, device=xp.device)
+    hbuf = _rec_scratch(plan, B, H, xp.device)
+    fn = _build.lib().tpuasr_gru_rec
+    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
+                   + [ctypes.c_int] * 7 + [ctypes.c_longlong, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    bar = _barrier(xp.device, plan.rg)
+    with torch.cuda.device(xp.device):
+        code = fn(_KINDS[plan.rec], int(out_dtype == torch.bfloat16),
+                  _build.ptr(xp), _build.ptr(whp), _ptr_or_null(swh),
+                  _build.ptr(mask2), _build.ptr(ys), _build.ptr(hbuf),
+                  _build.ptr(bar), T, B, H, int(bool(reverse)), plan.U,
+                  plan.R, plan.rg, plan.smem, _build.stream_ptr(xp))
+    _build.check(code, "gru_scan_xfused (recurrence)")
+    return ys
+
+
+def _launch(mode, x, wx, b, wh, sw, swh, mask2, reverse):
+    """K2/K4 on CUDA tensors already checked: the plan (ValueError before
+    any launch where the shape cannot be planned), then the projection and
+    the recurrence."""
+    T, B, D = x.shape
+    H = wh.shape[0]
+    plan = _scan_plan(B, D, H, mode, x.dtype, _sm_count(x.device))
+    if T * B * H == 0:
+        return torch.empty((T, B, H), dtype=x.dtype, device=x.device)
+    xp = _project(plan, x, _pack_proj(wx, plan), b, sw)
+    return _recur(plan, xp, _pack_rec(wh, plan), swh, mask2, reverse,
+                  x.dtype)
 
 
 def _mask_2d(mask, T, B, device):
@@ -136,9 +339,11 @@ def _mask_2d(mask, T, B, device):
 
 
 def gru_scan_xfused(x, wx, b, wh, mask, reverse=False):
-    """K2: masked GRU scan, x@Wx+b inside the kernel. x (T, B, D) f32 or
+    """K2: masked GRU scan with its input projection. x (T, B, D) f32 or
     bf16, wx (D, 3H) and wh (H, 3H) in x's dtype, b (3H,) f32,
-    mask (T, B, 1) f32 -> ys (T, B, H) in x's dtype.
+    mask (T, B, 1) f32 -> ys (T, B, H) in x's dtype. On CUDA, two launches
+    (x@Wx+b for all frames, then the recurrence) that count as one; a shape
+    that ``_scan_plan`` cannot hold raises ValueError before either.
 
     Differentiable in float32 when an input requires grad (see
     ``_XFusedScan``)."""
@@ -162,10 +367,8 @@ def _xfused_k2(x, wx, b, wh, mask, reverse):
     _build.check_tensor("wh", wh, x.device, dt, (H, 3 * H))
     _build.check_tensor("b", b, x.device, (torch.float32,), (3 * H,))
     mask = _mask_2d(mask, T, B, x.device)
-    code, ys = _launch(_MODE_K2, x, _pack_float(wx), b, _pack_float(wh),
-                       None, None, mask, reverse, H)
+    ys = _launch(_MODE_K2, x, wx, b, wh, None, None, mask, reverse)
     gru_scan_xfused.launches += 1
-    _build.check(code, "gru_scan_xfused")
     return ys
 
 
@@ -179,10 +382,6 @@ gru_scan_xfused.launches = 0
 # accumulators fit 11 MiB, with D and H padded to 128; the recompute route
 # elsewhere. The port keeps the rule as it is, so that it takes JAX's route.
 _XFB_RESIDENT_BUDGET = 11 * 2 ** 20
-
-
-def _round_up(x: int, m: int) -> int:
-    return -(-x // m) * m
 
 
 def _xfb_resident_bytes(D: int, H: int) -> int:
@@ -405,9 +604,10 @@ def _check_scan(xp, wh, mask):
     return T, B, H, _mask_2d(mask, T, B, xp.device)
 
 
-def _barrier(device):
-    """The grid barrier's arrival counter, zeroed for each launch."""
-    return torch.zeros(1, dtype=torch.int32, device=device)
+def _barrier(device, n=1):
+    """The grid barrier's arrival counter (one a row group of K2/K4's
+    recurrence), zeroed for each launch."""
+    return torch.zeros(n, dtype=torch.int32, device=device)
 
 
 def gru_scan_fwd(xp, wh, mask, reverse=False):
@@ -498,11 +698,10 @@ def gru_scan(xp, wh, mask, reverse=False):
 
 def gru_scan_xfused_q8(x, wxq, sw, b, wh, mask, reverse=False,
                        wh_scale=None):
-    """K4: as K2 with an int8 input projection (x quantized per row inside
-    the kernel, exact int32 sums, dequantized as acc*sx*sw + b). wxq (D, 3H)
-    int8, sw (3H,) f32. With ``wh_scale`` (3H,), wh is int8 and the
-    recurrence runs in int8 too, h re-quantized per step; otherwise wh is
-    in x's dtype."""
+    """K4: as K2 with an int8 input projection (x quantized per row, exact
+    int32 sums, dequantized as acc*sx*sw + b). wxq (D, 3H) int8, sw (3H,)
+    f32. With ``wh_scale`` (3H,), wh is int8 and the recurrence runs in int8
+    too, h re-quantized per step; otherwise wh is in x's dtype."""
     if wxq.dtype != torch.int8:
         raise ValueError(f"wxq must be int8, got {wxq.dtype}")
     T, B, D = x.shape
@@ -533,12 +732,9 @@ def gru_scan_xfused_q8(x, wxq, sw, b, wh, mask, reverse=False,
         _build.check_tensor("wh_scale", wh_scale, x.device,
                             (torch.float32,), (3 * H,))
     mask = _mask_2d(mask, T, B, x.device)
-    wh_arg = _pack_int8(wh) if rec_q8 else _pack_float(wh)
-    code, ys = _launch(_MODE_Q8_REC if rec_q8 else _MODE_Q8, x,
-                       _pack_int8(wxq), b, wh_arg, sw, wh_scale, mask,
-                       reverse, H)
+    ys = _launch(_MODE_Q8_REC if rec_q8 else _MODE_Q8, x, wxq, b, wh, sw,
+                 wh_scale, mask, reverse)
     gru_scan_xfused_q8.launches += 1
-    _build.check(code, "gru_scan_xfused_q8")
     return ys
 
 
