@@ -17,10 +17,11 @@ Phases, each fatal on failure:
      of 1 and 129 rows, with the projection and the recurrence of one call
      timed apart), K2 in float32 at the deepspeech_var train step's
      forward shapes (H=384, D=512 and 768, B=16 and 64), K9 (the int8
-     conv2) at its shapes in that model, K7 (both GRU directions in one
-     launch) at the served and trained shapes, and the training kernels
-     K5, K5b, K7b, K6, K6b at the shapes of the BASELINE config-3 train
-     step (B=16 x 5 s, T'=249, U=24), K2b (the fused-projection scan's
+     conv2) at its shapes in that model beside the bf16 and fp32
+     F.conv2d, K7 (both GRU directions in one launch) at the served and
+     trained shapes, and the training kernels K5, K5b, K7b, K6, K6b at the
+     shapes of the BASELINE config-3 train step (B=16 x 5 s, T'=249,
+     U=24; K7b also at B=128, in row chunks), K2b (the fused-projection scan's
      fused backward) at the deepspeech_var step's shapes (H=384, D=512 and
      768), K9's taps and slab bodies beside its im2col body, and K8 and
      K8b (CapsNet routing, forward and backward) at the shapes of BASELINE
@@ -46,7 +47,8 @@ Phases, each fatal on failure:
      DeepSpeechCTC in float32, adamw, B=16 x 5 s, U=24): launch counts per
      step, step 1 against the plain path, the loss after 10 steps on the
      repeated batch, and train-step ms at B=16 and B=64; then the same
-     step with fused_bidir=True (K7 and K7b in place of K5 and K5b);
+     step with fused_bidir=True (K7 and K7b in place of K5 and K5b), also
+     at B=128;
   8. the CapsNet training step through Trainer.train_step (config 4:
      capsule1 with 48 classes, CTC, adamw 3e-4, B=8 x 5 s, U=16): launch
      counts per step, step 1 against the plain path, the loss after 10
@@ -925,17 +927,19 @@ def conv_bidir_kernels(record, gen) -> None:
         lib = cuda_ms(lambda: F.conv2d(x4, w4, stride=(1, 2)), 10)
     x4b, w4b = x4.bfloat16(), w4.bfloat16()
     lib_bf16 = cuda_ms(lambda: F.conv2d(x4b, w4b, stride=(1, 2)), 10)
+    # The yardstick is the bf16 conv: the int8 arm exists to beat it.
     phase(f"[3 K9] conv_taps_q8 B={B} T_out={T} Kt={Kt} Kd={Kd} N={N}: "
           f"max_abs_err {err:.3e} (tol rtol 1e-6 atol 1e-6; |out| max "
           f"{ref.abs().max().item():.3f}; {same:.6f} of the outputs equal "
           f"bit for bit) kernel {ms:.3f} ms plain {pms:.3f} ms bound "
-          f"{bd[0]:.4f} ms ({bd[1]}) F.conv2d fp32 (TF32 off) {lib:.3f} ms,"
-          f" bf16 {lib_bf16:.3f} ms")
+          f"{bd[0]:.4f} ms ({bd[1]}) F.conv2d bf16 {lib_bf16:.3f} ms, fp32 "
+          f"(TF32 off) {lib:.3f} ms; faster than the bf16 conv: "
+          f"{ms < lib_bf16}")
     if not ok:
         fail("K9 disagrees with its plain version")
     record("K9", "conv_taps_q8 (int8 conv2, im2col)",
            "tpuasr_torch/csrc/conv_q8.cu", "tpuasr/ops/pallas_conv.py:138",
-           err, ms, pms, bd, lib)
+           err, ms, pms, bd, lib_bf16)
     # The taps and slab bodies (TPUASR_CONV_Q8_MODE) on the same input, to
     # f32 rounding as im2col; the same operations, bound and library call.
     for mode in ("taps", "slab"):
@@ -951,13 +955,14 @@ def conv_bidir_kernels(record, gen) -> None:
         phase(f"[3 K9-{mode}] conv_taps_q8 mode={mode} B={B} T_out={T}: "
               f"max_abs_err {err:.3e} (tol rtol 1e-6 atol 1e-6; {same:.6f} "
               f"of the outputs equal bit for bit) kernel {ms:.3f} ms plain "
-              f"{pms:.3f} ms bound {bd[0]:.4f} ms ({bd[1]}) F.conv2d fp32 "
-              f"{lib:.3f} ms")
+              f"{pms:.3f} ms bound {bd[0]:.4f} ms ({bd[1]}) F.conv2d bf16 "
+              f"{lib_bf16:.3f} ms, fp32 {lib:.3f} ms; faster than the bf16 "
+              f"conv: {ms < lib_bf16}")
         if not ok:
             fail(f"K9 {mode} disagrees with its plain version")
         record(f"K9-{mode}", f"conv_taps_q8 (int8 conv2, {mode})",
                "tpuasr_torch/csrc/conv_q8.cu",
-               "tpuasr/ops/pallas_conv.py:138", err, ms, pms, bd, lib)
+               "tpuasr/ops/pallas_conv.py:138", err, ms, pms, bd, lib_bf16)
     del xf, x4, x4b, got, ref
 
     # K7 / K7b: xp = x@Wx + b of a 1024-wide layer, xpb from the per-row
@@ -998,50 +1003,93 @@ def conv_bidir_kernels(record, gen) -> None:
             kind = "bf16" if dt == torch.bfloat16 else "fp32"
             bd = bound(nbytes(*args, *got), 2 * macs, kind)
             lib = library_gru_ms(Tn, Bn, D, H, dt, False, bidirectional=True)
+            served = label == "serving" and dt == torch.bfloat16
+            how = ""
+            if served:
+                # bf16: K2's recurrence over both directions in one grid.
+                plan = gru_mod._scan_plan(Bn, H, H, gru_mod._MODE_K2, dt,
+                                          gru_mod._sm_count(dev), ndir=2)
+                again = gru_mod.gru_scan_bidir_fwd(*args)
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                how = (f" ({ms / Tn * 1e3:.2f} us a step; plan {plan.ndir} "
+                       f"directions x {plan.rg} row groups x "
+                       f"{-(-H // plan.U)} groups of U={plan.U}, R={plan.R},"
+                       f" grid={plan.grid}; two launches equal bit for bit "
+                       f"{same}; faster than the library call: {ms < lib})")
+                if not same:
+                    fail("K7 bf16: two launches differ")
             phase(f"[3 K7] gru_scan_bidir {label} {kind} T={Tn} B={Bn} "
                   f"H={H}: max_abs_err {err:.3e} (tol {tol}) kernel "
                   f"{ms:.3f} ms plain {pms:.3f} ms bound {bd[0]:.4f} ms "
                   f"({bd[1]}) torch.nn.GRU bidirectional {kind} forward "
-                  f"(input projection included) {lib:.3f} ms")
+                  f"(input projection included) {lib:.3f} ms{how}")
             if not err <= tol:
                 fail(f"K7 {label} {kind} disagrees with its plain version")
-            served = label == "serving" and dt == torch.bfloat16
             record("K7", "gru_scan_bidir_fwd (bf16 serving; f32 checked)",
-                   "tpuasr_torch/csrc/gru_bidir.cu",
+                   "tpuasr_torch/csrc/gru_scan.cu",
                    "tpuasr/ops/pallas_gru.py:406", err,
                    *((ms, pms, bd, lib) if served else ()))
-        if label != "training":
-            continue
         # K7b: each output within 1e-4 of its largest magnitude (dWh sums
-        # T*B = 3,984 outer products per direction).
-        dys = [torch.randn(Tn, Bn, H, generator=gen).to(dev)
-               for _ in range(2)]
-        ysp = [gru_mod.prev_states(r, False) for r in ref]
-        bargs = (xp[0], xp[1], *ysp, wh[0], wh[1], mask, *dys)
-        got = gru_mod.gru_scan_bidir_bwd(*bargs)
+        # T*B outer products per direction), two calls bit for bit: at the
+        # training shape (record) and once at the served batch B=128 in f32
+        # (two chunks of 64 rows, a launch each).
+        if label == "training":
+            k7b_check(record, gen, gru_mod, Tn, Bn, H, xp, wh, mask, ref,
+                      macs, D, True)
+        else:                       # xp and ref are the f32 case's
+            Tt = T_tr
+            k7b_check(record, gen, gru_mod, Tt, Bn, H,
+                      [a[:Tt].contiguous() for a in xp], wh,
+                      mask[:Tt].contiguous(),
+                      [r[:Tt].contiguous() for r in ref],
+                      2 * Tt * Bn * H * 3 * H, D, False)
+        del xp, ref, got
+    torch.cuda.empty_cache()
+
+
+def k7b_check(record, gen, gru_mod, Tn, Bn, H, xp, wh, mask, ref, macs, D,
+              timed):
+    """K7b on one shape against its plain backward (each output within 1e-4
+    of its largest magnitude), two calls bit for bit, its launches (row
+    chunks) counted; with timed, its time, bound and cuDNN's backward go to
+    the record."""
+    from tpuasr_torch.precision import full_fp32
+
+    dev = torch.device("cuda")
+    dys = [torch.randn(Tn, Bn, H, generator=gen).to(dev) for _ in range(2)]
+    ysp = [gru_mod.prev_states(r, False) for r in ref]
+    bargs = (xp[0], xp[1], *ysp, wh[0], wh[1], mask, *dys)
+    n0 = gru_mod.gru_scan_bidir_bwd.launches
+    got = gru_mod.gru_scan_bidir_bwd(*bargs)
+    launches = gru_mod.gru_scan_bidir_bwd.launches - n0
+    with full_fp32():
+        want = gru_mod.gru_scan_bidir_bwd_plain(*bargs)
+    errs = [(a - r).abs().max().item() for a, r in zip(got, want)]
+    tols = [1e-4 * r.abs().max().item() for r in want]
+    again = gru_mod.gru_scan_bidir_bwd(*bargs)
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    ms = cuda_ms(lambda: gru_mod.gru_scan_bidir_bwd(*bargs), 10 if timed
+                 else 3)
+    msg = (f"[3 K7b] gru_scan_bidir_bwd T={Tn} B={Bn} H={H}: dxpf, dxpb, "
+           f"dwhf, dwhb max_abs_err {', '.join(f'{e:.3e}' for e in errs)} "
+           f"(tol {', '.join(f'{t:.3e}' for t in tols)}); two calls equal "
+           f"bit for bit {same}; {launches} launch(es) a call (row chunks "
+           f"{gru_mod._bidir_bwd_chunks(Bn, H, gru_mod._sm_count(dev))}) "
+           f"kernel {ms:.3f} ms")
+    if timed:
         with full_fp32():
-            want = gru_mod.gru_scan_bidir_bwd_plain(*bargs)
             pms = cuda_ms(lambda: gru_mod.gru_scan_bidir_bwd_plain(*bargs), 2)
-        errs = [(a - r).abs().max().item() for a, r in zip(got, want)]
-        tols = [1e-4 * r.abs().max().item() for r in want]
-        again = gru_mod.gru_scan_bidir_bwd(*bargs)
-        same = all(torch.equal(a, b) for a, b in zip(got, again))
-        ms = cuda_ms(lambda: gru_mod.gru_scan_bidir_bwd(*bargs), 10)
         bd = bound(nbytes(*bargs, *got), 6 * macs, "fp32")
         lib = library_gru_ms(Tn, Bn, D, H, torch.float32, True,
                              bidirectional=True)
-        phase(f"[3 K7b] gru_scan_bidir_bwd T={Tn} B={Bn} H={H}: dxpf, dxpb,"
-              f" dwhf, dwhb max_abs_err "
-              f"{', '.join(f'{e:.3e}' for e in errs)} (tol "
-              f"{', '.join(f'{t:.3e}' for t in tols)}); two launches equal "
-              f"bit for bit {same} kernel {ms:.3f} ms plain {pms:.3f} ms "
-              f"bound {bd[0]:.4f} ms ({bd[1]}) torch.nn.GRU bidirectional "
-              f"backward {lib:.3f} ms")
-        if not (all(e <= t for e, t in zip(errs, tols)) and same):
-            fail("K7b disagrees with its plain version")
-        record("K7b", "gru_scan_bidir_bwd", "tpuasr_torch/csrc/gru_bidir.cu",
-               "tpuasr/ops/pallas_gru.py:437", max(errs), ms, pms, bd, lib)
-    torch.cuda.empty_cache()
+        msg += (f" plain {pms:.3f} ms bound {bd[0]:.4f} ms ({bd[1]}) "
+                f"torch.nn.GRU bidirectional backward {lib:.3f} ms")
+    phase(msg)
+    if not (all(e <= t for e, t in zip(errs, tols)) and same):
+        fail(f"K7b at B={Bn} disagrees with its plain version")
+    record("K7b", "gru_scan_bidir_bwd", "tpuasr_torch/csrc/gru_bidir.cu",
+           "tpuasr/ops/pallas_gru.py:437", max(errs),
+           *((ms, pms, bd, lib) if timed else ()))
 
 
 def capsnet_kernels(record, gen) -> None:
@@ -1421,7 +1469,7 @@ def train_slice(kernels, wrappers, card) -> None:
     patches = ((gru_mod, "gru_scan_bidir_fwd", gru_mod.gru_scan_bidir_plain),
                (gru_mod, "gru_scan_bidir_bwd",
                 gru_mod.gru_scan_bidir_bwd_plain), *ctc_patches)
-    train_phase("7 train fused_bidir", cfg, TRAIN_U, (TRAIN_B, 64),
+    train_phase("7 train fused_bidir", cfg, TRAIN_U, (TRAIN_B, 64, 128),
                 dict(K7=LAYERS, K7b=LAYERS, K6=1, K6b=1), ("K7", "K7b"),
                 patches, kernels, wrappers, card)
 

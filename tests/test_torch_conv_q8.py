@@ -96,6 +96,49 @@ def test_slab_matches_jax_kernel(shape, cut, extra):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("cut,extra", [(0, 0), (4, 0), (0, 40)],
+                         ids=["exact", "short", "long"])
+@pytest.mark.parametrize("shape", SHAPES + [(2, 129, 256, 128, 5)],
+                         ids=["B3_T50_Kt11", "B1_T300_Kt7", "B2_T129_Kt5"])
+def test_quantize_slabs_matches_jax_slab_scale(shape, cut, extra):
+    """K9's slab pre-pass in plain form (``quantize_slabs``): each time
+    block's slab of 128 + Kt - 1 input rows, zero-padded as JAX's wrapper
+    pads, quantized with its one scale exactly as the Pallas slab body
+    does (pallas_conv.py:89-101): scales and int8 values equal bit for
+    bit; the rows two slabs share appear in both under their own scales."""
+    B, T, K, N, Kt = shape
+    x, _, _ = _case(6, *shape)
+    x = np.concatenate([x, np.random.default_rng(7).standard_normal(
+        (B, extra, K)).astype(np.float32)], axis=1)[:, :x.shape[1] - cut + extra]
+    x[0, T // 2] *= 40.0
+    n_tb = -(-T // 128)
+    xp = jnp.pad(jnp.asarray(x), ((0, 0), (0, max(0, (n_tb + 1) * 128
+                                                   - x.shape[1])), (0, 0)))
+    got_q, got_s = conv_mod.quantize_slabs(torch.tensor(x), T, Kt)
+    assert got_q.shape == (B, n_tb, 128 + Kt - 1, K)
+    for k in range(n_tb):
+        slab = xp[:, k * 128:k * 128 + 128 + Kt - 1]
+        sx = jnp.maximum(jnp.max(jnp.abs(slab), axis=(1, 2)), 1e-12) * (
+            1.0 / 127.0)
+        xq = jnp.clip(jnp.round(slab / sx[:, None, None]), -127.0,
+                      127.0).astype(jnp.int8)
+        np.testing.assert_array_equal(got_s[:, k].numpy(), np.asarray(sx))
+        np.testing.assert_array_equal(got_q[:, k].numpy(), np.asarray(xq))
+
+
+def test_taps_prepass_is_quantize_rows():
+    """K9's taps pre-pass quantizes each input row with its own scale: the
+    plain version's taps body is quantize_rows of the rows, which equals
+    JAX's quantize_rows bit for bit, zero rows included."""
+    x, _, _ = _case(8, 2, 50, 256, 128, 11)
+    x[1, 3:9] = 0.0
+    rows = x.reshape(-1, 256)
+    q, sx = quantize_rows(torch.tensor(rows))
+    jq, jsx = j_qrows(jnp.asarray(rows))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(sx.numpy(), np.asarray(jsx))
+
+
 @pytest.mark.parametrize("mode", ["im2col", "taps", "slab"])
 def test_mode_from_environment(monkeypatch, mode):
     """mode=None reads TPUASR_CONV_Q8_MODE, as JAX's conv_taps_q8 does

@@ -663,6 +663,11 @@ def _conv_case(dev, B, T, K, N, Kt, seed=12):
     (1, 300, 128, 128, 7, 0),      # windows across the 128-row tiles
     (3, 50, 256, 256, 11, 4),      # T_in short of T_out + Kt - 1
     (2, 129, 1024, 512, 11, 0),    # conv2's widths, one row past a tile
+    (2, 65, 1024, 512, 11, 0),     # one row past a 64-row tile
+    (2, 70, 256, 384, 11, 0),      # N % 256 == 128: a part column tile
+    (1, 30, 128, 128, 100, 0),     # Kt near JAX's limit: taps in groups
+    (2, 40, 256, 256, 1, 0),       # one tap
+    (2, 40, 256, 128, 2, 3),       # two taps, T_in short
 ])
 def test_k9(dev, B, T, K, N, Kt, cut):
     """K9 against its plain version to f32 rounding (rtol 1e-6, atol 1e-6:
@@ -708,6 +713,11 @@ def test_k9_refuses_unported_modes(dev):
     (1, 300, 128, 128, 7, 0),      # three time blocks
     (3, 50, 256, 256, 11, 4),      # T_in short of T_out + Kt - 1
     (2, 129, 1024, 512, 11, 0),    # conv2's widths, one row past a block
+    (2, 65, 1024, 512, 11, 0),     # one row past a 64-row tile
+    (2, 70, 256, 384, 11, 0),      # N % 256 == 128: a part column tile
+    (1, 30, 128, 128, 100, 0),     # Kt near JAX's limit
+    (2, 40, 256, 256, 1, 0),       # one tap: a slab a step
+    (2, 40, 256, 128, 2, 3),       # two taps, T_in short
 ])
 def test_k9_bodies(dev, monkeypatch, mode, B, T, K, N, Kt, cut):
     """K9's taps and slab bodies against their plain versions to f32
@@ -751,45 +761,56 @@ def _bidir_case(dev, H, B=7, T=37, dtype=torch.float32):
     whf, whb = (torch.randn(H, 3 * H, generator=g) / H ** 0.5
                 for _ in range(2))
     dys = [torch.randn(T, B, H, generator=g) for _ in range(2)]
-    lens = torch.tensor([T, 30, 1, 0, 12, T, 5] * 3)[:B]
+    lens = torch.tensor([T, 30, 1, 0, 12, T, 5] * (B // 7 + 1))[:B]
     mask = (torch.arange(T)[:, None] < lens[None, :]).float()[:, :, None]
     ins = [t.to(dev, dtype).contiguous() for t in (xpf, xpb, whf, whb)]
     return ins, mask.to(dev).contiguous(), [d.to(dev) for d in dys]
 
 
-@pytest.mark.parametrize("H,B", [(40, 7), (130, 20), (512, 16)])
+@pytest.mark.parametrize("H,B", [(40, 7), (130, 20), (512, 16), (512, 128),
+                                 (512, 129)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
 def test_k7(dev, H, B, dtype, tol):
     """K7 against its plain version: f32 within 1e-5 (K5's bound); bf16
     streams within 2e-2 (K2's bf16 bound: a one-ulp difference of an f32
-    sum can flip a bf16 rounding of h and ride the recurrence)."""
+    sum can flip a bf16 rounding of h and ride the recurrence); two
+    launches give the same bits. B=128 is the served batch (bf16: two row
+    groups of 64 rows a direction), B=129 a ragged one."""
     ins, mask, _ = _bidir_case(dev, H, B, dtype=dtype)
     before = gru_scan_bidir_fwd.launches
     got = gru_scan_bidir_fwd(*ins, mask)
-    assert gru_scan_bidir_fwd.launches == before + 1
+    again = gru_scan_bidir_fwd(*ins, mask)
+    assert gru_scan_bidir_fwd.launches == before + 2
     with full_fp32():
         want = gru_scan_bidir_plain(*ins, mask)
-    for a, w in zip(got, want):
+    for a, b, w in zip(got, again, want):
         assert a.dtype == dtype
+        assert torch.equal(a, b)
         torch.testing.assert_close(a.float(), w.float(), rtol=0, atol=tol)
     assert not got[0][:, 3].float().any()       # a row of length 0
+    assert not got[1][:, 3].float().any()
 
 
-@pytest.mark.parametrize("H,B", [(40, 7), (130, 20), (512, 16)])
+@pytest.mark.parametrize("H,B", [(40, 7), (130, 20), (512, 16), (512, 75),
+                                 (512, 128)])
 def test_k7b(dev, H, B):
     """K7b against its plain version, each output within 1e-4 of its
     largest magnitude (float32 sums in another order, dWh over all T*B
-    rows); two launches give the same bits (no atomics)."""
+    rows); two calls give the same bits (no atomics; the chunks' dWh added
+    in order). Past 74 rows at H=512 the rows run in chunks, a launch
+    each."""
     ins, mask, dys = _bidir_case(dev, H, B)
     with full_fp32():
         ys = gru_scan_bidir_plain(*ins, mask)
     ysp = [prev_states(y, False) for y in ys]
     args = (ins[0], ins[1], *ysp, ins[2], ins[3], mask, *dys)
+    chunks = gru_mod._bidir_bwd_chunks(B, H, gru_mod._sm_count(dev))
+    assert len(chunks) == (1 if B <= 74 else 2)
     before = gru_scan_bidir_bwd.launches
     got = gru_scan_bidir_bwd(*args)
     again = gru_scan_bidir_bwd(*args)
-    assert gru_scan_bidir_bwd.launches == before + 2
+    assert gru_scan_bidir_bwd.launches == before + 2 * len(chunks)
     with full_fp32():
         want = gru_scan_bidir_bwd_plain(*args)
     for a, b, w in zip(got, again, want):
@@ -797,6 +818,18 @@ def test_k7b(dev, H, B):
         torch.testing.assert_close(a, w, rtol=0,
                                    atol=1e-4 * w.abs().max().item())
     assert not got[0][:, 3].any()
+
+
+def test_k7b_chunk_plan_matches_kernel_smem(dev):
+    """The row chunks' shared-memory reckoning (ops/gru.py::_bidir_bwd_smem)
+    is the kernel's own (tpuasr_gru_bidir_bwd_smem) on this card."""
+    fn = _build.lib().tpuasr_gru_bidir_bwd_smem
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_longlong
+    n_sm = gru_mod._sm_count(dev)
+    for B, H in ((16, 512), (74, 512), (7, 40), (20, 130)):
+        U = gru_mod._units_per_block(H, n_sm)
+        assert fn(B, H) == gru_mod._bidir_bwd_smem(B, H, U)
 
 
 def test_bidir_autograd_runs_k7_then_k7b(dev):

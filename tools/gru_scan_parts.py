@@ -7,8 +7,9 @@ of the recurrence's step taken out (the barriers, the staging of the
 previous state, the tensor-core product), and times each build's
 recurrence (CUDA events, mean of 5) at the served layer (T=499, B=128,
 H=512) for bf16 and for rec_q8, under the plan ops/gru.py gives and under
-one row group of 8-unit blocks (each staging all rows every step). An
-ablated build computes wrong values: its time only says what the part
+one row group of 8-unit blocks (each staging all rows every step), and
+K7's bf16 forward (both directions in one grid, bf16 xp) under its plan.
+An ablated build computes wrong values: its time only says what the part
 costs. Prints the card's name and power limit first. Needs one CUDA card
 and nvcc.
 """
@@ -22,6 +23,7 @@ import sys
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 import torch
 
@@ -61,37 +63,26 @@ def build(name: str, edits, out: Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(so))
 
 
-def recur_ms(lib, plan, xp, whp, swh, mask2, out_dtype) -> float:
-    T, B, H3 = xp.shape
-    H = H3 // 3
-    ys = torch.empty((T, B, H), dtype=out_dtype, device="cuda")
-    hbuf = gru_mod._rec_scratch(plan, B, H, xp.device)
-    fn = lib.tpuasr_gru_rec
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
-                   + [ctypes.c_int] * 7 + [ctypes.c_longlong, ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    null = ctypes.c_void_p(0)
+def recur_ms(lib, plan, xps, whps, swh, mask2) -> float:
+    """Mean ms of the recurrence launch of ops/gru.py::_recur_dirs with
+    this build's library in the package's place."""
+    lib.tpuasr_error_string.argtypes = [ctypes.c_int]
+    lib.tpuasr_error_string.restype = ctypes.c_char_p
 
     def call():
-        bar = torch.zeros(1, dtype=torch.int32, device="cuda")
-        code = fn(gru_mod._KINDS[plan.rec], int(out_dtype == torch.bfloat16),
-                  _build.ptr(xp), _build.ptr(whp),
-                  _build.ptr(swh) if swh is not None else null,
-                  _build.ptr(mask2), _build.ptr(ys), _build.ptr(hbuf),
-                  _build.ptr(bar), T, B, H, 0, plan.U, plan.R, plan.rg,
-                  plan.smem, _build.stream_ptr(xp))
-        if code != 0:
-            raise RuntimeError(f"tpuasr_gru_rec: CUDA error {code}")
+        gru_mod._recur_dirs(plan, xps, whps, swh, mask2, False,
+                            torch.bfloat16)
 
-    call()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(5):
+    with mock.patch.object(_build, "_lib", lib):
         call()
-    end.record()
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            call()
+        end.record()
+        torch.cuda.synchronize()
     return start.elapsed_time(end) / 5
 
 
@@ -121,25 +112,30 @@ def main() -> int:
     mask2 = torch.ones(T, B, device="cuda")
     from tpuasr_torch.ops.quant import quantize_per_channel
     whq, swh = quantize_per_channel(wh)
+    n_sm = gru_mod._sm_count(xp.device)
     cases = []
     for label, mode, w, s in (("bf16", gru_mod._MODE_K2, wh.bfloat16(), None),
                               ("rec_q8", gru_mod._MODE_Q8_REC, whq, swh)):
-        plan = gru_mod._scan_plan(B, 1024, H, mode, torch.bfloat16,
-                                  gru_mod._sm_count(xp.device))
+        plan = gru_mod._scan_plan(B, 1024, H, mode, torch.bfloat16, n_sm)
         for p in (plan, one_group(plan, B, H)):
-            cases.append((label, p, gru_mod._pack_rec(w, p), s))
+            cases.append((label, p, (xp,), (gru_mod._pack_rec(w, p),), s))
+    plan = gru_mod._scan_plan(B, H, H, gru_mod._MODE_K2, torch.bfloat16,
+                              n_sm, ndir=2)
+    whp = gru_mod._pack_rec(wh.bfloat16(), plan)
+    cases.append(("K7 bf16", plan, (xp.bfloat16(), xp.flip(1).bfloat16()),
+                  (whp, whp), None))
     with tempfile.TemporaryDirectory() as tmp:
         with ThreadPoolExecutor(len(ABLATIONS)) as pool:
             libs = dict(zip(ABLATIONS, pool.map(
                 lambda kv: build(kv[0], kv[1], Path(tmp)),
                 ABLATIONS.items())))
-        for label, plan, whp, s in cases:
+        for label, plan, xps, whps, s in cases:
             row = []
             for name, lib in libs.items():
-                ms = recur_ms(lib, plan, xp, whp, s, mask2, torch.bfloat16)
+                ms = recur_ms(lib, plan, xps, whps, s, mask2)
                 row.append(f"{name} {ms:.3f} ms ({ms / T * 1e3:.2f} us)")
             print(f"{label} U={plan.U} R={plan.R} rg={plan.rg} "
-                  f"grid={plan.grid}: "
+                  f"dirs={plan.ndir} grid={plan.grid}: "
                   + "; ".join(row), flush=True)
     return 0
 

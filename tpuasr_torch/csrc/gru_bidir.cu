@@ -1,9 +1,12 @@
 // Both directions of a bidirectional GRU in one cooperative launch: the
-// forward scan (f32 or bf16 streams) and its BPTT (f32).
+// forward scan in f32 (training) and its BPTT (f32). The bf16 forward
+// (serving) is K2's tensor-core recurrence over both directions
+// (csrc/gru_scan.cu, tpuasr_gru_rec).
 //
 // Replaces two Pallas kernels of tpuasr/ops/pallas_gru.py:
 //   K7   _bidir_fwd_kernel (line 319), built by _build_bidir_fwd (pallas_call
-//        at line 406): ysf, ysb = gru_scan_bidir(xpf, xpb, whf, whb, mask);
+//        at line 406): ysf, ysb = gru_scan_bidir(xpf, xpb, whf, whb, mask),
+//        here for f32 streams;
 //   K7b  _bidir_bwd_kernel (line 346), built by _build_bidir_bwd (line 437):
 //        dxpf, dxpb, dWhf, dWhb from (xpf, xpb, yspf, yspb, whf, whb, mask,
 //        dysf, dysb), dWh summed inside the kernel.
@@ -15,9 +18,6 @@
 // What bounds them on the H100: the operations, as for K5/K5b, twice over.
 // Training (T=249, B=16, H=512, f32): the forward 1.25e10 flops, 0.19 ms at
 // the 67 TFLOP/s fp32 peak; the backward three times that, 0.56 ms.
-// Serving (T=499, B=128, bf16 streams): 2.0e11 flops; the products run on
-// the fp32 FMA units here (3.0 ms at 67 TFLOP/s), not on the tensor cores
-// (0.20 ms at 989 TFLOP/s).
 //
 // Design: K5's (see gru_bptt.cu): the hidden units split over a cooperative
 // grid, U per block, each block's Wh columns resident in shared memory for
@@ -26,43 +26,35 @@
 // f32), so the grid (128 blocks at H=512), its residency and its barrier
 // count stay K5's while one barrier per step serves both directions: half
 // the launches and barriers of two K5 scans.
-//   forward: h is carried in f32 in a double-buffered (2 directions, 2,
-//   B, H) scratch, written at step s into buffer s & 1 and staged by every
-//   block after the barrier (rounded to bf16 for the product when the
-//   streams are bf16, as the Pallas kernel casts h to Wh's type); xp is
-//   widened to f32 and the gate math is f32; ys is stored in the stream
-//   type. Serving streams B=128 rows as 8 staged passes of 16 per step.
+//   forward: h is carried in a double-buffered (2 directions, 2, B, H)
+//   scratch, written at step s into buffer s & 1 and staged by every block
+//   after the barrier, 16 rows a pass.
 //   backward: K5b per direction, one direction after the other inside each
 //   pass, sharing one staging buffer: dhp goes to a double-buffered (2
 //   directions, 2, 3 gates, B, H) scratch and comes back after the barrier
 //   one gate at a time, so the staging buffer stays (16 x H); each
 //   direction's dWh columns accumulate in shared memory across all steps
 //   and are written once, with no atomics: the same bits on every run.
-//   Shared memory at H=512: 134 KB forward, 215-219 KB backward (B=16-64).
-#include <type_traits>
-
+//   Shared memory at H=512: 134 KB forward, 215-219 KB backward (B=16-64):
+//   the backward's per-row state bounds the rows a launch holds (74 at
+//   H=512), so ops/gru.py::gru_scan_bidir_bwd runs larger batches in
+//   chunks of rows, one launch each (tpuasr_gru_bidir_bwd_smem).
 #include "gru_coop.cuh"
 
 namespace {
 
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-template <int U, typename IO>
+template <int U>
 __global__ void __launch_bounds__(kThreads)
-gru_bidir_fwd_kernel(const IO* __restrict__ xpf,     // (T, B, 3H)
-                     const IO* __restrict__ xpb,     // (T, B, 3H)
-                     const IO* __restrict__ whf,     // (H, 3H)
-                     const IO* __restrict__ whb,     // (H, 3H)
+gru_bidir_fwd_kernel(const float* __restrict__ xpf,  // (T, B, 3H)
+                     const float* __restrict__ xpb,  // (T, B, 3H)
+                     const float* __restrict__ whf,  // (H, 3H)
+                     const float* __restrict__ whb,  // (H, 3H)
                      const float* __restrict__ mask, // (T, B)
-                     IO* __restrict__ ysf,           // (T, B, H)
-                     IO* __restrict__ ysb,           // (T, B, H)
+                     float* __restrict__ ysf,        // (T, B, H)
+                     float* __restrict__ ysb,        // (T, B, H)
                      float* __restrict__ hbuf,       // (2, 2, B, H) scratch
                      unsigned* __restrict__ bar,     // arrival count, zeroed
                      int T, int B, int H) {
-  constexpr bool kBf16 = !std::is_same<IO, float>::value;
   extern __shared__ float4 smem4[];
   float4* wcol = smem4;                                  // [2][U][H]
   float* hs = reinterpret_cast<float*>(wcol + 2 * U * H);  // [2][kR][H]
@@ -72,8 +64,8 @@ gru_bidir_fwd_kernel(const IO* __restrict__ xpf,     // (T, B, 3H)
   const int u0 = blockIdx.x * U;
   load_columns<U>(wcol, whf, H, u0);
   load_columns<U>(wcol + U * H, whb, H, u0);
-  const IO* xp[2] = {xpf, xpb};
-  IO* ys[2] = {ysf, ysb};
+  const float* xp[2] = {xpf, xpb};
+  float* ys[2] = {ysf, ysb};
   // Gate threads: one per (row, unit) of a pass, for both directions.
   const int gr = threadIdx.x / U;
   const int gu = threadIdx.x % U;
@@ -95,13 +87,13 @@ gru_bidir_fwd_kernel(const IO* __restrict__ xpf,     // (T, B, 3H)
         for (int d = 0; d < 2; ++d) {
 #pragma unroll
           for (int g = 0; g < 3; ++g)
-            x[d][g] = to_f32(xp[d][row * H3 + g * H + j]);
+            x[d][g] = xp[d][row * H3 + g * H + j];
           if (t) h[d] = __ldcg(hprev[d] + static_cast<size_t>(b) * H + j);
         }
         m = mask[row];
       }
-      stage_rows<kBf16>(hs, hprev[0], b0, B, H);
-      stage_rows<kBf16>(hs + kR * H, hprev[1], b0, B, H);
+      stage_rows(hs, hprev[0], b0, B, H);
+      stage_rows(hs + kR * H, hprev[1], b0, B, H);
       __syncthreads();
       rows_times_columns<U>(hs, wcol, red, H);
       rows_times_columns<U>(hs + kR * H, wcol + U * H, red + kWarps * kR * 3,
@@ -118,7 +110,7 @@ gru_bidir_fwd_kernel(const IO* __restrict__ xpf,     // (T, B, 3H)
           const float hn = (1.f - zg) * ng + zg * h[d];
           const float hv = m * hn + (1.f - m) * h[d];
           hnext[d][static_cast<size_t>(b) * H + j] = hv;
-          store(ys[d] + row * H + j, hv);
+          ys[d][row * H + j] = hv;
         }
       }
       __syncthreads();                          // hs and red are reused
@@ -326,21 +318,15 @@ size_t bwd_smem(int B, int H, int U) {
          sizeof(float) * kR * H + sizeof(float) * kWarps * kR * 3;
 }
 
-template <int U, typename IO>
-int fwd(const void* xpf_, const void* xpb_, const void* whf_,
-        const void* whb_, const float* mask, void* ysf_, void* ysb_,
+template <int U>
+int fwd(const float* xpf, const float* xpb, const float* whf,
+        const float* whb, const float* mask, float* ysf, float* ysb,
         float* hbuf, unsigned* bar, int T, int B, int H,
         cudaStream_t stream) {
-  const IO* xpf = static_cast<const IO*>(xpf_);
-  const IO* xpb = static_cast<const IO*>(xpb_);
-  const IO* whf = static_cast<const IO*>(whf_);
-  const IO* whb = static_cast<const IO*>(whb_);
-  IO* ysf = static_cast<IO*>(ysf_);
-  IO* ysb = static_cast<IO*>(ysb_);
   void* args[] = {&xpf, &xpb, &whf, &whb, &mask, &ysf, &ysb, &hbuf,
                   &bar, &T,   &B,   &H};
   return launch_cooperative(
-      reinterpret_cast<const void*>(gru_bidir_fwd_kernel<U, IO>),
+      reinterpret_cast<const void*>(gru_bidir_fwd_kernel<U>),
       (H + U - 1) / U, fwd_smem(H, U), args, stream);
 }
 
@@ -360,26 +346,30 @@ int bwd(const float* xpf, const float* xpb, const float* yspf,
 
 }  // namespace
 
-// K7: ysf, ysb (T, B, H) from xpf, xpb (T, B, 3H), whf, whb (H, 3H) -- all
-// f32 (bf16 == 0) or all bf16 -- and mask (T, B) f32, contiguous. hbuf:
-// (2, 2, B, H) f32 scratch; bar: one zeroed uint32 word of device memory.
-extern "C" int tpuasr_gru_bidir_fwd(int bf16, const void* xpf,
-                                    const void* xpb, const void* whf,
-                                    const void* whb, const float* mask,
-                                    void* ysf, void* ysb, float* hbuf,
-                                    unsigned* bar, int T, int B, int H,
-                                    cudaStream_t stream) {
+// K7 in f32: ysf, ysb (T, B, H) from xpf, xpb (T, B, 3H), whf, whb (H, 3H)
+// and mask (T, B), all f32 and contiguous. hbuf: (2, 2, B, H) f32 scratch;
+// bar: one zeroed uint32 word of device memory.
+extern "C" int tpuasr_gru_bidir_fwd(const float* xpf, const float* xpb,
+                                    const float* whf, const float* whb,
+                                    const float* mask, float* ysf, float* ysb,
+                                    float* hbuf, unsigned* bar, int T, int B,
+                                    int H, cudaStream_t stream) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
   int nsm = 0;
   if (int err = sm_count(&nsm)) return err;
   const int U = units_per_block(H, nsm);
-#define TPUASR_FWD(N)                                                          \
-  (bf16 ? fwd<N, __nv_bfloat16>(xpf, xpb, whf, whb, mask, ysf, ysb, hbuf,     \
-                                bar, T, B, H, stream)                          \
-        : fwd<N, float>(xpf, xpb, whf, whb, mask, ysf, ysb, hbuf, bar, T, B,  \
-                        H, stream))
+#define TPUASR_FWD(N) \
+  fwd<N>(xpf, xpb, whf, whb, mask, ysf, ysb, hbuf, bar, T, B, H, stream)
   TPUASR_BY_UNITS(TPUASR_FWD)
 #undef TPUASR_FWD
+}
+
+// K7b's dynamic shared memory a block at batch B and width H on this card
+// (ops/gru.py::_bidir_bwd_smem computes the same for its row chunks).
+extern "C" long long tpuasr_gru_bidir_bwd_smem(int B, int H) {
+  int nsm = 0;
+  if (sm_count(&nsm)) return -1;
+  return static_cast<long long>(bwd_smem(B, H, units_per_block(H, nsm)));
 }
 
 // K7b: dxpf, dxpb (T, B, 3H) and dwhf, dwhb (H, 3H) from xpf, xpb, yspf,

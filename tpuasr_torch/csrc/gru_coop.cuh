@@ -58,15 +58,9 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
-// v rounded to bf16 and widened back (what a bf16 operand holds).
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 // Rows b0 .. b0+kR-1 of a (B, n) row-major array into dst[kR][n], bypassing
-// L1; rows past B (and every row when src is null) become zeros. With
-// kRound each value is rounded to bf16 (the recurrent product's operand).
-template <bool kRound = false>
+// L1; rows past B (and every row when src is null) become zeros.
 __device__ __forceinline__ void stage_rows(float* dst, const float* src,
                                            int b0, int B, int n) {
   const int rows = src ? min(kR, B - b0) : 0;
@@ -77,17 +71,12 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
     const float4* s4 = reinterpret_cast<const float4*>(s);
     float4* d4 = reinterpret_cast<float4*>(dst);
     for (int i = threadIdx.x; i < total / 4; i += kThreads) {
-      float4 v = 4 * i < have ? __ldcg(s4 + i)
-                              : make_float4(0.f, 0.f, 0.f, 0.f);
-      if constexpr (kRound)
-        v = make_float4(bf16_round(v.x), bf16_round(v.y), bf16_round(v.z),
-                        bf16_round(v.w));
-      d4[i] = v;
+      d4[i] = 4 * i < have ? __ldcg(s4 + i)
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
     }
   } else {
     for (int i = threadIdx.x; i < total; i += kThreads) {
-      const float v = i < have ? __ldcg(s + i) : 0.f;
-      dst[i] = kRound ? bf16_round(v) : v;
+      dst[i] = i < have ? __ldcg(s + i) : 0.f;
     }
   }
 }

@@ -7,7 +7,12 @@
 //       1020), the forward of gru_scan_xfused_q8: x quantized per row to
 //       int8, an exact int8 x int8 -> int32 projection, dequantized as
 //       acc*sx*sw + b; with rec_q8 the hidden state is quantized per step and
-//       the recurrence runs in int8 too.
+//       the recurrence runs in int8 too;
+// and, with its recurrence only, the bf16 forward of K7 (_bidir_fwd_kernel,
+// line 319, pallas_call at line 406): both directions of a BiGRU over
+// their precomputed bf16 projections in one cooperative launch, the
+// directions' blocks side by side in the grid (csrc/gru_bidir.cu keeps
+// K7's f32 forward and K7b).
 //
 // Gate math (pallas_gru.py:70-74, gate order r, z, n, bias only on the
 // input side):
@@ -60,8 +65,9 @@
 //   the rows over as many row groups as the SMs allow: at the served layer
 //   4 groups of 32 rows times 32 groups of 16 units, 128 blocks, against
 //   one group of all 128 rows in 64 blocks of 8 units
-//   (tools/gru_scan_parts.py times both). The plan's U, R, row groups and
-//   shared memory are checked here before the launch.
+//   (tools/gru_scan_parts.py times both); K7's two directions share the
+//   SMs, 2 x 2 row groups of 64 rows x 32 unit groups. The plan's U, R,
+//   row groups and shared memory are checked here before the launch.
 //
 // Rounding: the dequantization, the quantizers (X / s then round half to
 // even) and the gate arithmetic use __fmul_rn/__fadd_rn/__fdiv_rn and rintf
@@ -488,6 +494,13 @@ __device__ __forceinline__ void copy_rows(unsigned char* dst, int ld,
   }
 }
 
+// A read-only value of xp widened to f32 (f32 for K2/K4, bf16 for K7).
+__device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ldg_f32(const __nv_bfloat16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+
 // rec_q8's scale of a row from its absmax, as quant.py::quantize_rows.
 __device__ __forceinline__ float row_scale(float absmax) {
   return __fmul_rn(fmaxf(absmax, 1e-12f), kInv127);
@@ -506,26 +519,32 @@ size_t rec_smem_bytes(bool q8, int H, int U, int R) {
          sizeof(float) * 256 * 3 * U + sizeof(float) * R;
 }
 
-// The recurrence on the tensor cores. xp (T, B, 3H) f32 from the
-// projection; wh packed (unit groups, 3U, ld - 16 bytes): unit group g's
-// row q*U + u is Wh's column q*H + g*U + u (zero past H). hbuf starts with
-// the (B, H) f32 state of each block's own units. bf16 (!kQ): YT is bf16
-// and the operand is read from ys[t_prev]. rec_q8 (kQ): hbuf then holds,
-// 16-byte aligned, the rows' absmax (2, B) f32, zeroed before the launch,
-// and the quantized state (B, round_up(H, 16)) int8. The grid is RG row
-// groups times the unit groups: block (rg, ug) runs units ug*U.. for the
-// rows of group rg, ceil(B / RG) of them, staging R rows a pass (R * U <=
-// kGI * kThreads gate items). Rows never meet rows of another group, so
-// each row group has a barrier of its own.
-template <bool kQ, typename YT, int U>
+// The recurrence on the tensor cores, over one direction (K2, K4) or two
+// (K7's bf16 forward: both run forward in time under one mask, xpb from
+// the per-row reversed input). xp (T, B, 3H), f32 from K2/K4's projection
+// or bf16 (K7's stream type); wh packed (unit groups, 3U, ld - 16 bytes):
+// unit group g's row q*U + u is Wh's column q*H + g*U + u (zero past H).
+// hbuf starts with each direction's (B, H) f32 state of each block's own
+// units. bf16 (!kQ): YT is bf16 and the operand is read from ys[t_prev].
+// rec_q8 (kQ, one direction): hbuf then holds, 16-byte aligned, the rows'
+// absmax (2, B) f32, zeroed before the launch, and the quantized state (B,
+// round_up(H, 16)) int8. The grid is directions times RG row groups times
+// the unit groups: block (d, rg, ug) runs direction d's units ug*U.. for
+// the rows of group rg, ceil(B / RG) of them, staging R rows a pass (R * U
+// <= kGI * kThreads gate items). Rows never meet rows of another group or
+// direction, so each (direction, row group) has a barrier of its own.
+template <bool kQ, typename XT, typename YT, int U>
 __global__ void __launch_bounds__(kThreads, 1)
-gru_rec_kernel(const float* __restrict__ xp,
-               const unsigned char* __restrict__ wh,
+gru_rec_kernel(const XT* __restrict__ xp0,      // (T, B, 3H) a direction
+               const XT* __restrict__ xp1,
+               const unsigned char* __restrict__ wh0,
+               const unsigned char* __restrict__ wh1,
                const float* __restrict__ swh,   // (3H,) kQ
                const float* __restrict__ mask,  // (T, B)
-               YT* __restrict__ ys,             // (T, B, H)
+               YT* __restrict__ ys0,            // (T, B, H) a direction
+               YT* __restrict__ ys1,
                float* __restrict__ hbuf,
-               unsigned* __restrict__ bar,      // (RG,) arrival counts, 0
+               unsigned* __restrict__ bar,      // (dirs, RG) arrivals, 0
                int T, int B, int H, int reverse, int R, int RG) {
   using Acc = typename Mma<kQ>::Acc;
   constexpr int NB = 3 * U;                 // the block's columns
@@ -539,11 +558,17 @@ gru_rec_kernel(const float* __restrict__ xp,
   Acc* red = reinterpret_cast<Acc*>(tile + R * ld);         // [256][NB]
   float* sh = reinterpret_cast<float*>(red + 256 * NB);     // [R] kQ
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int UG = gridDim.x / RG, ug = blockIdx.x % UG, rg = blockIdx.x / UG;
+  const int UG = (H + U - 1) / U;
+  const int d = blockIdx.x / (RG * UG), rest = blockIdx.x % (RG * UG);
+  const int ug = rest % UG, rg = rest / UG;
   const int u0 = ug * U;
   const int rpg = (B + RG - 1) / RG;                        // rows a group
   const int rb0 = min(B, rg * rpg), rb1 = min(B, rb0 + rpg);
-  unsigned* gbar = bar + rg;            // the row group's own barrier
+  unsigned* gbar = bar + d * RG + rg;   // the row group's own barrier
+  const XT* xp = d ? xp1 : xp0;
+  const unsigned char* wh = d ? wh1 : wh0;
+  YT* ys = d ? ys1 : ys0;
+  hbuf += static_cast<size_t>(d) * B * H;
   {
     const int per_row = (ld - 16) / 16;
     const uint4* src = reinterpret_cast<const uint4*>(wh) +
@@ -587,9 +612,9 @@ gru_rec_kernel(const float* __restrict__ xp,
         p0[g] = p1[g] = p2[g] = 0.f;
         if (live[g]) {
           const size_t row = static_cast<size_t>(t) * B + b;
-          x0[g] = __ldg(xp + row * H3 + j);
-          x1[g] = __ldg(xp + row * H3 + H + j);
-          x2[g] = __ldg(xp + row * H3 + 2 * H + j);
+          x0[g] = ldg_f32(xp + row * H3 + j);
+          x1[g] = ldg_f32(xp + row * H3 + H + j);
+          x2[g] = ldg_f32(xp + row * H3 + 2 * H + j);
           m[g] = __ldg(mask + row);
           if (s) h[g] = __ldcg(hbuf + static_cast<size_t>(b) * H + j);
         }
@@ -715,18 +740,24 @@ gru_rec_kernel(const float* __restrict__ xp,
   }
 }
 
-template <bool kQ, typename YT, int U>
-int launch_rec(const float* xp, const void* wh, const float* swh,
-               const float* mask, void* ys, float* hbuf, unsigned* bar, int T,
-               int B, int H, int reverse, int R, int RG,
+template <bool kQ, typename XT, typename YT, int U>
+int launch_rec(const void* xp0_, const void* xp1_, const void* wh0_,
+               const void* wh1_, const float* swh, const float* mask,
+               void* ys0_, void* ys1_, float* hbuf, unsigned* bar, int T,
+               int B, int H, int reverse, int R, int RG, int ndir,
                cudaStream_t stream) {
-  const unsigned char* w = static_cast<const unsigned char*>(wh);
-  YT* y = static_cast<YT*>(ys);
-  void* args[] = {&xp, &w, &swh, &mask, &y, &hbuf,    &bar,
-                  &T,  &B, &H,   &reverse, &R, &RG};
+  const XT* xp0 = static_cast<const XT*>(xp0_);
+  const XT* xp1 = static_cast<const XT*>(xp1_);
+  const unsigned char* wh0 = static_cast<const unsigned char*>(wh0_);
+  const unsigned char* wh1 = static_cast<const unsigned char*>(wh1_);
+  YT* ys0 = static_cast<YT*>(ys0_);
+  YT* ys1 = static_cast<YT*>(ys1_);
+  void* args[] = {&xp0, &xp1, &wh0, &wh1,    &swh, &mask, &ys0, &ys1, &hbuf,
+                  &bar, &T,   &B,   &H,      &reverse, &R, &RG};
   return launch_cooperative(
-      reinterpret_cast<const void*>(gru_rec_kernel<kQ, YT, U>),
-      RG * ((H + U - 1) / U), rec_smem_bytes(kQ, H, U, R), args, stream);
+      reinterpret_cast<const void*>(gru_rec_kernel<kQ, XT, YT, U>),
+      ndir * RG * ((H + U - 1) / U), rec_smem_bytes(kQ, H, U, R), args,
+      stream);
 }
 
 }  // namespace
@@ -797,44 +828,55 @@ extern "C" long long tpuasr_gru_rec_smem(int kind, int H, int U, int R) {
   return static_cast<long long>(rec_smem_bytes(kind == 2, H, U, R));
 }
 
-// ys (T, B, H) from xp (T, B, 3H) f32 and mask (T, B) with the plan (U, R,
-// RG, smem) of ops/gru.py::_scan_plan. kind 0: wh (H, 3H) f32, ys f32,
-// K5's forward (RG = 1); kind 1: wh packed bf16, ys bf16; kind 2: wh
-// packed int8 with swh (3H,), ys f32 or bf16 (ys_bf16); hbuf: the scratch
-// of ops/gru.py::_rec_scratch. bar: RG zeroed uint32 words. A plan the
-// kernel does not lay out the same way is refused.
-extern "C" int tpuasr_gru_rec(int kind, int ys_bf16, const float* xp,
-                              const void* wh, const float* swh,
-                              const float* mask, void* ys, float* hbuf,
-                              unsigned* bar, int T, int B, int H, int reverse,
-                              int U, int R, int RG, long long smem,
-                              cudaStream_t stream) {
+// ys (T, B, H) from xp (T, B, 3H) and mask (T, B) with the plan (U, R, RG,
+// smem) of ops/gru.py::_scan_plan, over ndir directions: block d of the
+// grid's first dimension reads xp<d>, wh<d> and writes ys<d> (with one
+// direction xp1, wh1, ys1 are not read). kind 0: xp f32, wh (H, 3H) f32,
+// ys f32, K5's forward (RG = 1, one direction); kind 1: xp f32 (K2) or
+// bf16 (xp_bf16: K7, one or two directions), wh packed bf16, ys bf16; kind
+// 2: xp f32, wh packed int8 with swh (3H,), ys f32 or bf16 (ys_bf16), one
+// direction; hbuf: the scratch of ops/gru.py::_rec_scratch. bar: ndir * RG
+// zeroed uint32 words. A plan the kernel does not lay out the same way is
+// refused.
+extern "C" int tpuasr_gru_rec(int kind, int ys_bf16, int xp_bf16,
+                              const void* xp0, const void* xp1,
+                              const void* wh0, const void* wh1,
+                              const float* swh, const float* mask, void* ys0,
+                              void* ys1, float* hbuf, unsigned* bar, int T,
+                              int B, int H, int reverse, int U, int R, int RG,
+                              int ndir, long long smem, cudaStream_t stream) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
-  if (RG < 1 || smem != tpuasr_gru_rec_smem(kind, H, U, R))
+  if (RG < 1 || ndir < 1 || ndir > 2 ||
+      smem != tpuasr_gru_rec_smem(kind, H, U, R) ||
+      (xp_bf16 && kind != 1) || (ndir == 2 && kind != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (kind == 0) {
     if (ys_bf16 || RG != 1) return static_cast<int>(cudaErrorInvalidValue);
-    float* y = static_cast<float*>(ys);
-    const float* w = static_cast<const float*>(wh);
+    const float* x = static_cast<const float*>(xp0);
+    float* y = static_cast<float*>(ys0);
+    const float* w = static_cast<const float*>(wh0);
 #define TPUASR_FWD(N) \
-  launch_fwd<N>(xp, w, mask, y, bar, T, B, H, reverse, stream)
+  launch_fwd<N>(x, w, mask, y, bar, T, B, H, reverse, stream)
     TPUASR_BY_UNITS(TPUASR_FWD)
 #undef TPUASR_FWD
   }
   if (R < 16 || R > 128 || (R & (R - 1)) || R * U > kGI * kThreads ||
       (kind == 1 && !ys_bf16))
     return static_cast<int>(cudaErrorInvalidValue);
-#define TPUASR_REC(Q, YT)                                                     \
+#define TPUASR_REC(Q, XT, YT)                                                 \
   switch (U) {                                                                \
-    case 8: return launch_rec<Q, YT, 8>(xp, wh, swh, mask, ys, hbuf, bar, T,  \
-                                        B, H, reverse, R, RG, stream);        \
-    case 16: return launch_rec<Q, YT, 16>(xp, wh, swh, mask, ys, hbuf, bar,   \
-                                          T, B, H, reverse, R, RG, stream);   \
+    case 8: return launch_rec<Q, XT, YT, 8>(xp0, xp1, wh0, wh1, swh, mask,    \
+                                            ys0, ys1, hbuf, bar, T, B, H,     \
+                                            reverse, R, RG, ndir, stream);    \
+    case 16: return launch_rec<Q, XT, YT, 16>(xp0, xp1, wh0, wh1, swh, mask,  \
+                                              ys0, ys1, hbuf, bar, T, B, H,   \
+                                              reverse, R, RG, ndir, stream);  \
     default: return static_cast<int>(cudaErrorInvalidValue);                  \
   }
-  if (kind == 1) TPUASR_REC(false, __nv_bfloat16)
-  if (kind == 2 && ys_bf16) TPUASR_REC(true, __nv_bfloat16)
-  if (kind == 2) TPUASR_REC(true, float)
+  if (kind == 1 && xp_bf16) TPUASR_REC(false, __nv_bfloat16, __nv_bfloat16)
+  if (kind == 1) TPUASR_REC(false, float, __nv_bfloat16)
+  if (kind == 2 && ys_bf16) TPUASR_REC(true, float, __nv_bfloat16)
+  if (kind == 2) TPUASR_REC(true, float, float)
 #undef TPUASR_REC
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -117,18 +117,14 @@ def reference_q8_conv_taps(xf, mq, sw, T_out: int, mode: str = "im2col"):
             acc = d if acc is None else acc + d
         return acc.to(torch.float32) * sx * sw
     if mode == "slab":
+        xq, sx = quantize_slabs(xf, T_out, Kt)
         outs = []
-        for i0 in range(0, need - Kt + 1, T_BLK):
-            slab = xf[:, i0:i0 + T_BLK + Kt - 1]
-            a = slab.abs().amax(dim=(1, 2), keepdim=True)       # (B, 1, 1)
-            sx = torch.clamp(a, min=1e-12) * (1.0 / 127.0)
-            xq = torch.clamp(torch.round(slab / sx), -127.0,
-                             127.0).to(torch.int8)
+        for k in range(xq.shape[1]):
             acc = None
             for t in range(Kt):
-                d = _int8_dot(xq[:, t:t + T_BLK], mq[t])
+                d = _int8_dot(xq[:, k, t:t + T_BLK], mq[t])
                 acc = d if acc is None else acc + d
-            outs.append(acc.to(torch.float32) * (sx * sw))
+            outs.append(acc.to(torch.float32) * (sx[:, k, None, None] * sw))
         return torch.cat(outs, dim=1)[:, :T_out]
     if mode != "taps":
         raise ValueError(f"unknown conv_taps_q8 mode {mode!r}")
@@ -141,6 +137,30 @@ def reference_q8_conv_taps(xf, mq, sw, T_out: int, mode: str = "im2col"):
         d = _int8_dot(xq[:, t:t + T_out], mq[t])
         acc = acc + d.to(torch.float32) * sx[:, t:t + T_out]
     return acc * sw
+
+
+def quantize_slabs(xf, T_out: int, Kt: int):
+    """The slab body's input, quantized once (the kernel's pre-pass): for
+    each of JAX's time blocks of T_BLK output rows, its slab of T_BLK +
+    Kt - 1 input rows (zeros past the input) with one scale, the slab's
+    absmax, as the Pallas body forms it (pallas_conv.py:93-101). xf (B,
+    T_in, Kd) -> (xq (B, n_tb, T_BLK + Kt - 1, Kd) int8, sx (B, n_tb) f32);
+    the Kt - 1 rows that two slabs share appear in both, each under its
+    slab's scale."""
+    B, T_in, Kd = xf.shape
+    n_tb = max(1, -(-T_out // T_BLK))
+    need = n_tb * T_BLK + Kt - 1
+    xf = xf.to(torch.float32)[:, :need]
+    if xf.shape[1] < need:
+        xf = torch.cat([xf, xf.new_zeros((B, need - xf.shape[1], Kd))],
+                       dim=1)
+    slabs = torch.stack([xf[:, k * T_BLK:k * T_BLK + T_BLK + Kt - 1]
+                         for k in range(n_tb)], dim=1)
+    a = slabs.abs().amax(dim=(2, 3))                        # (B, n_tb)
+    sx = torch.clamp(a, min=1e-12) * (1.0 / 127.0)
+    xq = torch.clamp(torch.round(slabs / sx[:, :, None, None]), -127.0,
+                     127.0).to(torch.int8)
+    return xq, sx
 
 
 def conv_taps_q8(xf, mq, sw, T_out: int, mode: str | None = None):
@@ -172,17 +192,23 @@ def conv_taps_q8(xf, mq, sw, T_out: int, mode: str | None = None):
         return out
     # The kernel reads each column's Kd contraction bytes contiguously.
     mqt = mq.permute(0, 2, 1).contiguous()                  # (Kt, N, Kd)
-    # Row absmaxes of every row that a time block's slab covers.
-    T_rm = -(-T_out // T_BLK) * T_BLK + Kt - 1
-    rmax = torch.empty((B, T_rm), dtype=torch.float32, device=xf.device)
-    fn = _build.lib().tpuasr_conv_q8
+    # Its scratch: row absmaxes, and for taps and slab the input quantized
+    # once (tpuasr_conv_q8_scratch gives the bytes).
+    lib = _build.lib()
+    size = lib.tpuasr_conv_q8_scratch
+    size.argtypes = [ctypes.c_int] * 7
+    size.restype = ctypes.c_longlong
+    mi = MODES.index(mode)
+    scratch = torch.empty((size(B, T_in, T_out, Kt, Kd, N, mi),),
+                          dtype=torch.uint8, device=xf.device)
+    fn = lib.tpuasr_conv_q8
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(xf.device):
         code = fn(_build.ptr(xf), _build.ptr(mqt), _build.ptr(sw),
-                  _build.ptr(rmax), _build.ptr(out), B, T_in, T_out, Kt, Kd,
-                  N, MODES.index(mode), _build.stream_ptr(xf))
+                  _build.ptr(scratch), _build.ptr(out), B, T_in, T_out, Kt,
+                  Kd, N, mi, _build.stream_ptr(xf))
     conv_taps_q8.launches += 1
     conv_taps_q8.bodies[mode].launches += 1
     _build.check(code, "conv_taps_q8")

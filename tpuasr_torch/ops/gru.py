@@ -107,7 +107,8 @@ class ScanPlan:
     ceil(H / U) groups of ``U`` hidden units, stages ``R`` batch rows a pass
     and takes ``smem`` bytes of shared memory a block; the projection's
     weights are padded to ``kp`` x ``np`` and the resident Wh columns to
-    ``hk`` contraction indices."""
+    ``hk`` contraction indices. ``ndir`` is 2 for K7's bf16 forward, whose
+    grid holds both directions' row groups and unit groups."""
     proj: str
     rec: str
     U: int
@@ -118,15 +119,18 @@ class ScanPlan:
     kp: int
     np: int
     hk: int
+    ndir: int = 1
 
 
 def _scan_plan(B: int, D: int, H: int, mode: int, dtype: torch.dtype,
-               n_sm: int = 132) -> ScanPlan:
+               n_sm: int = 132, ndir: int = 1) -> ScanPlan:
     """The launch plan of K2 (mode ``_MODE_K2``) or K4 (``_MODE_Q8``,
     ``_MODE_Q8_REC``) at batch B, input width D, hidden width H, for x of
-    ``dtype`` on a card of ``n_sm`` SMs. Raises ValueError for a shape the
-    kernels cannot hold: a recurrence grid that cannot be resident at one
-    block an SM, or a block over the shared-memory budget.
+    ``dtype`` on a card of ``n_sm`` SMs; with ``ndir=2`` the recurrence of
+    K7's bf16 forward (both directions in one grid; D is not used). Raises
+    ValueError for a shape the kernels cannot hold: a recurrence grid that
+    cannot be resident at one block an SM, or a block over the
+    shared-memory budget.
 
     The recurrence's arithmetic follows Wh's type: f32 runs K5's forward
     (U = ceil(H / n_sm) rounded up to a power of two, 16 rows a pass); bf16
@@ -139,6 +143,9 @@ def _scan_plan(B: int, D: int, H: int, mode: int, dtype: torch.dtype,
     f32 = dtype == torch.float32
     proj = "int8" if mode != _MODE_K2 else ("f32" if f32 else "bf16")
     rec = "int8" if mode == _MODE_Q8_REC else ("f32" if f32 else "bf16")
+    if ndir not in (1, 2) or (ndir == 2 and rec != "bf16"):
+        raise ValueError(f"the two-direction recurrence is K7's bf16 "
+                         f"forward, not {rec} with ndir={ndir}")
     es = {"f32": 4, "bf16": 2, "int8": 1}[proj]
     kp = _round_up(D, 8) if proj == "f32" else _round_up(
         D, _PROJ_STAGE // es)
@@ -157,30 +164,33 @@ def _scan_plan(B: int, D: int, H: int, mode: int, dtype: torch.dtype,
     else:
         options = []
         for U in (8, 16):
-            if -(-H // U) <= n_sm:
-                R, rg, smem = _rows_plan(B, H, rec, U, n_sm)
+            if ndir * -(-H // U) <= n_sm:
+                R, rg, smem = _rows_plan(B, H, rec, U, n_sm, ndir)
                 if smem <= _SMEM_BUDGET:     # the fewest rows a block first
                     options.append((-(-B // rg), U, R, rg, smem))
         if not options:
             raise ValueError(
-                f"K2/K4's recurrence ({rec}) cannot hold H={H}: more than "
-                f"{n_sm} resident blocks of 16 units, or more than "
-                f"{_SMEM_BUDGET} bytes of shared memory a block")
+                f"the tensor-core recurrence ({rec}, {ndir} direction(s)) "
+                f"cannot hold H={H}: more than {n_sm} resident blocks of 16 "
+                f"units, or more than {_SMEM_BUDGET} bytes of shared memory "
+                f"a block")
         _, U, R, rg, smem = min(options)
         es = 2 if rec == "bf16" else 1
         hk = _round_up(H * es, 32) // es
-    return ScanPlan(proj, rec, U, R, rg, rg * -(-H // U), smem, kp, np_, hk)
+    return ScanPlan(proj, rec, U, R, rg, ndir * rg * -(-H // U), smem, kp,
+                    np_, hk, ndir)
 
 
-def _rows_plan(B: int, H: int, rec: str, U: int, n_sm: int):
+def _rows_plan(B: int, H: int, rec: str, U: int, n_sm: int, ndir: int = 1):
     """(R, rg, smem) of the tensor-core recurrence at U units a block. Every
     block stages all rows of its row group each step, and the bytes an SM
     pulls from L2 bound the step, so the rows split over rg row groups, as
-    many as fit beside the ceil(H / U) unit groups in n_sm blocks (no
-    fewer than 16 rows a group); a pass stages R rows, a power of two from
-    16 to 128 with R * U <= 1024 (two (row, unit) gate items a thread), no
-    more than a group needs, halved until the block fits the budget."""
-    rg = max(1, min(n_sm // -(-H // U), -(-B // 16)))
+    many as fit beside the ndir * ceil(H / U) unit groups in n_sm blocks
+    (no fewer than 16 rows a group); a pass stages R rows, a power of two
+    from 16 to 128 with R * U <= 1024 (two (row, unit) gate items a
+    thread), no more than a group needs, halved until the block fits the
+    budget."""
+    rg = max(1, min(n_sm // (ndir * -(-H // U)), -(-B // 16)))
     rows = -(-B // rg)
     r_max = min(128, _GATE_ITEMS * _REC_THREADS // U)
     R = 16
@@ -205,11 +215,13 @@ def _rec_smem(rec: str, H: int, U: int, R: int) -> int:
 
 def _rec_scratch(plan: ScanPlan, B: int, H: int, device) -> torch.Tensor:
     """The recurrence's scratch, in f32 words: each block's own (B, H)
-    state; for int8 then, each part 16-byte aligned, the rows' absmax (2,
-    B), zeroed, and the quantized state (B, round_up(H, 16)) int8; none for
-    f32 (K5's forward exchanges the state through ys)."""
+    state (one a direction); for int8 then, each part 16-byte aligned, the
+    rows' absmax (2, B), zeroed, and the quantized state (B, round_up(H,
+    16)) int8; none for f32 (K5's forward exchanges the state through
+    ys)."""
     if plan.rec == "bf16":
-        return torch.empty((B * H,), dtype=torch.float32, device=device)
+        return torch.empty((plan.ndir * B * H,), dtype=torch.float32,
+                           device=device)
     if plan.rec == "int8":
         n = (_round_up(B * H, 4) + _round_up(2 * B, 4)
              + B * _round_up(H, 16) // 4)
@@ -296,23 +308,39 @@ def _project(plan: ScanPlan, x, wxp, b, sw=None):
 def _recur(plan: ScanPlan, xp, whp, swh, mask2, reverse, out_dtype):
     """The second launch: ys (T, B, H) in ``out_dtype`` from xp, whp (from
     ``_pack_rec``), swh (rec_q8's scales) and mask2 (T, B)."""
-    T, B, H3 = xp.shape
+    return _recur_dirs(plan, (xp,), (whp,), swh, mask2, reverse,
+                       out_dtype)[0]
+
+
+def _recur_dirs(plan: ScanPlan, xps, whps, swh, mask2, reverse, out_dtype):
+    """The tensor-core recurrence over ``plan.ndir`` directions in one
+    cooperative launch: one ys (T, B, H) in ``out_dtype`` for each xp
+    (T, B, 3H), f32 or bf16, and its whp (from ``_pack_rec``), all under
+    mask2 (T, B); a barrier counter for each (direction, row group)."""
+    T, B, H3 = xps[0].shape
     H = H3 // 3
-    ys = torch.empty((T, B, H), dtype=out_dtype, device=xp.device)
-    hbuf = _rec_scratch(plan, B, H, xp.device)
+    if len(xps) != plan.ndir or len(whps) != plan.ndir:
+        raise ValueError(f"{len(xps)} directions for a plan of {plan.ndir}")
+    dev = xps[0].device
+    ys = torch.empty((plan.ndir, T, B, H), dtype=out_dtype, device=dev)
+    hbuf = _rec_scratch(plan, B, H, dev)
     fn = _build.lib().tpuasr_gru_rec
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 7
-                   + [ctypes.c_int] * 7 + [ctypes.c_longlong, ctypes.c_void_p])
+    fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 10
+                   + [ctypes.c_int] * 8 + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    bar = _barrier(xp.device, plan.rg)
-    with torch.cuda.device(xp.device):
+    bar = _barrier(dev, plan.ndir * plan.rg)
+    # With one direction, its pointers stand for the second, unread.
+    with torch.cuda.device(dev):
         code = fn(_KINDS[plan.rec], int(out_dtype == torch.bfloat16),
-                  _build.ptr(xp), _build.ptr(whp), _ptr_or_null(swh),
-                  _build.ptr(mask2), _build.ptr(ys), _build.ptr(hbuf),
-                  _build.ptr(bar), T, B, H, int(bool(reverse)), plan.U,
-                  plan.R, plan.rg, plan.smem, _build.stream_ptr(xp))
-    _build.check(code, "gru_scan_xfused (recurrence)")
-    return ys
+                  int(xps[0].dtype == torch.bfloat16),
+                  _build.ptr(xps[0]), _build.ptr(xps[-1]),
+                  _build.ptr(whps[0]), _build.ptr(whps[-1]),
+                  _ptr_or_null(swh), _build.ptr(mask2), _build.ptr(ys[0]),
+                  _build.ptr(ys[-1]), _build.ptr(hbuf), _build.ptr(bar), T,
+                  B, H, int(bool(reverse)), plan.U, plan.R, plan.rg,
+                  plan.ndir, plan.smem, _build.stream_ptr(xps[0]))
+    _build.check(code, "gru recurrence")
+    return tuple(ys)
 
 
 def _launch(mode, x, wx, b, wh, sw, swh, mask2, reverse):
@@ -788,7 +816,12 @@ def _check_bidir(xpf, xpb, whf, whb, mask, dtypes):
 
 def gru_scan_bidir_fwd(xpf, xpb, whf, whb, mask):
     """K7: (ysf, ysb) (T, B, H) in xpf's dtype from xpf, xpb (T, B, 3H),
-    whf, whb (H, 3H), all f32 or all bf16, and mask (T, B, 1) f32."""
+    whf, whb (H, 3H), all f32 or all bf16, and mask (T, B, 1) f32.
+
+    bf16 (serving) runs K2's tensor-core recurrence with both directions in
+    one cooperative grid (``_scan_plan(..., ndir=2)``: a shape it cannot
+    hold raises ValueError before the launch); f32 (training) runs K5's
+    design, a block owning its units in both directions."""
     if xpf.device.type == "cpu":
         return gru_scan_bidir_plain(xpf, xpb, whf, whb, mask)
     if xpf.device.type != "cuda":
@@ -800,18 +833,25 @@ def gru_scan_bidir_fwd(xpf, xpb, whf, whb, mask):
     ysb = torch.empty_like(ysf)
     if ysf.numel() == 0:
         return ysf, ysb
+    if xpf.dtype == torch.bfloat16:
+        plan = _scan_plan(B, H, H, _MODE_K2, torch.bfloat16,
+                          _sm_count(xpf.device), ndir=2)
+        ysf, ysb = _recur_dirs(plan, (xpf, xpb),
+                               (_pack_rec(whf, plan), _pack_rec(whb, plan)),
+                               None, mask2, False, torch.bfloat16)
+        gru_scan_bidir_fwd.launches += 1
+        return ysf, ysb
     hbuf = torch.empty((2, 2, B, H), dtype=torch.float32, device=xpf.device)
     fn = _build.lib().tpuasr_gru_bidir_fwd
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     bar = _barrier(xpf.device)
     with torch.cuda.device(xpf.device):
-        code = fn(int(xpf.dtype == torch.bfloat16), _build.ptr(xpf),
-                  _build.ptr(xpb), _build.ptr(whf), _build.ptr(whb),
-                  _build.ptr(mask2), _build.ptr(ysf), _build.ptr(ysb),
-                  _build.ptr(hbuf), _build.ptr(bar), T, B, H,
-                  _build.stream_ptr(xpf))
+        code = fn(_build.ptr(xpf), _build.ptr(xpb), _build.ptr(whf),
+                  _build.ptr(whb), _build.ptr(mask2), _build.ptr(ysf),
+                  _build.ptr(ysb), _build.ptr(hbuf), _build.ptr(bar), T, B,
+                  H, _build.stream_ptr(xpf))
     gru_scan_bidir_fwd.launches += 1
     _build.check(code, "gru_scan_bidir_fwd")
     return ysf, ysb
@@ -820,12 +860,49 @@ def gru_scan_bidir_fwd(xpf, xpb, whf, whb, mask):
 gru_scan_bidir_fwd.launches = 0
 
 
+def _units_per_block(H: int, n_sm: int) -> int:
+    """K5's and K7's units per block (units_per_block in
+    csrc/gru_coop.cuh): ceil(H / n_sm) rounded up to a power of two."""
+    U = 1
+    while U * n_sm < H:
+        U *= 2
+    return U
+
+
+def _bidir_bwd_smem(B: int, H: int, U: int) -> int:
+    """K7b's shared memory a block (bwd_smem in csrc/gru_bidir.cu): both
+    directions' Wh columns and dWh sums, their dhp and Wh rows, per-row
+    state of the block's units, one staged pass and its sums."""
+    return (2 * (2 * 16 * U * H + 16 * _K5_ROWS * U + 4 * U * 3 * H
+                 + 3 * 4 * B * U)
+            + 4 * _K5_ROWS * H + 4 * (_REC_THREADS // 32) * _K5_ROWS * 3)
+
+
+def _bidir_bwd_chunks(B: int, H: int, n_sm: int = 132):
+    """The row ranges [b0, b1) that K7b runs one launch each, in order:
+    as few as the shared-memory budget allows (a block keeps per-row state
+    of its units, so the rows a launch holds are bounded: 74 at H=512 on
+    132 SMs), of sizes that differ by one at most. Raises ValueError where
+    not one row fits."""
+    U = _units_per_block(H, n_sm)
+    fixed = _bidir_bwd_smem(0, H, U)
+    per_row = _bidir_bwd_smem(1, H, U) - fixed
+    rows = (_SMEM_BUDGET - fixed) // per_row
+    if U > 16 or rows < 1:
+        raise ValueError(f"gru_scan_bidir_bwd (K7b) cannot hold H={H} on "
+                         f"{n_sm} SMs")
+    n = -(-B // rows)
+    return [(B * i // n, B * (i + 1) // n) for i in range(n)]
+
+
 def gru_scan_bidir_bwd(xpf, xpb, yspf, yspb, whf, whb, mask, dysf, dysb):
     """K7b: (dxpf, dxpb (T, B, 3H), dwhf, dwhb (H, 3H)) f32 from xpf, xpb,
     yspf = prev_states(ysf), yspb, whf, whb, mask (T, B, 1) and dysf, dysb
-    (T, B, H); both dWh are summed inside the kernel. Each block keeps both
-    directions' weights, dWh sums and per-row state in shared memory, which
-    bounds B: at H=512 it takes up to 74 rows (the launch fails past it)."""
+    (T, B, H); both dWh are summed inside the kernel. Each block keeps
+    per-row state of its units in shared memory, so the rows run in chunks
+    (``_bidir_bwd_chunks``: one launch each, one chunk up to 74 rows at
+    H=512); rows never meet, so dxp is each chunk's, and the chunks' dWh
+    are added in chunk order (the same bits on every call)."""
     if xpf.device.type == "cpu":
         return gru_scan_bidir_bwd_plain(xpf, xpb, yspf, yspb, whf, whb,
                                         mask, dysf, dysb)
@@ -838,9 +915,30 @@ def gru_scan_bidir_bwd(xpf, xpb, yspf, yspb, whf, whb, mask, dysf, dysb):
                     ("dysb", dysb)):
         _build.check_tensor(name, t, xpf.device, (torch.float32,),
                             (T, B, H))
-    dxpf, dxpb = torch.empty_like(xpf), torch.empty_like(xpb)
     if xpf.numel() == 0:
-        return dxpf, dxpb, torch.zeros_like(whf), torch.zeros_like(whb)
+        return (torch.empty_like(xpf), torch.empty_like(xpb),
+                torch.zeros_like(whf), torch.zeros_like(whb))
+    chunks = _bidir_bwd_chunks(B, H, _sm_count(xpf.device))
+    rows = (xpf, xpb, yspf, yspb, mask2, dysf, dysb)
+    if len(chunks) == 1:
+        return _bidir_bwd_launch(*rows, whf, whb)
+    dxpf, dxpb = torch.empty_like(xpf), torch.empty_like(xpb)
+    dwhf = dwhb = None
+    for b0, b1 in chunks:
+        part = [t[:, b0:b1].contiguous() for t in rows]
+        cf, cb, wf, wb = _bidir_bwd_launch(*part, whf, whb)
+        dxpf[:, b0:b1] = cf
+        dxpb[:, b0:b1] = cb
+        dwhf = wf if dwhf is None else dwhf.add_(wf)
+        dwhb = wb if dwhb is None else dwhb.add_(wb)
+    return dxpf, dxpb, dwhf, dwhb
+
+
+def _bidir_bwd_launch(xpf, xpb, yspf, yspb, mask2, dysf, dysb, whf, whb):
+    """One K7b launch over all the rows it is given (checked tensors)."""
+    T, B, H3 = xpf.shape
+    H = H3 // 3
+    dxpf, dxpb = torch.empty_like(xpf), torch.empty_like(xpb)
     dwhf, dwhb = torch.empty_like(whf), torch.empty_like(whb)
     scratch = torch.empty((2, 2, 3, B, H), dtype=torch.float32,
                           device=xpf.device)
