@@ -21,9 +21,15 @@ Phases, each fatal on failure:
      F.conv2d, K7 (both GRU directions in one launch) at the served and
      trained shapes, and the training kernels K5, K5b, K7b, K6, K6b at the
      shapes of the BASELINE config-3 train step (B=16 x 5 s, T'=249,
-     U=24; K7b also at B=128, in row chunks), K2b (the fused-projection scan's
-     fused backward) at the deepspeech_var step's shapes (H=384, D=512 and
-     768), K9's taps and slab bodies beside its im2col body, and K8 and
+     U=24; K5b also timed at B=64, K7b at B=64 and 128, the batches the
+     train phases run, each beside cuDNN), K2b (the fused-projection
+     scan's backward) at the deepspeech_var step's shapes (H=384, D=512
+     and 768; timed at B=16 and 64 beside cuDNN and the recompute route),
+     K2b's and K7b's three phases (pre-scan products, lean recurrence,
+     post-scan products) timed apart, K5b, K7b and K2b once each at the
+     shapes their old kernels refused (B=683 at H=512, H=640, B=146 at
+     D=320 and H=512, B=609 at D=768), K9's taps and slab bodies beside
+     its im2col body, and K8 and
      K8b (CapsNet routing, forward and backward) at the shapes of BASELINE
      config 4 (B=8 and B=32 x 5 s, T'=249, I=256, Din=8, O=48, D=16, 3
      iterations);
@@ -561,11 +567,15 @@ def train_kernels(record, gen) -> None:
                 e_dwh = (dwh - rdwh).abs().max().item()
                 t_dxp = 1e-4 * rdxp.abs().max().item()
                 t_dwh = 1e-4 * rdwh.abs().max().item()
-                ok = err <= 1e-4 and e_dxp <= t_dxp and e_dwh <= t_dwh
+                same = all(torch.equal(a, c) for a, c in zip(
+                    (dxp, dwh),
+                    gru_mod.gru_scan_bwd(xp, ysp, wh, mask, dys, rev)))
+                ok = (err <= 1e-4 and e_dxp <= t_dxp and e_dwh <= t_dwh
+                      and same)
                 phase(f"[3 K5/K5b] gru T={T} B={Bt} D={D} H={H} reverse="
                       f"{rev}: ys max_abs_err {err:.3e} (tol 1e-4); dxp "
                       f"{e_dxp:.3e} (tol {t_dxp:.3e}), dwh {e_dwh:.3e} (tol "
-                      f"{t_dwh:.3e})")
+                      f"{t_dwh:.3e}); two calls equal bit for bit {same}")
                 if not ok:
                     fail(f"K5/K5b disagree at D={D} reverse={rev}")
                 t5 = t5b = ()
@@ -595,6 +605,47 @@ def train_kernels(record, gen) -> None:
                 record("K5b", "gru_scan_bwd", "tpuasr_torch/csrc/gru_bptt.cu",
                        "tpuasr/ops/pallas_gru.py:190", max(e_dxp, e_dwh),
                        *t5b)
+        # K5b at B=64 beside cuDNN, on the same layer's weights.
+        B64 = 64
+        x64 = torch.randn(T, B64, D, generator=gen).to(dev)
+        xp64 = (x64.reshape(T * B64, D) @ wx + b).reshape(T, B64, 3 * H)
+        m64 = torch.ones(T, B64, 1, device=dev)
+        ysp64 = gru_mod.prev_states(gru_mod.gru_scan_fwd(xp64, wh, m64),
+                                    False)
+        dys64 = torch.randn(T, B64, H, generator=gen).to(dev)
+        ms64 = cuda_ms(lambda: gru_mod.gru_scan_bwd(xp64, ysp64, wh, m64,
+                                                    dys64), 10)
+        lib64 = library_gru_ms(T, B64, D, H, torch.float32, True)
+        bd64 = bound(nbytes(xp64, ysp64, wh, m64, dys64, xp64, wh),
+                     6 * T * B64 * H * 3 * H, "fp32")
+        phase(f"[3 K5b] B={B64} D={D}: kernel {ms64:.3f} ms bound "
+              f"{bd64[0]:.4f} ms ({bd64[1]}) torch.nn.GRU backward "
+              f"{lib64:.3f} ms")
+        del x64, xp64, ysp64, dys64
+    # K5b at the shapes the old kernel refused (683 rows at H=512; H=640),
+    # at a short T: within 1e-4 of each output's largest magnitude.
+    for Bq, Hq in ((683, 512), (16, 640)):
+        Tq = 9
+        xq = torch.randn(Tq, Bq, 3 * Hq, generator=gen).to(dev)
+        whq = (torch.randn(Hq, 3 * Hq, generator=gen) / Hq ** 0.5).to(dev)
+        mq = (torch.arange(Tq)[:, None]
+              < torch.randint(0, Tq + 1, (Bq,), generator=gen)[None, :])
+        mq = mq.float()[:, :, None].to(dev).contiguous()
+        dq = torch.randn(Tq, Bq, Hq, generator=gen).to(dev)
+        with full_fp32():
+            ysq = gru_mod.prev_states(gru_mod.gru_scan_plain(xq, whq, mq),
+                                      False)
+            got = gru_mod.gru_scan_bwd(xq, ysq, whq, mq, dq)
+            want = gru_mod.gru_scan_bwd_plain(xq, ysq, whq, mq, dq)
+        errs = [(a - w).abs().max().item() for a, w in zip(got, want)]
+        tols = [1e-4 * w.abs().max().item() for w in want]
+        phase(f"[3 K5b] repaired shape T={Tq} B={Bq} H={Hq}: dxp, dwh "
+              f"max_abs_err {errs[0]:.3e}, {errs[1]:.3e} (tol {tols[0]:.3e}, "
+              f"{tols[1]:.3e})")
+        if not all(e <= t for e, t in zip(errs, tols)):
+            fail(f"K5b disagrees with its plain version at B={Bq} H={Hq}")
+        record("K5b", "gru_scan_bwd", "tpuasr_torch/csrc/gru_bptt.cu",
+               "tpuasr/ops/pallas_gru.py:190", max(errs))
 
     # K6 / K6b: ragged lengths with a row of 0 frames, an empty label, a
     # short label, repeated labels (no skip), an infeasible row and garbage
@@ -767,12 +818,13 @@ def xfused_f32_kernels(record, gen, gru_mod) -> None:
 
 
 def xfb_kernels(record, gen) -> None:
-    """Phase 3 for K2b, the fused-projection scan's fused backward, at the
+    """Phase 3 for K2b, the fused-projection scan's backward, at the
     shapes of the deepspeech_var train step (phase 9: T'=249, B=16, H=384,
     D=512 for layer 1 and 768 for layers 2-6, both directions, float32):
-    against its plain version, and timed at D=768 and B=16 and 64 beside
-    the recompute route it replaces (xp by a matmul, K5b, three matmuls)
-    and cuDNN's GRU backward."""
+    against its plain version, two calls bit for bit, and timed at D=768
+    and B=16 and 64 beside the recompute route (xp by a matmul, K5b, three
+    matmuls) and cuDNN's GRU backward, its three phases apart; then at the
+    shapes the old fused kernel refused, at a short T."""
     from tpuasr_torch.features import FeatureConfig
     from tpuasr_torch.features.reference import num_frames
     from tpuasr_torch.ops import gru as gru_mod
@@ -841,15 +893,90 @@ def xfb_kernels(record, gen) -> None:
                     lib = library_gru_ms(T, Bt, D, H, torch.float32, True)
                     phase(f"[3 K2b] B={Bt} D={D}: kernel {ms:.3f} ms plain "
                           f"{pms:.3f} ms (one call) bound {bd[0]:.4f} ms "
-                          f"({bd[1]}); the recompute route it replaces (xp "
-                          f"matmul, K5b, three matmuls) {rms:.3f} ms; "
-                          f"torch.nn.GRU backward {lib:.3f} ms")
+                          f"({bd[1]}); the recompute route (xp matmul, K5b, "
+                          f"three matmuls) {rms:.3f} ms; torch.nn.GRU "
+                          f"backward {lib:.3f} ms; faster than both: "
+                          f"{ms < min(rms, lib)}; "
+                          f"{bwd_phases(gru_mod, 'K2b', args)}")
                     if Bt == TRAIN_B:
                         timing = (ms, pms, bd, lib)
                 record("K2b", "gru_scan_xfused_bwd",
-                       "tpuasr_torch/csrc/gru_xfb.cu",
+                       "tpuasr_torch/csrc/gru_lean.cu",
                        "tpuasr/ops/pallas_gru.py:736", max(errs), *timing)
+    # The shapes the old fused kernel refused (146 rows at H=512, D=320;
+    # 609 rows at D=768, H=384), at a short T.
+    for Bq, Dq, Hq in ((146, 320, 512), (609, 768, 384)):
+        Tq = 9
+        lens = torch.randint(0, Tq + 1, (Bq,), generator=gen)
+        mask = (torch.arange(Tq)[:, None] < lens[None, :]).float()
+        mask = mask[:, :, None].to(dev).contiguous()
+        x = torch.randn(Tq, Bq, Dq, generator=gen).to(dev)
+        wx = (torch.randn(Dq, 3 * Hq, generator=gen) / Dq ** 0.5).to(dev)
+        b = (torch.randn(3 * Hq, generator=gen) * 0.1).to(dev)
+        wh = (torch.randn(Hq, 3 * Hq, generator=gen) / Hq ** 0.5).to(dev)
+        dys = torch.randn(Tq, Bq, Hq, generator=gen).to(dev)
+        with full_fp32():
+            ysp = gru_mod.prev_states(
+                gru_mod.gru_scan_xfused_plain(x, wx, b, wh, mask), False)
+            args = (x, ysp, wx, b, wh, mask, dys)
+            got = gru_mod.gru_scan_xfused_bwd(*args)
+            want = gru_mod.gru_scan_xfused_bwd_plain(*args)
+        errs = [(a - w).abs().max().item() for a, w in zip(got, want)]
+        tols = [1e-4 * w.abs().max().item() for w in want]
+        phase(f"[3 K2b] repaired shape T={Tq} B={Bq} D={Dq} H={Hq}: dx, dwx,"
+              f" db, dwh max_abs_err {', '.join(f'{e:.3e}' for e in errs)} "
+              f"(tol {', '.join(f'{t:.3e}' for t in tols)})")
+        if not all(e <= t for e, t in zip(errs, tols)):
+            fail(f"K2b disagrees with its plain version at B={Bq} D={Dq} "
+                 f"H={Hq}")
+        record("K2b", "gru_scan_xfused_bwd", "tpuasr_torch/csrc/gru_lean.cu",
+               "tpuasr/ops/pallas_gru.py:736", max(errs))
     torch.cuda.empty_cache()
+
+
+def bwd_phases(gru_mod, key, args) -> str:
+    """The three phases of one K2b call (key "K2b", the arguments of
+    gru_scan_xfused_bwd) or K7b call ("K7b", those of gru_scan_bidir_bwd)
+    timed apart with CUDA events (mean of 10): the pre-scan products (xp
+    and hp), the lean recurrence, the post-scan products (the weight
+    gradients, and K2b's dx); and the recurrence's plan."""
+    if key == "K2b":
+        x, ysp, wx, b, wh, mask, dys, rev = args
+        T, B, _ = x.shape
+        ndir = 1
+
+        def pre():
+            return gru_mod._xfb_pre(x, ysp, wx, b, wh)
+
+        xp, hp = pre()
+        dirs = [(xp, hp, ysp, dys, wh)]
+    else:
+        xpf, xpb, yspf, yspb, whf, whb, mask, dysf, dysb = args
+        T, B, _ = xpf.shape
+        ndir, rev = 2, False
+
+        def pre():
+            return gru_mod._hp(yspf, whf), gru_mod._hp(yspb, whb)
+
+        hpf, hpb = pre()
+        dirs = [(xpf, hpf, yspf, dysf, whf), (xpb, hpb, yspb, dysb, whb)]
+    H = dirs[0][-1].shape[0]
+    plan = gru_mod._lean_plan(B, H, ndir, gru_mod._sm_count(mask.device))
+    m2 = mask.reshape(T, B).contiguous()
+    outs = gru_mod._lean(plan, dirs, m2, rev)
+    if key == "K2b":
+        def post():
+            return gru_mod._xfb_post(x, ysp, wx, *outs[0])
+    else:
+        def post():
+            return [gru_mod._dwh(d[2], o[1]) for d, o in zip(dirs, outs)]
+    pre_ms, post_ms = cuda_ms(pre, 10), cuda_ms(post, 10)
+    rec_ms = cuda_ms(lambda: gru_mod._lean(plan, dirs, m2, rev), 10)
+    return (f"phases: pre-scan products {pre_ms:.3f} ms, lean recurrence "
+            f"{rec_ms:.3f} ms ({rec_ms / T * 1e3:.2f} us a step; U={plan.U},"
+            f" {plan.rg} row group(s), {plan.ndir} direction(s) a grid of "
+            f"{plan.grid}, chunks of {plan.kc}), post-scan products "
+            f"{post_ms:.3f} ms")
 
 
 def fused_bidir_state(state):
@@ -868,7 +995,7 @@ def conv_bidir_kernels(record, gen) -> None:
     """Phase 3 for K9 at config 5's conv2 (B=128 x 10 s: T'=499 rows of F=32
     x C=32 -> 16 x 32, Kt=11 taps), K7 at the serving shapes (B=128,
     T'=499, H=512, bf16 and f32) and the training shapes (config 3:
-    B=16, T'=249, f32), and K7b at the training shapes."""
+    B=16, T'=249, f32)."""
     import torch.nn.functional as F
 
     from tpuasr_torch.features import FeatureConfig
@@ -965,7 +1092,7 @@ def conv_bidir_kernels(record, gen) -> None:
                "tpuasr/ops/pallas_conv.py:138", err, ms, pms, bd, lib_bf16)
     del xf, x4, x4b, got, ref
 
-    # K7 / K7b: xp = x@Wx + b of a 1024-wide layer, xpb from the per-row
+    # K7: xp = x@Wx + b of a 1024-wide layer, xpb from the per-row
     # reversed x, as the fused BiGRU forms them.
     H, D = HIDDEN, 2 * HIDDEN
     T_tr = -(-num_frames(FeatureConfig(), int(SR * TRAIN_SECONDS)) // 2)
@@ -1029,67 +1156,81 @@ def conv_bidir_kernels(record, gen) -> None:
                    "tpuasr_torch/csrc/gru_scan.cu",
                    "tpuasr/ops/pallas_gru.py:406", err,
                    *((ms, pms, bd, lib) if served else ()))
-        # K7b: each output within 1e-4 of its largest magnitude (dWh sums
-        # T*B outer products per direction), two calls bit for bit: at the
-        # training shape (record) and once at the served batch B=128 in f32
-        # (two chunks of 64 rows, a launch each).
-        if label == "training":
-            k7b_check(record, gen, gru_mod, Tn, Bn, H, xp, wh, mask, ref,
-                      macs, D, True)
-        else:                       # xp and ref are the f32 case's
-            Tt = T_tr
-            k7b_check(record, gen, gru_mod, Tt, Bn, H,
-                      [a[:Tt].contiguous() for a in xp], wh,
-                      mask[:Tt].contiguous(),
-                      [r[:Tt].contiguous() for r in ref],
-                      2 * Tt * Bn * H * 3 * H, D, False)
         del xp, ref, got
     torch.cuda.empty_cache()
 
 
-def k7b_check(record, gen, gru_mod, Tn, Bn, H, xp, wh, mask, ref, macs, D,
-              timed):
-    """K7b on one shape against its plain backward (each output within 1e-4
-    of its largest magnitude), two calls bit for bit, its launches (row
-    chunks) counted; with timed, its time, bound and cuDNN's backward go to
-    the record."""
+def bidir_bwd_kernels(record, gen) -> None:
+    """Phase 3 for K7b, the fused BiGRU's float32 backward, at config 3's
+    layer (T'=249, H=512; D=1024 for cuDNN) at every batch the
+    fused_bidir train step runs (B=16, 64 and 128): against its plain
+    backward (each output within 1e-4 of its largest magnitude: dWh sums
+    T*B outer products per direction), two calls bit for bit, its time
+    beside cuDNN's bidirectional backward and its three phases apart; then
+    at the shapes the old kernel refused (683 rows at H=512; H=640), at a
+    short T."""
+    from tpuasr_torch.features import FeatureConfig
+    from tpuasr_torch.features.reference import num_frames
+    from tpuasr_torch.ops import gru as gru_mod
     from tpuasr_torch.precision import full_fp32
 
     dev = torch.device("cuda")
-    dys = [torch.randn(Tn, Bn, H, generator=gen).to(dev) for _ in range(2)]
-    ysp = [gru_mod.prev_states(r, False) for r in ref]
-    bargs = (xp[0], xp[1], *ysp, wh[0], wh[1], mask, *dys)
-    n0 = gru_mod.gru_scan_bidir_bwd.launches
-    got = gru_mod.gru_scan_bidir_bwd(*bargs)
-    launches = gru_mod.gru_scan_bidir_bwd.launches - n0
-    with full_fp32():
-        want = gru_mod.gru_scan_bidir_bwd_plain(*bargs)
-    errs = [(a - r).abs().max().item() for a, r in zip(got, want)]
-    tols = [1e-4 * r.abs().max().item() for r in want]
-    again = gru_mod.gru_scan_bidir_bwd(*bargs)
-    same = all(torch.equal(a, b) for a, b in zip(got, again))
-    ms = cuda_ms(lambda: gru_mod.gru_scan_bidir_bwd(*bargs), 10 if timed
-                 else 3)
-    msg = (f"[3 K7b] gru_scan_bidir_bwd T={Tn} B={Bn} H={H}: dxpf, dxpb, "
-           f"dwhf, dwhb max_abs_err {', '.join(f'{e:.3e}' for e in errs)} "
-           f"(tol {', '.join(f'{t:.3e}' for t in tols)}); two calls equal "
-           f"bit for bit {same}; {launches} launch(es) a call (row chunks "
-           f"{gru_mod._bidir_bwd_chunks(Bn, H, gru_mod._sm_count(dev))}) "
-           f"kernel {ms:.3f} ms")
-    if timed:
+    T = -(-num_frames(FeatureConfig(), int(SR * TRAIN_SECONDS)) // 2)
+    H, D = HIDDEN, 2 * HIDDEN
+    shapes = [(T, Bn, H) for Bn in (TRAIN_B, 64, 128)]
+    shapes += [(9, 683, H), (9, TRAIN_B, 640)]
+    for Tn, Bn, Hn in shapes:
+        ln = torch.randint(Tn // 2, Tn + 1, (Bn,), generator=gen)
+        ln[0], ln[1] = Tn, 1
+        mask = (torch.arange(Tn)[:, None] < ln[None, :]).float()[:, :, None]
+        mask = mask.to(dev).contiguous()
+        xp = [torch.randn(Tn, Bn, 3 * Hn, generator=gen).to(dev)
+              for _ in range(2)]
+        wh = [(torch.randn(Hn, 3 * Hn, generator=gen) / Hn ** 0.5).to(dev)
+              for _ in range(2)]
+        dys = [torch.randn(Tn, Bn, Hn, generator=gen).to(dev)
+               for _ in range(2)]
         with full_fp32():
-            pms = cuda_ms(lambda: gru_mod.gru_scan_bidir_bwd_plain(*bargs), 2)
-        bd = bound(nbytes(*bargs, *got), 6 * macs, "fp32")
-        lib = library_gru_ms(Tn, Bn, D, H, torch.float32, True,
-                             bidirectional=True)
-        msg += (f" plain {pms:.3f} ms bound {bd[0]:.4f} ms ({bd[1]}) "
-                f"torch.nn.GRU bidirectional backward {lib:.3f} ms")
-    phase(msg)
-    if not (all(e <= t for e, t in zip(errs, tols)) and same):
-        fail(f"K7b at B={Bn} disagrees with its plain version")
-    record("K7b", "gru_scan_bidir_bwd", "tpuasr_torch/csrc/gru_bidir.cu",
-           "tpuasr/ops/pallas_gru.py:437", max(errs),
-           *((ms, pms, bd, lib) if timed else ()))
+            ys = gru_mod.gru_scan_bidir_plain(*xp, *wh, mask)
+            ysp = [gru_mod.prev_states(y, False) for y in ys]
+            bargs = (xp[0], xp[1], *ysp, wh[0], wh[1], mask, *dys)
+            n0 = gru_mod.gru_scan_bidir_bwd.launches
+            got = gru_mod.gru_scan_bidir_bwd(*bargs)
+            launches = gru_mod.gru_scan_bidir_bwd.launches - n0
+            want = gru_mod.gru_scan_bidir_bwd_plain(*bargs)
+        errs = [(a - r).abs().max().item() for a, r in zip(got, want)]
+        tols = [1e-4 * r.abs().max().item() for r in want]
+        again = gru_mod.gru_scan_bidir_bwd(*bargs)
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        msg = (f"[3 K7b] gru_scan_bidir_bwd T={Tn} B={Bn} H={Hn}: dxpf, "
+               f"dxpb, dwhf, dwhb max_abs_err "
+               f"{', '.join(f'{e:.3e}' for e in errs)} (tol "
+               f"{', '.join(f'{t:.3e}' for t in tols)}); two calls equal "
+               f"bit for bit {same}; {launches} count(s) a call")
+        timing = ()
+        if Tn == T:
+            ms = cuda_ms(lambda: gru_mod.gru_scan_bidir_bwd(*bargs), 10)
+            bd = bound(nbytes(*bargs, *got), 6 * 2 * Tn * Bn * Hn * 3 * Hn,
+                       "fp32")
+            lib = library_gru_ms(Tn, Bn, D, Hn, torch.float32, True,
+                                 bidirectional=True)
+            msg += (f"; kernel {ms:.3f} ms bound {bd[0]:.4f} ms ({bd[1]}) "
+                    f"torch.nn.GRU bidirectional backward {lib:.3f} ms; "
+                    f"faster: {ms < lib}; "
+                    f"{bwd_phases(gru_mod, 'K7b', bargs)}")
+            if Bn == TRAIN_B:
+                with full_fp32():
+                    pms = cuda_ms(lambda: gru_mod.gru_scan_bidir_bwd_plain(
+                        *bargs), 2)
+                msg += f"; plain {pms:.3f} ms"
+                timing = (ms, pms, bd, lib)
+        phase(msg)
+        if not (all(e <= t for e, t in zip(errs, tols)) and same):
+            fail(f"K7b at B={Bn} H={Hn} disagrees with its plain version")
+        record("K7b", "gru_scan_bidir_bwd", "tpuasr_torch/csrc/gru_lean.cu",
+               "tpuasr/ops/pallas_gru.py:437", max(errs), *timing)
+        del xp, ys, ysp, dys, bargs, got, again, want
+        torch.cuda.empty_cache()
 
 
 def capsnet_kernels(record, gen) -> None:
@@ -1802,8 +1943,9 @@ def main() -> int:
     # K2b at the deepspeech_var train step's shapes.
     xfb_kernels(record, gen)
 
-    # K9, K7 and K7b at config 5's and config 3's shapes.
+    # K9 and K7 at config 5's and config 3's shapes; K7b at config 3's.
     conv_bidir_kernels(record, gen)
+    bidir_bwd_kernels(record, gen)
 
     # K8 and K8b at config 4's shapes.
     capsnet_kernels(record, gen)

@@ -276,7 +276,8 @@ def _scan_case(dev, H, B=7, T=37):
     xp = torch.randn(T, B, 3 * H, generator=g)
     wh = torch.randn(H, 3 * H, generator=g) / H ** 0.5
     dys = torch.randn(T, B, H, generator=g)
-    lens = torch.tensor([T, 30, 1, 0, 12, T, 5])[:B]
+    lens = torch.randint(0, T + 1, (B,), generator=g)
+    lens[:7] = torch.tensor([T, 30, 1, 0, 12, T, 5])[:B].clamp(max=T)
     mask = (torch.arange(T)[:, None] < lens[None, :]).float()[:, :, None]
     return [t.to(dev).contiguous() for t in (xp, wh, mask, dys)]
 
@@ -298,6 +299,26 @@ def test_k5_k5b(dev, reverse, H):
         tol = 1e-4 * w.abs().max().item()
         torch.testing.assert_close(a, w, rtol=0, atol=tol)
     assert not got[0][:, 3].any()             # a row of length 0
+
+
+@pytest.mark.parametrize("B,H,reverse", [(683, 512, False), (16, 640, True),
+                                         (16, 1024, False), (1, 40, False),
+                                         (1, 130, True)])
+def test_k5b_any_batch_and_width(dev, B, H, reverse):
+    """K5b at the shapes it once refused (683 rows at H=512, H=640; H=1024
+    stages dhp a gate at a time) and at one row: dxp and dwh within 1e-4
+    of their largest magnitude, and two calls give the same bits (dWh
+    summed in a fixed order)."""
+    xp, wh, mask, dys = _scan_case(dev, H, B, T=9)
+    with full_fp32():
+        ysp = prev_states(gru_scan_plain(xp, wh, mask, reverse), reverse)
+        got = gru_scan_bwd(xp, ysp, wh, mask, dys, reverse)
+        want = gru_scan_bwd_plain(xp, ysp, wh, mask, dys, reverse)
+    again = gru_scan_bwd(xp, ysp, wh, mask, dys, reverse)
+    for a, b, w in zip(got, again, want):
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a, w, rtol=0,
+                                   atol=1e-4 * w.abs().max().item())
 
 
 def test_k2_backward_route(dev):
@@ -332,12 +353,12 @@ def _xfb_case(dev, D, H, B, T=37, seed=21):
 
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("D,H,B", [(70, 40, 7), (130, 20, 5), (512, 384, 16),
-                                   (768, 384, 20)])
+                                   (768, 384, 20), (70, 40, 1), (96, 130, 1)])
 def test_k2b(dev, D, H, B, reverse):
     """K2b against its plain version: dx, dwx, db and dwh each within 1e-4
     of its largest magnitude (K5b's gate: float32 sums in other orders,
-    the weight gradients over all T*B rows); two launches equal bit for
-    bit; the row of length 0 gets no dx."""
+    the weight gradients over all T*B rows); two calls equal bit for bit;
+    the row of length 0 gets no dx."""
     x, wx, b, wh, mask, dys = _xfb_case(dev, D, H, B)
     with full_fp32():
         ys = gru_scan_xfused_plain(x, wx, b, wh, mask, reverse)
@@ -356,15 +377,23 @@ def test_k2b(dev, D, H, B, reverse):
         assert not got[0][:, 2].any()
 
 
-def test_k2b_refuses_a_shape_it_cannot_hold(dev):
-    """Past its registers for dWx (D > 1024 at H=384) K2b raises before a
-    launch, and says why."""
-    x, wx, b, wh, mask, dys = _xfb_case(dev, 1100, 384, 2, T=3)
-    ysp = torch.zeros_like(dys)
-    before = gru_scan_xfused_bwd.launches
-    with pytest.raises(RuntimeError, match="cannot hold"):
-        gru_scan_xfused_bwd(x, ysp, wx, b, wh, mask, dys)
-    assert gru_scan_xfused_bwd.launches == before
+@pytest.mark.parametrize("D,H,B", [(1100, 384, 2), (320, 512, 146),
+                                   (768, 384, 609)])
+def test_k2b_holds_the_shapes_it_once_refused(dev, D, H, B):
+    """K2b at the shapes the fused kernel refused (D > 1024 at H=384; 146
+    rows at H=512; 609 rows at D=768): each output within 1e-4 of its
+    largest magnitude of the plain version's, two calls bit for bit."""
+    x, wx, b, wh, mask, dys = _xfb_case(dev, D, H, B, T=7)
+    with full_fp32():
+        ysp = prev_states(gru_scan_xfused_plain(x, wx, b, wh, mask), False)
+        args = (x, ysp, wx, b, wh, mask, dys)
+        got = gru_scan_xfused_bwd(*args)
+        want = gru_scan_xfused_bwd_plain(*args)
+    again = gru_scan_xfused_bwd(*args)
+    for a, c, w in zip(got, again, want):
+        assert torch.equal(a, c)
+        torch.testing.assert_close(a, w, rtol=0,
+                                   atol=1e-4 * w.abs().max().item())
 
 
 @pytest.mark.parametrize("D,H,fused", [(70, 40, True), (768, 384, True),
@@ -792,44 +821,73 @@ def test_k7(dev, H, B, dtype, tol):
     assert not got[1][:, 3].float().any()
 
 
-@pytest.mark.parametrize("H,B", [(40, 7), (130, 20), (512, 16), (512, 75),
-                                 (512, 128)])
-def test_k7b(dev, H, B):
+@pytest.mark.parametrize("H,B,T", [(40, 7, 37), (130, 20, 37), (512, 16, 37),
+                                   (512, 75, 37), (512, 128, 37),
+                                   (512, 683, 9), (640, 16, 9), (40, 1, 9),
+                                   (130, 1, 9)])
+def test_k7b(dev, H, B, T):
     """K7b against its plain version, each output within 1e-4 of its
     largest magnitude (float32 sums in another order, dWh over all T*B
-    rows); two calls give the same bits (no atomics; the chunks' dWh added
-    in order). Past 74 rows at H=512 the rows run in chunks, a launch
-    each."""
-    ins, mask, dys = _bidir_case(dev, H, B)
+    rows); two calls give the same bits (no atomics: dWh summed in a fixed
+    order). 683 rows at H=512 and H=640 are the shapes the old kernel
+    refused."""
+    ins, mask, dys = _bidir_case(dev, H, B, T)
     with full_fp32():
         ys = gru_scan_bidir_plain(*ins, mask)
     ysp = [prev_states(y, False) for y in ys]
     args = (ins[0], ins[1], *ysp, ins[2], ins[3], mask, *dys)
-    chunks = gru_mod._bidir_bwd_chunks(B, H, gru_mod._sm_count(dev))
-    assert len(chunks) == (1 if B <= 74 else 2)
     before = gru_scan_bidir_bwd.launches
     got = gru_scan_bidir_bwd(*args)
     again = gru_scan_bidir_bwd(*args)
-    assert gru_scan_bidir_bwd.launches == before + 2 * len(chunks)
+    assert gru_scan_bidir_bwd.launches == before + 2
     with full_fp32():
         want = gru_scan_bidir_bwd_plain(*args)
     for a, b, w in zip(got, again, want):
         assert torch.equal(a, b)
         torch.testing.assert_close(a, w, rtol=0,
                                    atol=1e-4 * w.abs().max().item())
-    assert not got[0][:, 3].any()
+    if B > 3:
+        assert not got[0][:, 3].any()
 
 
-def test_k7b_chunk_plan_matches_kernel_smem(dev):
-    """The row chunks' shared-memory reckoning (ops/gru.py::_bidir_bwd_smem)
-    is the kernel's own (tpuasr_gru_bidir_bwd_smem) on this card."""
-    fn = _build.lib().tpuasr_gru_bidir_bwd_smem
-    fn.argtypes = [ctypes.c_int] * 2
-    fn.restype = ctypes.c_longlong
+def test_lean_and_k5b_plans_match_kernel_smem(dev):
+    """The plans' shared-memory reckoning (ops/gru.py::_lean_plan and
+    _k5b_plan) is the kernels' own on this card (tpuasr_gru_lean_smem,
+    tpuasr_gru_bwd_smem)."""
+    lean = _build.lib().tpuasr_gru_lean_smem
+    lean.argtypes = [ctypes.c_int] * 3
+    lean.restype = ctypes.c_longlong
+    k5b = _build.lib().tpuasr_gru_bwd_smem
+    k5b.argtypes = [ctypes.c_int]
+    k5b.restype = ctypes.c_longlong
     n_sm = gru_mod._sm_count(dev)
-    for B, H in ((16, 512), (74, 512), (7, 40), (20, 130)):
-        U = gru_mod._units_per_block(H, n_sm)
-        assert fn(B, H) == gru_mod._bidir_bwd_smem(B, H, U)
+    for B, H in ((16, 512), (683, 512), (7, 40), (20, 130), (16, 640),
+                 (609, 384), (16, 1024), (16, 694), (16, 695)):
+        for ndir in (1, 2):
+            plan = gru_mod._lean_plan(B, H, ndir, n_sm)
+            assert lean(H, plan.U, plan.kc) == plan.smem
+        assert k5b(H) == gru_mod._k5b_plan(H, n_sm)[2]
+
+
+@pytest.mark.parametrize("M,N1,N2,ones", [(3984, 512, 1536, False),
+                                          (37, 70, 120, True),
+                                          (1, 3, 5, True),
+                                          (2049, 130, 390, False)])
+def test_weight_gradient_product(dev, M, N1, N2, ones):
+    """Phase c's product a^T b (with ones, a last row of column sums of b)
+    within 1e-5 of its largest magnitude of torch's in full float32, the
+    same bits on two calls (slices summed in a fixed order)."""
+    g = torch.Generator().manual_seed(8)
+    a = torch.randn(M, N1, generator=g).to(dev)
+    b = torch.randn(M, N2, generator=g).to(dev)
+    got = gru_mod._tn_product(a, b, ones)
+    assert torch.equal(got, gru_mod._tn_product(a, b, ones))
+    with full_fp32():
+        want = a.T @ b
+        if ones:
+            want = torch.cat([want, b.sum(0, keepdim=True)])
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
 
 
 def test_bidir_autograd_runs_k7_then_k7b(dev):

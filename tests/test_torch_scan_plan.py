@@ -13,9 +13,9 @@ import pytest
 import torch
 
 from tpuasr_torch.ops.gru import (_MODE_K2, _MODE_Q8, _MODE_Q8_REC,
-                                  _SMEM_BUDGET, _bidir_bwd_chunks,
-                                  _bidir_bwd_smem, _scan_plan,
-                                  _units_per_block)
+                                  _SMEM_BUDGET, _k5b_plan, _lean_plan,
+                                  _lean_rows, _lean_smem, _scan_plan,
+                                  _tn_slices, _units_per_block)
 
 N_SM = 132                  # SMs of an H100 SXM
 SMEM_MAX = 227 * 1024       # shared memory a block may take on an H100
@@ -133,32 +133,88 @@ def test_two_direction_plan_raises(B, H, mode, dtype, n_sm):
         _scan_plan(B, H, H, mode, dtype, n_sm=n_sm, ndir=2)
 
 
-# K7b keeps per-row state in shared memory: past the rows a launch holds,
-# gru_scan_bidir_bwd runs the rows in chunks, one launch each.
-@pytest.mark.parametrize("B", [16, 64, 74, 75, 128, 256])
-def test_k7b_chunks_cover_every_row_once(B):
-    H = 512
-    chunks = _bidir_bwd_chunks(B, H, N_SM)
-    assert chunks[0][0] == 0 and chunks[-1][1] == B
-    assert all(a1 == b0 for (_, a1), (b0, _) in zip(chunks, chunks[1:]))
-    U = _units_per_block(H, N_SM)
-    sizes = [b1 - b0 for b0, b1 in chunks]
-    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
-    assert all(_bidir_bwd_smem(n, H, U) <= _SMEM_BUDGET for n in sizes)
-    assert len(chunks) == -(-B // 74)
+# The float32 GRU backward (ops/gru.py, csrc/gru_lean.cu, csrc/gru_bptt.cu):
+# the lean recurrence of K2b (one direction) and K7b (two), and K5b, must
+# plan at every batch and at every width up to the forward's, 1056 on 132
+# SMs: the shapes the old fused kernels refused (B=683 and H >= 529 for all
+# three, B=146 at H=512 and B=609 at D=768 for K2b) among them.
+BATCHES = (1, 7, 16, 64, 75, 128, 146, 683)
+WIDTHS = (384, 512, 529, 640, 1024)
 
 
-def test_k7b_chunk_limit_at_the_served_width():
-    """74 rows fit a launch at H=512 on 132 SMs (4 units a block), 75 do
-    not; config 3's batches (16, 64) run in one launch."""
-    U = _units_per_block(512, N_SM)
-    assert U == 4
-    assert _bidir_bwd_smem(74, 512, U) <= _SMEM_BUDGET
-    assert _bidir_bwd_smem(75, 512, U) > _SMEM_BUDGET
-    assert _bidir_bwd_chunks(16, 512) == [(0, 16)]
-    assert _bidir_bwd_chunks(64, 512) == [(0, 64)]
+@pytest.mark.parametrize("ndir", [1, 2])
+@pytest.mark.parametrize("H", WIDTHS)
+@pytest.mark.parametrize("B", BATCHES)
+def test_lean_plan_covers_every_row_once_within_budget(B, H, ndir):
+    plan = _lean_plan(B, H, ndir, N_SM)
+    assert plan.U in (1, 2, 4, 8, 16)
+    assert plan.smem == _lean_smem(H, plan.U, plan.kc)
+    assert plan.smem <= _SMEM_BUDGET <= SMEM_MAX
+    assert plan.kc % 128 == 0
+    assert plan.grid == plan.ndir * plan.rg * -(-H // plan.U) <= N_SM
+    assert plan.ndir in (1, ndir)
+    # Every row in exactly one row group, none empty; a group holds at
+    # least 16 rows unless the batch is smaller.
+    rows = _lean_rows(B, plan.rg)
+    assert rows[0][0] == 0 and rows[-1][1] == B
+    assert all(a1 == b0 for (_, a1), (b0, _) in zip(rows, rows[1:]))
+    assert all(b1 > b0 for b0, b1 in rows)
+    assert min(b1 - b0 for b0, b1 in rows) >= min(B, 16) - plan.rg
+    # The 3H contraction in whole chunks: Wh's rows then the staged chunk.
+    nch = -(-3 * H // plan.kc)
+    assert nch * plan.kc >= 3 * H > (nch - 1) * plan.kc
 
 
-def test_k7b_chunks_raise_where_no_row_fits():
+@pytest.mark.parametrize("H", WIDTHS + (40, 130, 694, 695, 1056))
+def test_k5b_plan_takes_any_batch_up_to_the_forward_width(H):
+    """K5b's shared memory is K5's with the staged rows G gates wide,
+    whatever the batch: every width the forward plans (``_scan_plan`` in
+    f32) fits, all three gates at once up to H=694."""
+    U, G, smem = _k5b_plan(H, N_SM)
+    fwd = _scan_plan(16, H, H, _MODE_K2, torch.float32, n_sm=N_SM).smem
+    assert U == _units_per_block(H, N_SM) and U <= 16
+    assert G == (3 if H <= 694 else 1)
+    assert smem == fwd + 4 * 16 * (G - 1) * H <= _SMEM_BUDGET
+
+
+def test_backward_plans_at_the_trained_shapes():
+    """K7b at config 3's H=512 runs both directions in one grid: 128
+    blocks of 8 units at B=16, and at B=64 and 128 two row groups of 16
+    units; K2b at the deepspeech_var width (H=384) 96 blocks of 4 units at
+    B=16 and 4 row groups of 16 units at B=64."""
+    plan = _lean_plan(16, 512, 2, N_SM)
+    assert (plan.U, plan.rg, plan.ndir, plan.grid) == (8, 1, 2, 128)
+    for B in (64, 128, 683):
+        plan = _lean_plan(B, 512, 2, N_SM)
+        assert (plan.U, plan.rg, plan.ndir, plan.grid) == (16, 2, 2, 128)
+    plan = _lean_plan(16, 384, 1, N_SM)
+    assert (plan.U, plan.grid) == (4, 96)
+    plan = _lean_plan(64, 384, 1, N_SM)
+    assert (plan.U, plan.rg) == (16, 4)
+
+
+def test_two_directions_split_where_one_grid_cannot_hold_them():
+    """Past two chunks of the contraction a direction takes a launch of its
+    own (H=1024: 8 units a block, 128 blocks a launch)."""
+    plan = _lean_plan(16, 1024, 2, N_SM)
+    assert plan.ndir == 1 and plan.grid <= N_SM
+
+
+@pytest.mark.parametrize("H,n_sm", [(1057, N_SM), (4096, N_SM)])
+def test_backward_plans_raise_past_the_width(H, n_sm):
     with pytest.raises(ValueError):
-        _bidir_bwd_chunks(16, 4096, N_SM)
+        _k5b_plan(H, n_sm)
+    with pytest.raises(ValueError):
+        _lean_plan(16, 2 * H, 1, n_sm)
+
+
+@pytest.mark.parametrize("M,N1,N2", [(3984, 512, 1536), (15936, 769, 1152),
+                                     (7, 40, 120), (170067, 512, 1536)])
+def test_weight_gradient_slices(M, N1, N2):
+    """Phase c's row slices: at least one, none under 512 rows unless the
+    rows are fewer, and no more blocks than one wave of two an SM holds
+    unless the tiles alone are more."""
+    S = _tn_slices(M, N1, N2, N_SM)
+    tiles = -(-N1 // 128) * -(-N2 // 128)
+    assert S >= 1 and (S == 1 or M // S >= 512)
+    assert S == 1 or S * tiles <= 2 * N_SM

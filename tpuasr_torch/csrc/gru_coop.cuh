@@ -1,10 +1,10 @@
 // Shared pieces of the cooperative GRU kernels (csrc/gru_bptt.cu: K5,
-// K5b; csrc/gru_bidir.cu: K7, K7b; csrc/gru_xfb.cu: K2b; csrc/gru_scan.cu:
-// K2, K4): the block shape, the grid barrier (and a group's, for K2/K4's
-// row groups), row staging, the per-unit products with Wh resident in
-// shared memory, the occupancy-checked
-// cooperative launch, and K5's forward kernel, which K2's float32
-// recurrence launches too. See gru_bptt.cu for the design.
+// K5b; csrc/gru_bidir.cu: K7's f32 forward; csrc/gru_lean.cu: the lean
+// BPTT recurrence of K2b and K7b; csrc/gru_scan.cu: K2, K4): the block
+// shape, the grid barrier (and a group's, for row groups), row and column
+// staging, the per-unit products with Wh resident in shared memory, the
+// occupancy-checked cooperative launch, and K5's forward kernel, which K2's
+// float32 recurrence launches too. See gru_bptt.cu for the design.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -77,6 +77,32 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
   } else {
     for (int i = threadIdx.x; i < total; i += kThreads) {
       dst[i] = i < have ? __ldcg(s + i) : 0.f;
+    }
+  }
+}
+
+// Columns [c0, c0 + n) of rows b0 .. b0+kR-1 of a (B, ld) row-major array
+// into dst[kR][n], bypassing L1; rows past B become zeros.
+__device__ __forceinline__ void stage_cols(float* dst, const float* src,
+                                           int ld, int c0, int n, int b0,
+                                           int B) {
+  const int rows = min(kR, B - b0);
+  const float* s = src + static_cast<size_t>(b0) * ld + c0;
+  if (((ld | c0 | n) & 3) == 0) {
+    const int n4 = n / 4;
+    for (int i = threadIdx.x; i < kR * n4; i += kThreads) {
+      const int r = i / n4;
+      const int c = i - r * n4;
+      reinterpret_cast<float4*>(dst)[i] =
+          r < rows ? __ldcg(reinterpret_cast<const float4*>(
+                                s + static_cast<size_t>(r) * ld) + c)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kR * n; i += kThreads) {
+      const int r = i / n;
+      const int c = i - r * n;
+      dst[i] = r < rows ? __ldcg(s + static_cast<size_t>(r) * ld + c) : 0.f;
     }
   }
 }

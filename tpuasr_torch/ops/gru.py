@@ -4,21 +4,24 @@ Counterparts of tpuasr/ops/pallas_gru.py:
 
 * ``gru_scan`` (K5 forward, K5b backward; pallas_gru.py:238): the masked
   recurrence over xp = x@Wx+b, differentiable. Its kernels are
-  ``gru_scan_fwd`` and ``gru_scan_bwd`` (``csrc/gru_bptt.cu``);
+  ``gru_scan_fwd`` and ``gru_scan_bwd`` (``csrc/gru_bptt.cu``, dWh from
+  ``csrc/gru_lean.cu``'s product over all rows);
 * ``gru_scan_xfused`` (K2, pallas_gru.py:772): the input projection fused
   with the scan (``csrc/gru_scan.cu``: a tiled projection launch, then the
   recurrence, planned by ``_scan_plan``). Its backward takes JAX's route
   (``_xf_bwd``, pallas_gru.py:829-835): where wx, dwx, wh and dwh fit JAX's
-  11 MiB budget, the fully fused BPTT K2b (``gru_scan_xfused_bwd``,
-  ``csrc/gru_xfb.cu``; pallas_gru.py:736), which never writes xp or dxp;
+  11 MiB budget, K2b (``gru_scan_xfused_bwd``; pallas_gru.py:736) in three
+  phases (xp and hp over all rows, the lean recurrence of
+  ``csrc/gru_lean.cu``, the weight gradients and dx over all rows);
   elsewhere ``_xf_bwd_recompute`` (pallas_gru.py:891-926): xp recomputed by
   a matmul, K5b, then dx, dWx and db by matmuls;
 * ``gru_scan_xfused_q8`` (K4, pallas_gru.py:1045): int8 projection, forward
   only;
 * ``gru_scan_bidir`` (K7 forward, K7b backward; pallas_gru.py:501): both
   directions of a BiGRU over precomputed projections in one launch,
-  differentiable in float32. Its kernels are ``gru_scan_bidir_fwd`` and
-  ``gru_scan_bidir_bwd`` (``csrc/gru_bidir.cu``).
+  differentiable in float32. Its kernels are ``gru_scan_bidir_fwd``
+  (``csrc/gru_bidir.cu``, and ``csrc/gru_scan.cu`` in bf16) and
+  ``gru_scan_bidir_bwd`` (the three phases, both directions in one grid).
 
 Every kernel wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors. Layouts follow the JAX package: x (T, B, D)
@@ -155,7 +158,7 @@ def _scan_plan(B: int, D: int, H: int, mode: int, dtype: torch.dtype,
         while U * n_sm < H:
             U *= 2
         R, rg, hk = _K5_ROWS, 1, H
-        smem = 16 * U * H + 4 * R * H + 4 * (_REC_THREADS // 32) * R * 3
+        smem = _k5_smem(H, U)
         if U > 16 or smem > _SMEM_BUDGET:
             raise ValueError(
                 f"K2's f32 recurrence cannot hold H={H} on {n_sm} SMs: "
@@ -274,35 +277,43 @@ def _ptr_or_null(t):
 
 def _project(plan: ScanPlan, x, wxp, b, sw=None):
     """The first launch: xp (T, B, 3H) f32 = x @ Wx + b (wxp from
-    ``_pack_proj``; sw, the int8 weights' scales). The f32 and bf16 tiles
-    read x's rows in 16-byte pieces: where they are not 16-byte aligned, x
-    is copied first into zero-padded rows of kp values."""
+    ``_pack_proj``; sw, the int8 weights' scales)."""
     T, B, D = x.shape
+    return _proj_rows(plan.proj, x.reshape(T * B, D), wxp, b, plan.kp,
+                      plan.np, sw).reshape(T, B, -1)
+
+
+def _proj_rows(kind, x, wxp, b, kp, np_, sw=None):
+    """out (M, N) f32 = x (M, D) @ W + b on K2's projection tiles
+    (``tpuasr_gru_proj``), W packed as ``_pack_proj`` packs it for the
+    ``kind`` of arithmetic, padded to kp x np_. The f32 and bf16 tiles read
+    x's rows in 16-byte pieces: where they are not 16-byte aligned, x is
+    copied first into zero-padded rows of kp values."""
+    M, D = x.shape
     N = b.shape[0]
-    M = T * B
-    xp = torch.empty((T, B, N), dtype=torch.float32, device=x.device)
+    out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     xq = sx = None
     lda = D
-    if plan.proj == "int8":
-        xq = torch.empty((M, plan.kp), dtype=torch.int8, device=x.device)
+    if kind == "int8":
+        xq = torch.empty((M, kp), dtype=torch.int8, device=x.device)
         sx = torch.empty((M,), dtype=torch.float32, device=x.device)
     elif x.data_ptr() % 16 or D * x.element_size() % 16:
-        xa = x.new_zeros((M, plan.kp))
-        xa[:, :D] = x.reshape(M, D)
-        x, lda = xa, plan.kp
+        xa = x.new_zeros((M, kp))
+        xa[:, :D] = x
+        x, lda = xa, kp
     fn = _build.lib().tpuasr_gru_proj
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_int]
                    + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(x.device):
-        code = fn(_KINDS[plan.proj], int(x.dtype == torch.bfloat16),
+        code = fn(_KINDS[kind], int(x.dtype == torch.bfloat16),
                   _build.ptr(x), lda, _build.ptr(wxp), _build.ptr(b),
                   _ptr_or_null(sw), _ptr_or_null(xq), _ptr_or_null(sx),
-                  _build.ptr(xp), M, D, N, plan.kp, plan.np,
+                  _build.ptr(out), M, D, N, kp, np_,
                   _build.stream_ptr(x))
-    _build.check(code, "gru_scan_xfused (projection)")
-    return xp
+    _build.check(code, "gru projection")
+    return out
 
 
 def _recur(plan: ScanPlan, xp, whp, swh, mask2, reverse, out_dtype):
@@ -465,13 +476,277 @@ def gru_scan_xfused_bwd_plain(x, ysp, wx, b, wh, mask, dys, reverse=False):
     return dx, dwx, db, dwh
 
 
+# ---- The float32 BPTT in three phases (csrc/gru_lean.cu) -----------------
+#
+# Only dhp @ Wh^T depends on the step before. K2b and K7b run (a) hp =
+# ysp @ Wh, and K2b's xp = x @ Wx + b, over all T*B rows on K2's f32
+# projection tiles; (b) the lean recurrence, a cooperative grid that does
+# the gate math from the saved xp and hp and dhp @ Wh^T, one barrier a step
+# per row group; (c) dWh = ysp^T dhp, and K2b's dWx = x^T dxp, db and
+# dx = dxp @ Wx^T, over all T*B rows. K5b keeps hp in its step and takes
+# its dWh from (c).
+
+_LEAN_ROWS = 16             # kR: rows a pass stages
+_LEAN_TM = 8                # kTM in csrc/gru_lean.cu: rows of a lane's tile
+_TN_MIN_ROWS = 512          # the fewest rows a slice of (c) sums
+
+
+@dataclasses.dataclass(frozen=True)
+class LeanPlan:
+    """How the lean recurrence (csrc/gru_lean.cu) runs: ``ndir``
+    directions in one cooperative grid of ``grid`` blocks, each direction's
+    rows in ``rg`` row groups times ceil(H / U) groups of ``U`` units, the
+    3H contraction staged in chunks of ``kc`` columns, ``smem`` bytes of
+    shared memory a block. Where two directions cannot share a grid,
+    ``_lean_plan`` gives ndir=1 and each direction is a launch."""
+    U: int
+    rg: int
+    kc: int
+    smem: int
+    grid: int
+    ndir: int
+
+
+def _lean_smem(H: int, U: int, kc: int) -> int:
+    """Shared memory of a lean block (lean_smem_bytes in
+    csrc/gru_lean.cu): Wh's rows of its U units over the chunks, one staged
+    chunk of 16 rows, the warps' sums."""
+    nch = -(-3 * H // kc)
+    return 4 * (U * nch * kc + _LEAN_ROWS * kc
+                + (_REC_THREADS // 32) * _LEAN_TM * min(U, 4))
+
+
+def _lean_rows(B: int, rg: int):
+    """The row ranges [b0, b1) of the rg row groups, as the kernel cuts
+    them: ceil(B / rg) rows a group."""
+    rpg = -(-B // rg)
+    return [(min(B, g * rpg), min(B, (g + 1) * rpg)) for g in range(rg)]
+
+
+def _lean_plan(B: int, H: int, ndir: int = 1, n_sm: int = 132) -> LeanPlan:
+    """The plan of the lean recurrence at batch B and width H for ndir
+    directions (1: K2b; 2: K7b) on a card of n_sm SMs. For each U in 1, 2,
+    4, 8, 16 whose ndir * ceil(H / U) unit groups fit the SMs, the rows
+    split into as many row groups as the SMs left allow (no fewer than 16
+    rows a group), and the contraction into the fewest chunks that fit the
+    shared-memory budget. The plan that leaves a block the fewest rows
+    wins, the smaller U on a tie (more blocks share the step's products).
+    Two directions share a grid only where the contraction takes at most
+    two chunks; otherwise each direction is a launch of its own. Raises
+    ValueError where no plan fits."""
+    H3 = 3 * H
+    options = []
+    for U in (1, 2, 4, 8, 16):
+        ug = -(-H // U)
+        if ndir * ug > n_sm:
+            continue
+        rg = max(1, min(n_sm // (ndir * ug), -(-B // 16)))
+        for nch in range(1, -(-H3 // 128) + 1):
+            kc = _round_up(-(-H3 // nch), 128)
+            smem = _lean_smem(H, U, kc)
+            if smem <= _SMEM_BUDGET:
+                break
+        else:
+            continue
+        if ndir == 2 and nch > 2:
+            continue
+        options.append((-(-B // rg), U, rg, kc, smem))
+    if not options:
+        if ndir == 2:
+            return _lean_plan(B, H, 1, n_sm)
+        raise ValueError(
+            f"the lean GRU backward cannot hold H={H} on {n_sm} SMs: no U "
+            f"of 1-16 units a block fits {_SMEM_BUDGET} bytes of shared "
+            f"memory with ceil(H / U) blocks resident")
+    _, U, rg, kc, smem = min(options)
+    return LeanPlan(U, rg, kc, smem, ndir * rg * -(-H // U), ndir)
+
+
+def _lean(plan: LeanPlan, dirs, mask2, reverse):
+    """Phase b: one (dxp, dhp) (T, B, 3H) f32 for each direction's
+    (xp, hp, ysp, dys, wh), all f32 and contiguous, under mask2 (T, B); the
+    directions share one launch where ``plan.ndir`` is 2, else a launch
+    each."""
+    T, B, H3 = dirs[0][0].shape
+    H = H3 // 3
+    dev = dirs[0][0].device
+    fn = _build.lib().tpuasr_gru_lean
+    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 8
+                   + [ctypes.c_longlong, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    groups = [dirs] if plan.ndir == len(dirs) else [[d] for d in dirs]
+    outs = []
+    for group in groups:
+        dxp = [torch.empty_like(d[0]) for d in group]
+        dhp = [torch.empty_like(d[0]) for d in group]
+        dh = torch.zeros((len(group), B, H), dtype=torch.float32, device=dev)
+        ptrs = [[*map(_build.ptr, (*d, dxp[i], dhp[i], dh[i]))]
+                for i, d in enumerate(group)]
+        bar = _barrier(dev, plan.ndir * plan.rg)
+        # With one direction, its pointers stand for the second, unread.
+        with torch.cuda.device(dev):
+            code = fn(*ptrs[0], *ptrs[-1], _build.ptr(mask2),
+                      _build.ptr(bar), T, B, H, int(bool(reverse)), plan.U,
+                      plan.rg, plan.kc, len(group), plan.smem,
+                      _build.stream_ptr(mask2))
+        _build.check(code, "gru lean recurrence")
+        outs += list(zip(dxp, dhp))
+    return outs
+
+
+def _mm_f32(a, w, bias=None):
+    """a (M, K) @ w (K, N) (+ bias (N,)) in f32 on K2's f32 projection
+    tiles (FMA units, each sum in k order, never TF32); w may be a strided
+    view: it is packed into zero-padded (round_up(K, 8), round_up(N, 128))."""
+    K, N = w.shape
+    kp, np_ = _round_up(K, 8), _round_up(N, _PROJ_TILE)
+    wp = w.new_zeros((kp, np_))
+    wp[:K, :N] = w
+    if bias is None:
+        bias = w.new_zeros((N,))
+    return _proj_rows("f32", a, wp, bias, kp, np_)
+
+
+def _tn_slices(M: int, N1: int, N2: int, n_sm: int) -> int:
+    """Slices of the M rows for ``_tn_product``: as many as keep the
+    output's 128 x 128 tiles times the slices within one wave of two blocks
+    an SM (a second, partial wave would run alone), no slice under 512
+    rows."""
+    tiles = -(-N1 // _PROJ_TILE) * -(-N2 // _PROJ_TILE)
+    return max(1, min(2 * n_sm // tiles, M // _TN_MIN_ROWS))
+
+
+def _tn_product(a, b, ones=False):
+    """a^T b (N1, N2) f32 over the M rows of a (M, N1) and b (M, N2), rows
+    contiguous; with ``ones``, one more row: the column sums of b. Phase c
+    (csrc/gru_lean.cu, tpuasr_gemm_tn): each of S slices of the rows summed
+    in row order, then the slices in slice order, so every call gives the
+    same bits."""
+    M, n1a = a.shape
+    N2 = b.shape[1]
+    n1 = n1a + int(ones)
+    S = _tn_slices(M, n1, N2, _sm_count(a.device))
+    c = torch.empty((n1, N2), dtype=torch.float32, device=a.device)
+    parts = (torch.empty((S, n1, N2), dtype=torch.float32, device=a.device)
+             if S > 1 else None)
+    fn = _build.lib().tpuasr_gemm_tn
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(a.device):
+        code = fn(_build.ptr(a), a.stride(0), n1a, int(ones), _build.ptr(b),
+                  b.stride(0), N2, _build.ptr(c), _ptr_or_null(parts), M, S,
+                  _build.stream_ptr(a))
+    _build.check(code, "gru weight-gradient product")
+    return c
+
+
+def _hp(ysp, wh):
+    """Phase a's hp = ysp @ Wh (T, B, 3H) over all T*B rows."""
+    T, B, H = ysp.shape
+    return _mm_f32(ysp.reshape(T * B, H), wh).reshape(T, B, 3 * H)
+
+
+def _dwh(ysp, dhp):
+    """Phase c's dWh = ysp^T dhp (H, 3H) over all T*B rows."""
+    T, B, H = ysp.shape
+    return _tn_product(ysp.reshape(T * B, H), dhp.reshape(T * B, 3 * H))
+
+
+def gru_bwd_lean_plain(xp, hp, ysp, wh, mask, dys, reverse=False):
+    """Plain version of the lean recurrence (phase b): from the saved
+    xp = x@Wx+b and hp = ysp@Wh (T, B, 3H), ysp and dys (T, B, H), step by
+    step in BPTT order, the gates, dhp and dxp masked on padded steps, and
+    dh = m (dh_tot z) + (1 - m) dh_tot + m dhp @ Wh^T -> (dxp, dhp)
+    (T, B, 3H) f32."""
+    T, B, H3 = xp.shape
+    H = H3 // 3
+    m = mask.to(torch.float32).reshape(T, B, 1)
+    wh32 = wh.to(torch.float32)
+    dh = xp.new_zeros((B, H), dtype=torch.float32)
+    dxp = xp.new_empty((T, B, H3), dtype=torch.float32)
+    dhp = xp.new_empty((T, B, H3), dtype=torch.float32)
+    with full_fp32():
+        for t in (range(T) if reverse else range(T - 1, -1, -1)):
+            x, a = xp[t].to(torch.float32), hp[t].to(torch.float32)
+            h_prev = ysp[t].to(torch.float32)
+            r = torch.sigmoid(x[:, :H] + a[:, :H])
+            z = torch.sigmoid(x[:, H:2 * H] + a[:, H:2 * H])
+            n = torch.tanh(x[:, 2 * H:] + r * a[:, 2 * H:])
+            d = dys[t].to(torch.float32) + dh
+            dz = d * (h_prev - n)
+            dn = d * (1.0 - z) * (1.0 - n * n)
+            dxr = dn * a[:, 2 * H:] * r * (1.0 - r)
+            dxz = dz * z * (1.0 - z)
+            dhp[t] = torch.cat([dxr, dxz, dn * r], dim=1) * m[t]
+            dxp[t] = torch.cat([dxr, dxz, dn], dim=1) * m[t]
+            dh = (m[t] * (d * z) + (1.0 - m[t]) * d
+                  + m[t] * (dhp[t] @ wh32.T))
+    return dxp, dhp
+
+
+def gru_scan_bwd_phases_plain(xp, ysp, wh, mask, dys, reverse=False):
+    """K5b's function in the three phases, plainly: hp = ysp@Wh over all
+    rows, ``gru_bwd_lean_plain``, then dWh = ysp^T dhp over all rows.
+    -> dxp (T, B, 3H), dwh (H, 3H), f32."""
+    T, B, H3 = xp.shape
+    ysp2 = ysp.reshape(T * B, -1).to(torch.float32)
+    with full_fp32():
+        hp = (ysp2 @ wh.to(torch.float32)).reshape(T, B, H3)
+    dxp, dhp = gru_bwd_lean_plain(xp, hp, ysp, wh, mask, dys, reverse)
+    with full_fp32():
+        dwh = ysp2.T @ dhp.reshape(T * B, H3)
+    return dxp, dwh
+
+
+def gru_scan_xfused_bwd_phases_plain(x, ysp, wx, b, wh, mask, dys,
+                                     reverse=False):
+    """K2b's function in the three phases, plainly: xp = x@Wx+b and
+    hp = ysp@Wh over all rows, ``gru_bwd_lean_plain``, then dWh = ysp^T
+    dhp, dWx = x^T dxp, db = sum dxp and dx = dxp@Wx^T over all rows.
+    -> (dx (T, B, D), dwx (D, 3H), db (3H,), dwh (H, 3H)), f32."""
+    T, B, D = x.shape
+    H3 = wx.shape[1]
+    x2 = x.reshape(T * B, D).to(torch.float32)
+    ysp2 = ysp.reshape(T * B, -1).to(torch.float32)
+    wx32 = wx.to(torch.float32)
+    with full_fp32():
+        xp = (x2 @ wx32 + b.to(torch.float32)).reshape(T, B, H3)
+        hp = (ysp2 @ wh.to(torch.float32)).reshape(T, B, H3)
+    dxp, dhp = gru_bwd_lean_plain(xp, hp, ysp, wh, mask, dys, reverse)
+    dxp2 = dxp.reshape(T * B, H3)
+    with full_fp32():
+        return ((dxp2 @ wx32.T).reshape(T, B, D), x2.T @ dxp2, dxp2.sum(0),
+                ysp2.T @ dhp.reshape(T * B, H3))
+
+
+def _xfb_pre(x, ysp, wx, b, wh):
+    """K2b's phase a: xp = x@Wx+b and hp = ysp@Wh (T, B, 3H) over all rows."""
+    T, B, D = x.shape
+    H = wh.shape[0]
+    xp = _mm_f32(x.reshape(T * B, D), wx, b).reshape(T, B, 3 * H)
+    return xp, _hp(ysp, wh)
+
+
+def _xfb_post(x, ysp, wx, dxp, dhp):
+    """K2b's phase c: (dx, dwx, db, dwh) from dxp and dhp (T, B, 3H)."""
+    T, B, D = x.shape
+    H3 = wx.shape[1]
+    dxp2 = dxp.reshape(T * B, H3)
+    dwx_db = _tn_product(x.reshape(T * B, D), dxp2, ones=True)
+    dx = _mm_f32(dxp2, wx.T).reshape(T, B, D)
+    return dx, dwx_db[:D], dwx_db[D], _dwh(ysp, dhp)
+
+
 def gru_scan_xfused_bwd(x, ysp, wx, b, wh, mask, dys, reverse=False):
     """K2b: (dx (T, B, D), dwx (D, 3H), db (3H,), dwh (H, 3H)) f32 from
     x (T, B, D), ysp = prev_states(ys) (T, B, H), wx (D, 3H), b (3H,),
-    wh (H, 3H), mask (T, B, 1) and dys (T, B, H), all f32; the weight
-    gradients are summed inside the kernel. A block keeps its units' Wh and
-    Wx columns in shared memory, which bounds the shape: one that does not
-    fit raises RuntimeError before a launch."""
+    wh (H, 3H), mask (T, B, 1) and dys (T, B, H), all f32. On the card, in
+    three phases: xp = x@Wx+b and hp = ysp@Wh over all T*B rows, the lean
+    recurrence (``_lean_plan``: a shape it cannot hold raises ValueError
+    before any launch), then dWh, dWx, db and dx over all rows; every
+    product on hand-written FMA tiles, in a fixed order."""
     if x.device.type == "cpu":
         return gru_scan_xfused_bwd_plain(x, ysp, wx, b, wh, mask, dys,
                                          reverse)
@@ -491,37 +766,11 @@ def gru_scan_xfused_bwd(x, ysp, wx, b, wh, mask, dys, reverse=False):
     if x.numel() == 0 or H == 0:
         return (torch.zeros_like(x), torch.zeros_like(wx),
                 torch.zeros_like(b), torch.zeros_like(wh))
-    lib = _build.lib()
-    fits = lib.tpuasr_gru_xfb_fits
-    fits.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
-    fits.restype = ctypes.c_int
-    smem, budget = ctypes.c_longlong(0), ctypes.c_longlong(0)
-    dmax = ctypes.c_int(0)
-    with torch.cuda.device(x.device):
-        ok = fits(B, D, H, ctypes.byref(smem), ctypes.byref(budget),
-                  ctypes.byref(dmax))
-    if not ok:
-        raise RuntimeError(
-            f"gru_scan_xfused_bwd (K2b) cannot hold B={B}, D={D}, H={H}: a "
-            f"block needs {smem.value} bytes of shared memory (at most "
-            f"{budget.value}) and takes D <= {dmax.value} at this H")
-    dx = torch.empty_like(x)
-    dwx = torch.empty_like(wx)
-    db = torch.empty_like(b)
-    dwh = torch.empty_like(wh)
-    xbuf = torch.empty((2, B, 4 * H), dtype=torch.float32, device=x.device)
-    fn = lib.tpuasr_gru_xfb
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    bar = _barrier(x.device)
-    with torch.cuda.device(x.device):
-        code = fn(*map(_build.ptr, (x, ysp, wx, b, wh, mask2, dys, dx, dwx,
-                                    db, dwh, xbuf, bar)),
-                  T, B, D, H, int(bool(reverse)), _build.stream_ptr(x))
+    plan = _lean_plan(B, H, 1, _sm_count(x.device))
+    xp, hp = _xfb_pre(x, ysp, wx, b, wh)
+    (dxp, dhp), = _lean(plan, [(xp, hp, ysp, dys, wh)], mask2, reverse)
     gru_scan_xfused_bwd.launches += 1
-    _build.check(code, "gru_scan_xfused_bwd")
-    return dx, dwx, db, dwh
+    return _xfb_post(x, ysp, wx, dxp, dhp)
 
 
 gru_scan_xfused_bwd.launches = 0
@@ -665,9 +914,39 @@ def gru_scan_fwd(xp, wh, mask, reverse=False):
 gru_scan_fwd.launches = 0
 
 
+def _k5_smem(H: int, U: int) -> int:
+    """K5's (and K5b's) shared memory a block (fwd_smem_bytes in
+    csrc/gru_coop.cuh): Wh's [r, z, n, 0] columns of its U units, one
+    staged pass of 16 rows, the warps' sums."""
+    return (16 * U * H + 4 * _K5_ROWS * H
+            + 4 * (_REC_THREADS // 32) * _K5_ROWS * 3)
+
+
+def _k5b_plan(H: int, n_sm: int = 132):
+    """(U, G, smem) of K5b's recurrence (csrc/gru_bptt.cu): K5's units per
+    block, the gates of dhp it stages at once (3 where they fit the
+    budget, else 1) and its shared memory, K5's with the staged rows G * H
+    wide, whatever the batch (its carried dh is in device memory). Raises
+    ValueError where it cannot hold H: H <= 1056 on 132 SMs, the forward's
+    limit."""
+    U = _units_per_block(H, n_sm)
+    smem = _k5_smem(H, U)
+    G = 3 if smem + 4 * _K5_ROWS * 2 * H <= _SMEM_BUDGET else 1
+    smem += 4 * _K5_ROWS * (G - 1) * H
+    if U > 16 or smem > _SMEM_BUDGET:
+        raise ValueError(
+            f"gru_scan_bwd (K5b) cannot hold H={H} on {n_sm} SMs: {U} units "
+            f"a block (at most 16), {smem} bytes of shared memory (at most "
+            f"{_SMEM_BUDGET})")
+    return U, G, smem
+
+
 def gru_scan_bwd(xp, ysp, wh, mask, dys, reverse=False):
     """K5b: (dxp (T, B, 3H), dwh (H, 3H)) f32 from xp, ysp = prev_states(ys),
-    wh, mask (T, B, 1) and dys (T, B, H); dWh is summed inside the kernel."""
+    wh, mask (T, B, 1) and dys (T, B, H). On the card the recurrence
+    (hp and dhp@Wh^T in each step, any batch; a width ``_k5b_plan`` cannot
+    hold raises ValueError before any launch) writes dxp and dhp, then
+    dWh = ysp^T dhp over all T*B rows, in a fixed order."""
     if xp.device.type == "cpu":
         return gru_scan_bwd_plain(xp, ysp, wh, mask, dys, reverse)
     if xp.device.type != "cuda":
@@ -679,9 +958,9 @@ def gru_scan_bwd(xp, ysp, wh, mask, dys, reverse=False):
     dxp = torch.empty_like(xp)
     if xp.numel() == 0:
         return dxp, torch.zeros_like(wh)
-    dwh = torch.empty_like(wh)
-    scratch = torch.empty((2, B, 3 * H), dtype=torch.float32,
-                          device=xp.device)
+    _k5b_plan(H, _sm_count(xp.device))
+    dhp = torch.empty_like(xp)
+    dh = torch.zeros((B, H), dtype=torch.float32, device=xp.device)
     fn = _build.lib().tpuasr_gru_bwd
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
@@ -690,11 +969,11 @@ def gru_scan_bwd(xp, ysp, wh, mask, dys, reverse=False):
     with torch.cuda.device(xp.device):
         code = fn(_build.ptr(xp), _build.ptr(ysp), _build.ptr(wh),
                   _build.ptr(mask2), _build.ptr(dys), _build.ptr(dxp),
-                  _build.ptr(dwh), _build.ptr(scratch), _build.ptr(bar), T,
-                  B, H, int(bool(reverse)), _build.stream_ptr(xp))
+                  _build.ptr(dhp), _build.ptr(dh), _build.ptr(bar), T, B, H,
+                  int(bool(reverse)), _build.stream_ptr(xp))
     gru_scan_bwd.launches += 1
     _build.check(code, "gru_scan_bwd")
-    return dxp, dwh
+    return dxp, _dwh(ysp, dhp)
 
 
 gru_scan_bwd.launches = 0
@@ -869,40 +1148,25 @@ def _units_per_block(H: int, n_sm: int) -> int:
     return U
 
 
-def _bidir_bwd_smem(B: int, H: int, U: int) -> int:
-    """K7b's shared memory a block (bwd_smem in csrc/gru_bidir.cu): both
-    directions' Wh columns and dWh sums, their dhp and Wh rows, per-row
-    state of the block's units, one staged pass and its sums."""
-    return (2 * (2 * 16 * U * H + 16 * _K5_ROWS * U + 4 * U * 3 * H
-                 + 3 * 4 * B * U)
-            + 4 * _K5_ROWS * H + 4 * (_REC_THREADS // 32) * _K5_ROWS * 3)
-
-
-def _bidir_bwd_chunks(B: int, H: int, n_sm: int = 132):
-    """The row ranges [b0, b1) that K7b runs one launch each, in order:
-    as few as the shared-memory budget allows (a block keeps per-row state
-    of its units, so the rows a launch holds are bounded: 74 at H=512 on
-    132 SMs), of sizes that differ by one at most. Raises ValueError where
-    not one row fits."""
-    U = _units_per_block(H, n_sm)
-    fixed = _bidir_bwd_smem(0, H, U)
-    per_row = _bidir_bwd_smem(1, H, U) - fixed
-    rows = (_SMEM_BUDGET - fixed) // per_row
-    if U > 16 or rows < 1:
-        raise ValueError(f"gru_scan_bidir_bwd (K7b) cannot hold H={H} on "
-                         f"{n_sm} SMs")
-    n = -(-B // rows)
-    return [(B * i // n, B * (i + 1) // n) for i in range(n)]
+def gru_scan_bidir_bwd_phases_plain(xpf, xpb, yspf, yspb, whf, whb, mask,
+                                    dysf, dysb):
+    """K7b's function in the three phases, plainly:
+    ``gru_scan_bwd_phases_plain`` per direction, both forward in time.
+    -> (dxpf, dxpb, dwhf, dwhb), f32."""
+    dxpf, dwhf = gru_scan_bwd_phases_plain(xpf, yspf, whf, mask, dysf)
+    dxpb, dwhb = gru_scan_bwd_phases_plain(xpb, yspb, whb, mask, dysb)
+    return dxpf, dxpb, dwhf, dwhb
 
 
 def gru_scan_bidir_bwd(xpf, xpb, yspf, yspb, whf, whb, mask, dysf, dysb):
     """K7b: (dxpf, dxpb (T, B, 3H), dwhf, dwhb (H, 3H)) f32 from xpf, xpb,
     yspf = prev_states(ysf), yspb, whf, whb, mask (T, B, 1) and dysf, dysb
-    (T, B, H); both dWh are summed inside the kernel. Each block keeps
-    per-row state of its units in shared memory, so the rows run in chunks
-    (``_bidir_bwd_chunks``: one launch each, one chunk up to 74 rows at
-    H=512); rows never meet, so dxp is each chunk's, and the chunks' dWh
-    are added in chunk order (the same bits on every call)."""
+    (T, B, H). On the card, in three phases: hp = ysp@Wh for both
+    directions over all T*B rows, the lean recurrence with both directions
+    in one grid (``_lean_plan(B, H, 2)``: a launch a direction where they
+    cannot share one; a shape it cannot hold raises ValueError before any
+    launch), then dWh = ysp^T dhp per direction over all rows, in a fixed
+    order. One count a call."""
     if xpf.device.type == "cpu":
         return gru_scan_bidir_bwd_plain(xpf, xpb, yspf, yspb, whf, whb,
                                         mask, dysf, dysb)
@@ -918,43 +1182,12 @@ def gru_scan_bidir_bwd(xpf, xpb, yspf, yspb, whf, whb, mask, dysf, dysb):
     if xpf.numel() == 0:
         return (torch.empty_like(xpf), torch.empty_like(xpb),
                 torch.zeros_like(whf), torch.zeros_like(whb))
-    chunks = _bidir_bwd_chunks(B, H, _sm_count(xpf.device))
-    rows = (xpf, xpb, yspf, yspb, mask2, dysf, dysb)
-    if len(chunks) == 1:
-        return _bidir_bwd_launch(*rows, whf, whb)
-    dxpf, dxpb = torch.empty_like(xpf), torch.empty_like(xpb)
-    dwhf = dwhb = None
-    for b0, b1 in chunks:
-        part = [t[:, b0:b1].contiguous() for t in rows]
-        cf, cb, wf, wb = _bidir_bwd_launch(*part, whf, whb)
-        dxpf[:, b0:b1] = cf
-        dxpb[:, b0:b1] = cb
-        dwhf = wf if dwhf is None else dwhf.add_(wf)
-        dwhb = wb if dwhb is None else dwhb.add_(wb)
-    return dxpf, dxpb, dwhf, dwhb
-
-
-def _bidir_bwd_launch(xpf, xpb, yspf, yspb, mask2, dysf, dysb, whf, whb):
-    """One K7b launch over all the rows it is given (checked tensors)."""
-    T, B, H3 = xpf.shape
-    H = H3 // 3
-    dxpf, dxpb = torch.empty_like(xpf), torch.empty_like(xpb)
-    dwhf, dwhb = torch.empty_like(whf), torch.empty_like(whb)
-    scratch = torch.empty((2, 2, 3, B, H), dtype=torch.float32,
-                          device=xpf.device)
-    fn = _build.lib().tpuasr_gru_bidir_bwd
-    fn.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    bar = _barrier(xpf.device)
-    with torch.cuda.device(xpf.device):
-        code = fn(*map(_build.ptr, (xpf, xpb, yspf, yspb, whf, whb, mask2,
-                                    dysf, dysb, dxpf, dxpb, dwhf, dwhb,
-                                    scratch, bar)),
-                  T, B, H, _build.stream_ptr(xpf))
+    plan = _lean_plan(B, H, 2, _sm_count(xpf.device))
+    dirs = [(xpf, _hp(yspf, whf), yspf, dysf, whf),
+            (xpb, _hp(yspb, whb), yspb, dysb, whb)]
+    (dxpf, dhpf), (dxpb, dhpb) = _lean(plan, dirs, mask2, False)
     gru_scan_bidir_bwd.launches += 1
-    _build.check(code, "gru_scan_bidir_bwd")
-    return dxpf, dxpb, dwhf, dwhb
+    return dxpf, dxpb, _dwh(yspf, dhpf), _dwh(yspb, dhpb)
 
 
 gru_scan_bidir_bwd.launches = 0
