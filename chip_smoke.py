@@ -18,18 +18,22 @@ Phases, each fatal on failure:
      timed apart), K2 in float32 at the deepspeech_var train step's
      forward shapes (H=384, D=512 and 768, B=16 and 64), K9 (the int8
      conv2) at its shapes in that model beside the bf16 and fp32
-     F.conv2d, K7 (both GRU directions in one launch) at the served and
-     trained shapes, and the training kernels K5, K5b, K7b, K6, K6b at the
-     shapes of the BASELINE config-3 train step (B=16 x 5 s, T'=249,
-     U=24; K5b also timed at B=64, K7b at B=64 and 128, the batches the
-     train phases run, each beside cuDNN), K2b (the fused-projection
-     scan's backward) at the deepspeech_var step's shapes (H=384, D=512
-     and 768; timed at B=16 and 64 beside cuDNN and the recompute route),
-     K2b's and K7b's three phases (pre-scan products, lean recurrence,
-     post-scan products) timed apart, K5b, K7b and K2b once each at the
-     shapes their old kernels refused (B=683 at H=512, H=640, B=146 at
-     D=320 and H=512, B=609 at D=768), K9's taps and slab bodies beside
-     its im2col body, and K8 and
+     F.conv2d, K7 (both GRU directions in one launch) at the served
+     shape in bf16 and K7-f32 (its float32 recurrence) at every batch the
+     fused_bidir train step runs (B=16, 64, 128 at T'=249) and at the
+     served shape, with its plan, beside cuDNN, and at H=640 and H=1056
+     (widths its old kernel refused), and the training kernels K5, K5b,
+     K7b, K6, K6b at the shapes of the BASELINE config-3 train step (B=16
+     x 5 s, T'=249, U=24; K5b also at B=64, K7b at B=64 and 128, the
+     batches the train phases run, each beside cuDNN), the f32 recurrence
+     of K7-f32 at one direction beside K5's forward (a printed line), K2b
+     (the fused-projection scan's backward) at the deepspeech_var step's
+     shapes (H=384, D=512 and 768; timed at B=16 and 64 beside cuDNN and
+     the recompute route), K2b's, K5b's and K7b's three phases (pre-scan
+     products, lean recurrence, post-scan products) timed apart, K5b, K7b
+     and K2b once each at the shapes their old kernels refused (B=683 at
+     H=512, H=640, B=146 at D=320 and H=512, B=609 at D=768), K9's taps
+     and slab bodies beside its im2col body, and K8 and
      K8b (CapsNet routing, forward and backward) at the shapes of BASELINE
      config 4 (B=8 and B=32 x 5 s, T'=249, I=256, Din=8, O=48, D=16, 3
      iterations);
@@ -53,8 +57,8 @@ Phases, each fatal on failure:
      DeepSpeechCTC in float32, adamw, B=16 x 5 s, U=24): launch counts per
      step, step 1 against the plain path, the loss after 10 steps on the
      repeated batch, and train-step ms at B=16 and B=64; then the same
-     step with fused_bidir=True (K7 and K7b in place of K5 and K5b), also
-     at B=128;
+     step with fused_bidir=True (K7 in f32 and K7b in place of K5 and
+     K5b), also at B=128;
   8. the CapsNet training step through Trainer.train_step (config 4:
      capsule1 with 48 classes, CTC, adamw 3e-4, B=8 x 5 s, U=16): launch
      counts per step, step 1 against the plain path, the loss after 10
@@ -572,10 +576,15 @@ def train_kernels(record, gen) -> None:
                     gru_mod.gru_scan_bwd(xp, ysp, wh, mask, dys, rev)))
                 ok = (err <= 1e-4 and e_dxp <= t_dxp and e_dwh <= t_dwh
                       and same)
+                parts = ""
+                if D == 1024 and not rev:      # K5b's three phases apart
+                    parts = "; " + bwd_phases(gru_mod, "K5b", (
+                        xp, ysp, wh, mask, dys, rev))
                 phase(f"[3 K5/K5b] gru T={T} B={Bt} D={D} H={H} reverse="
                       f"{rev}: ys max_abs_err {err:.3e} (tol 1e-4); dxp "
                       f"{e_dxp:.3e} (tol {t_dxp:.3e}), dwh {e_dwh:.3e} (tol "
-                      f"{t_dwh:.3e}); two calls equal bit for bit {same}")
+                      f"{t_dwh:.3e}); two calls equal bit for bit {same}"
+                      f"{parts}")
                 if not ok:
                     fail(f"K5/K5b disagree at D={D} reverse={rev}")
                 t5 = t5b = ()
@@ -602,7 +611,7 @@ def train_kernels(record, gen) -> None:
                     t5, t5b = (ms, pms, bd, lib), (bms, pbms, bbd, blib)
                 record("K5", "gru_scan_fwd", "tpuasr_torch/csrc/gru_bptt.cu",
                        "tpuasr/ops/pallas_gru.py:163", err, *t5)
-                record("K5b", "gru_scan_bwd", "tpuasr_torch/csrc/gru_bptt.cu",
+                record("K5b", "gru_scan_bwd", "tpuasr_torch/csrc/gru_lean.cu",
                        "tpuasr/ops/pallas_gru.py:190", max(e_dxp, e_dwh),
                        *t5b)
         # K5b at B=64 beside cuDNN, on the same layer's weights.
@@ -613,15 +622,29 @@ def train_kernels(record, gen) -> None:
         ysp64 = gru_mod.prev_states(gru_mod.gru_scan_fwd(xp64, wh, m64),
                                     False)
         dys64 = torch.randn(T, B64, H, generator=gen).to(dev)
-        ms64 = cuda_ms(lambda: gru_mod.gru_scan_bwd(xp64, ysp64, wh, m64,
-                                                    dys64), 10)
+        a64 = (xp64, ysp64, wh, m64, dys64, False)
+        got64 = gru_mod.gru_scan_bwd(*a64)
+        want64 = gru_mod.gru_scan_bwd_plain(*a64)
+        errs64 = [(a - w).abs().max().item() for a, w in zip(got64, want64)]
+        tols64 = [1e-4 * w.abs().max().item() for w in want64]
+        same64 = all(torch.equal(a, c) for a, c in zip(
+            got64, gru_mod.gru_scan_bwd(*a64)))
+        ms64 = cuda_ms(lambda: gru_mod.gru_scan_bwd(*a64), 10)
         lib64 = library_gru_ms(T, B64, D, H, torch.float32, True)
         bd64 = bound(nbytes(xp64, ysp64, wh, m64, dys64, xp64, wh),
                      6 * T * B64 * H * 3 * H, "fp32")
-        phase(f"[3 K5b] B={B64} D={D}: kernel {ms64:.3f} ms bound "
-              f"{bd64[0]:.4f} ms ({bd64[1]}) torch.nn.GRU backward "
-              f"{lib64:.3f} ms")
-        del x64, xp64, ysp64, dys64
+        phase(f"[3 K5b] B={B64} D={D}: dxp, dwh max_abs_err "
+              f"{errs64[0]:.3e}, {errs64[1]:.3e} (tol {tols64[0]:.3e}, "
+              f"{tols64[1]:.3e}); two calls equal bit for bit {same64}; "
+              f"kernel {ms64:.3f} ms bound {bd64[0]:.4f} ms ({bd64[1]}) "
+              f"torch.nn.GRU backward {lib64:.3f} ms; faster: "
+              f"{ms64 < lib64}; {bwd_phases(gru_mod, 'K5b', a64)}")
+        if not (all(e <= t for e, t in zip(errs64, tols64)) and same64):
+            fail("K5b disagrees with its plain version at B=64")
+        record("K5b", "gru_scan_bwd", "tpuasr_torch/csrc/gru_lean.cu",
+               "tpuasr/ops/pallas_gru.py:190", max(errs64))
+        del x64, xp64, ysp64, dys64, a64, got64, want64
+    one_direction_lines(gru_mod, gen, T)
     # K5b at the shapes the old kernel refused (683 rows at H=512; H=640),
     # at a short T: within 1e-4 of each output's largest magnitude.
     for Bq, Hq in ((683, 512), (16, 640)):
@@ -639,12 +662,14 @@ def train_kernels(record, gen) -> None:
             want = gru_mod.gru_scan_bwd_plain(xq, ysq, whq, mq, dq)
         errs = [(a - w).abs().max().item() for a, w in zip(got, want)]
         tols = [1e-4 * w.abs().max().item() for w in want]
+        same = all(torch.equal(a, c) for a, c in zip(
+            got, gru_mod.gru_scan_bwd(xq, ysq, whq, mq, dq)))
         phase(f"[3 K5b] repaired shape T={Tq} B={Bq} H={Hq}: dxp, dwh "
               f"max_abs_err {errs[0]:.3e}, {errs[1]:.3e} (tol {tols[0]:.3e}, "
-              f"{tols[1]:.3e})")
-        if not all(e <= t for e, t in zip(errs, tols)):
+              f"{tols[1]:.3e}); two calls equal bit for bit {same}")
+        if not (all(e <= t for e, t in zip(errs, tols)) and same):
             fail(f"K5b disagrees with its plain version at B={Bq} H={Hq}")
-        record("K5b", "gru_scan_bwd", "tpuasr_torch/csrc/gru_bptt.cu",
+        record("K5b", "gru_scan_bwd", "tpuasr_torch/csrc/gru_lean.cu",
                "tpuasr/ops/pallas_gru.py:190", max(errs))
 
     # K6 / K6b: ragged lengths with a row of 0 frames, an empty label, a
@@ -934,13 +959,60 @@ def xfb_kernels(record, gen) -> None:
     torch.cuda.empty_cache()
 
 
+def one_direction_lines(gru_mod, gen, T) -> None:
+    """The f32 recurrence of csrc/gru_bidir.cu (K7's f32 forward) at one
+    direction beside K5's forward, which K5 and K2-f32's recurrence run, at
+    their shapes: H=512 (config 3, K5) and H=384 (deepspeech_var, K2-f32),
+    B=16 and 64, T'=249. A printed line only: no path runs it at one
+    direction."""
+    from tpuasr_torch.precision import full_fp32
+
+    dev = torch.device("cuda")
+    n_sm = gru_mod._sm_count(dev)
+    for H in (HIDDEN, 384):
+        for Bn in (TRAIN_B, 64):
+            xp = torch.randn(T, Bn, 3 * H, generator=gen).to(dev)
+            wh = (torch.randn(H, 3 * H, generator=gen) / H ** 0.5).to(dev)
+            mask = torch.ones(T, Bn, 1, device=dev)
+            plan = gru_mod._bidir_f32_plan(Bn, H, n_sm, ndir=1)
+
+            def rows():
+                return gru_mod._bidir_f32(plan, (xp,), (wh,),
+                                          mask.reshape(T, Bn))[0]
+
+            with full_fp32():
+                err = (rows() - gru_mod.gru_scan_plain(xp, wh, mask)).abs(
+                    ).max().item()
+            ms = cuda_ms(rows, 10)
+            k5 = cuda_ms(lambda: gru_mod.gru_scan_fwd(xp, wh, mask), 10)
+            phase(f"[3 K7-f32 one direction] T={T} B={Bn} H={H}: "
+                  f"max_abs_err {err:.3e} (tol 1e-4) {ms:.3f} ms "
+                  f"({ms / T * 1e3:.2f} us a step; U={plan.U}, {plan.rg} row "
+                  f"group(s), grid {plan.grid}) against K5's forward "
+                  f"{k5:.3f} ms ({k5 / T * 1e3:.2f} us a step)")
+            if not err <= 1e-4:
+                fail(f"the one-direction f32 recurrence disagrees at B={Bn} "
+                     f"H={H}")
+            del xp, wh
+
+
 def bwd_phases(gru_mod, key, args) -> str:
     """The three phases of one K2b call (key "K2b", the arguments of
-    gru_scan_xfused_bwd) or K7b call ("K7b", those of gru_scan_bidir_bwd)
-    timed apart with CUDA events (mean of 10): the pre-scan products (xp
-    and hp), the lean recurrence, the post-scan products (the weight
-    gradients, and K2b's dx); and the recurrence's plan."""
-    if key == "K2b":
+    gru_scan_xfused_bwd), K5b call ("K5b", those of gru_scan_bwd) or K7b
+    call ("K7b", those of gru_scan_bidir_bwd) timed apart with CUDA events
+    (mean of 10): the pre-scan products (hp, and K2b's xp), the lean
+    recurrence, the post-scan products (the weight gradients, and K2b's
+    dx); and the recurrence's plan."""
+    if key == "K5b":
+        xp, ysp, wh, mask, dys, rev = args
+        T, B, _ = xp.shape
+        ndir = 1
+
+        def pre():
+            return gru_mod._hp(ysp, wh)
+
+        dirs = [(xp, pre(), ysp, dys, wh)]
+    elif key == "K2b":
         x, ysp, wx, b, wh, mask, dys, rev = args
         T, B, _ = x.shape
         ndir = 1
@@ -967,6 +1039,9 @@ def bwd_phases(gru_mod, key, args) -> str:
     if key == "K2b":
         def post():
             return gru_mod._xfb_post(x, ysp, wx, *outs[0])
+    elif key == "K5b":
+        def post():
+            return gru_mod._dwh(ysp, outs[0][1])
     else:
         def post():
             return [gru_mod._dwh(d[2], o[1]) for d, o in zip(dirs, outs)]
@@ -993,9 +1068,10 @@ def fused_bidir_state(state):
 
 def conv_bidir_kernels(record, gen) -> None:
     """Phase 3 for K9 at config 5's conv2 (B=128 x 10 s: T'=499 rows of F=32
-    x C=32 -> 16 x 32, Kt=11 taps), K7 at the serving shapes (B=128,
-    T'=499, H=512, bf16 and f32) and the training shapes (config 3:
-    B=16, T'=249, f32)."""
+    x C=32 -> 16 x 32, Kt=11 taps), K7 at the serving shape (B=128,
+    T'=499, H=512, bf16), K7-f32 at it and at the fused_bidir train step's
+    (config 3's layer: B=16, 64 and 128, T'=249), and K7-f32 at H=640 and
+    H=1056."""
     import torch.nn.functional as F
 
     from tpuasr_torch.features import FeatureConfig
@@ -1093,11 +1169,15 @@ def conv_bidir_kernels(record, gen) -> None:
     del xf, x4, x4b, got, ref
 
     # K7: xp = x@Wx + b of a 1024-wide layer, xpb from the per-row
-    # reversed x, as the fused BiGRU forms them.
+    # reversed x, as the fused BiGRU forms them. bf16 (K7) at the served
+    # shape; f32 (K7-f32) at every batch the fused_bidir train step runs
+    # (B=16, 64, 128 at T'=249) and at the served shape.
     H, D = HIDDEN, 2 * HIDDEN
     T_tr = -(-num_frames(FeatureConfig(), int(SR * TRAIN_SECONDS)) // 2)
+    n_sm = gru_mod._sm_count(dev)
     shapes = (("serving", T, B, (torch.bfloat16, torch.float32)),
-              ("training", T_tr, TRAIN_B, (torch.float32,)))
+              *(("training", T_tr, Bn, (torch.float32,))
+                for Bn in (TRAIN_B, 64, 128)))
     for label, Tn, Bn, dtypes in shapes:
         ln = torch.randint(Tn // 2, Tn + 1, (Bn,), generator=gen)
         ln[0], ln[1] = Tn, 1
@@ -1113,50 +1193,104 @@ def conv_bidir_kernels(record, gen) -> None:
               for _ in range(2)]
         macs = 2 * Tn * Bn * H * 3 * H            # both directions' h @ Wh
         for dt in dtypes:
+            bf16 = dt == torch.bfloat16
             with full_fp32():
                 xp = [(a.reshape(Tn * Bn, D).to(dt) @ wx[i].to(dt)
                        + bx[i].to(dt)).reshape(Tn, Bn, 3 * H)
                       for i, a in enumerate((xs, xr))]
             args = (*xp, wh[0].to(dt), wh[1].to(dt), mask)
-            # f32: within 1e-4 (K5's bound); bf16: K2's 2e-2.
-            tol = 2e-2 if dt == torch.bfloat16 else 1e-4
+            # f32: within 1e-4 (K5's bound at the trained length: sums of
+            # 512 terms in another order, carried over the steps); bf16:
+            # K2's 2e-2.
+            tol = 2e-2 if bf16 else 1e-4
             got = gru_mod.gru_scan_bidir_fwd(*args)
+            again = gru_mod.gru_scan_bidir_fwd(*args)
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
             with full_fp32():
                 ref, pms = timed_once(
                     lambda: gru_mod.gru_scan_bidir_plain(*args))
             err = max((g.float() - r.float()).abs().max().item()
                       for g, r in zip(got, ref))
             ms = cuda_ms(lambda: gru_mod.gru_scan_bidir_fwd(*args), 5)
-            kind = "bf16" if dt == torch.bfloat16 else "fp32"
+            kind = "bf16" if bf16 else "fp32"
             bd = bound(nbytes(*args, *got), 2 * macs, kind)
-            lib = library_gru_ms(Tn, Bn, D, H, dt, False, bidirectional=True)
-            served = label == "serving" and dt == torch.bfloat16
-            how = ""
-            if served:
+            if bf16:
+                lib = library_gru_ms(Tn, Bn, D, H, dt, False,
+                                     bidirectional=True)
+                lib_s = f"{lib:.3f} ms"
                 # bf16: K2's recurrence over both directions in one grid.
                 plan = gru_mod._scan_plan(Bn, H, H, gru_mod._MODE_K2, dt,
-                                          gru_mod._sm_count(dev), ndir=2)
-                again = gru_mod.gru_scan_bidir_fwd(*args)
-                same = all(torch.equal(a, b) for a, b in zip(got, again))
-                how = (f" ({ms / Tn * 1e3:.2f} us a step; plan {plan.ndir} "
-                       f"directions x {plan.rg} row groups x "
-                       f"{-(-H // plan.U)} groups of U={plan.U}, R={plan.R},"
-                       f" grid={plan.grid}; two launches equal bit for bit "
-                       f"{same}; faster than the library call: {ms < lib})")
-                if not same:
-                    fail("K7 bf16: two launches differ")
-            phase(f"[3 K7] gru_scan_bidir {label} {kind} T={Tn} B={Bn} "
-                  f"H={H}: max_abs_err {err:.3e} (tol {tol}) kernel "
-                  f"{ms:.3f} ms plain {pms:.3f} ms bound {bd[0]:.4f} ms "
-                  f"({bd[1]}) torch.nn.GRU bidirectional {kind} forward "
-                  f"(input projection included) {lib:.3f} ms{how}")
-            if not err <= tol:
-                fail(f"K7 {label} {kind} disagrees with its plain version")
-            record("K7", "gru_scan_bidir_fwd (bf16 serving; f32 checked)",
-                   "tpuasr_torch/csrc/gru_scan.cu",
+                                          n_sm, ndir=2)
+                how = (f"plan {plan.ndir} directions x {plan.rg} row groups "
+                       f"x {-(-H // plan.U)} groups of U={plan.U}, "
+                       f"R={plan.R}, grid={plan.grid}")
+            else:
+                # cuDNN in full f32 (TF32 off), as the kernel; and with
+                # PyTorch's default, which lets cuDNN's RNNs use TF32.
+                with full_fp32():
+                    lib = library_gru_ms(Tn, Bn, D, H, dt, False,
+                                         bidirectional=True)
+                lib_tf32 = library_gru_ms(Tn, Bn, D, H, dt, False,
+                                          bidirectional=True)
+                lib_s = (f"{lib:.3f} ms (TF32 off; {lib_tf32:.3f} ms with "
+                         f"PyTorch's default, TF32 allowed)")
+                plan = gru_mod._bidir_f32_plan(Bn, H, n_sm)
+                how = (f"plan {plan.ndir} direction(s) a grid x {plan.rg} "
+                       f"row group(s) x {-(-H // plan.U)} groups of "
+                       f"U={plan.U}, chunks of {plan.kc}, grid={plan.grid}, "
+                       f"{plan.smem} bytes of shared memory a block")
+            key = "K7" if bf16 else "K7-f32"
+            phase(f"[3 {key}] gru_scan_bidir {label} {kind} T={Tn} B={Bn} "
+                  f"H={H}: max_abs_err {err:.3e} (tol {tol}); two launches "
+                  f"equal bit for bit {same}; kernel {ms:.3f} ms "
+                  f"({ms / Tn * 1e3:.2f} us a step; {how}) plain {pms:.3f} "
+                  f"ms bound {bd[0]:.4f} ms ({bd[1]}) torch.nn.GRU "
+                  f"bidirectional {kind} forward (input projection "
+                  f"included) {lib_s}; faster than the library call: "
+                  f"{ms < lib}")
+            if not (err <= tol and same):
+                fail(f"{key} {label} T={Tn} B={Bn} disagrees with its plain "
+                     f"version or two launches differ")
+            # The kernels line: bf16 at the served shape, f32 at the
+            # counted train step's (B=16).
+            timed = label == "serving" if bf16 else Bn == TRAIN_B
+            record(key, "gru_scan_bidir_fwd (bf16 serving)" if bf16 else
+                   "gru_scan_bidir_fwd (f32 training)",
+                   "tpuasr_torch/csrc/gru_scan.cu" if bf16 else
+                   "tpuasr_torch/csrc/gru_bidir.cu",
                    "tpuasr/ops/pallas_gru.py:406", err,
-                   *((ms, pms, bd, lib) if served else ()))
-        del xp, ref, got
+                   *((ms, pms, bd, lib) if timed else ()))
+            del xp, args, got, again, ref
+        torch.cuda.empty_cache()
+    # K7-f32 at the widths the old kernel refused (H >= 571), at a short T:
+    # H=640 (both directions in one grid) and H=1056 (a launch each).
+    for Hq in (640, 1056):
+        Tq, Bq = 9, TRAIN_B
+        ln = torch.randint(0, Tq + 1, (Bq,), generator=gen)
+        ln[0] = Tq
+        mq = (torch.arange(Tq)[:, None] < ln[None, :]).float()[:, :, None]
+        args = ([torch.randn(Tq, Bq, 3 * Hq, generator=gen).to(dev)
+                 for _ in range(2)]
+                + [(torch.randn(Hq, 3 * Hq, generator=gen) / Hq ** 0.5).to(
+                    dev) for _ in range(2)] + [mq.to(dev).contiguous()])
+        got = gru_mod.gru_scan_bidir_fwd(*args)
+        same = all(torch.equal(a, b) for a, b in zip(
+            got, gru_mod.gru_scan_bidir_fwd(*args)))
+        with full_fp32():
+            ref = gru_mod.gru_scan_bidir_plain(*args)
+        err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+        plan = gru_mod._bidir_f32_plan(Bq, Hq, n_sm)
+        phase(f"[3 K7-f32] repaired width T={Tq} B={Bq} H={Hq}: max_abs_err "
+              f"{err:.3e} (tol 1e-5); two launches equal bit for bit {same}; "
+              f"plan {plan.ndir} direction(s) a grid x {plan.rg} row "
+              f"group(s) x {-(-Hq // plan.U)} groups of U={plan.U}, chunks "
+              f"of {plan.kc}, grid={plan.grid}, {plan.smem} bytes a block")
+        if not (err <= 1e-5 and same):
+            fail(f"K7-f32 disagrees with its plain version at H={Hq}")
+        record("K7-f32", "gru_scan_bidir_fwd (f32 training)",
+               "tpuasr_torch/csrc/gru_bidir.cu",
+               "tpuasr/ops/pallas_gru.py:406", err)
+        del args, got, ref
     torch.cuda.empty_cache()
 
 
@@ -1603,8 +1737,8 @@ def train_slice(kernels, wrappers, card) -> None:
                *ctc_patches)
     train_phase("7 train", cfg, TRAIN_U, (TRAIN_B, 64), counted, counted,
                 patches, kernels, wrappers, card)
-    # The same step with fused_bidir=True: K7 and K7b once per layer, no
-    # K5/K5b. Its K7 launches add to the serving arm's.
+    # The same step with fused_bidir=True: K7 (in f32: the K7-f32 entry)
+    # and K7b once per layer, no K5/K5b.
     cfg = dataclasses.replace(cfg, model_kwargs=dict(cfg.model_kwargs,
                                                      fused_bidir=True))
     patches = ((gru_mod, "gru_scan_bidir_fwd", gru_mod.gru_scan_bidir_plain),
@@ -1612,7 +1746,7 @@ def train_slice(kernels, wrappers, card) -> None:
                 gru_mod.gru_scan_bidir_bwd_plain), *ctc_patches)
     train_phase("7 train fused_bidir", cfg, TRAIN_U, (TRAIN_B, 64, 128),
                 dict(K7=LAYERS, K7b=LAYERS, K6=1, K6b=1), ("K7", "K7b"),
-                patches, kernels, wrappers, card)
+                patches, kernels, wrappers, card, entries={"K7": "K7-f32"})
 
 
 def var_train_slice(kernels, wrappers, card) -> None:
@@ -2262,8 +2396,8 @@ def main() -> int:
          for i, (name, t) in enumerate(clock[1:])}))
 
     order = ("K1", "K2", "K2-f32", "K4", "K9", "K9-taps", "K9-slab", "K7",
-             "K3", "K3-LM", "K10", "K8", "K8b", "K5", "K5b", "K7b", "K2b",
-             "K6", "K6b")
+             "K7-f32", "K3", "K3-LM", "K10", "K8", "K8b", "K5", "K5b", "K7b",
+             "K2b", "K6", "K6b")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -73,6 +73,28 @@ def test_scan_f32_matches_jax():
     assert torch.equal(got[0][1:, 2], got[0][:1, 2].expand(T - 1, H))
 
 
+def test_scan_f32_wide_matches_jax():
+    """f32 at H=640, the width the old card kernel refused (its Wh columns
+    of both directions did not fit a block's shared memory): T=5, B=3 with
+    ragged lengths, within 1e-5 of JAX's kernel."""
+    rng = np.random.default_rng(7)
+    Tw, Bw, Hw = 5, 3, 640
+    xpf, xpb = (rng.standard_normal((Tw, Bw, 3 * Hw)).astype(np.float32)
+                for _ in range(2))
+    whf, whb = ((rng.standard_normal((Hw, 3 * Hw)) / Hw ** 0.5)
+                .astype(np.float32) for _ in range(2))
+    lens = np.array([Tw, 2, 1])
+    mask = (np.arange(Tw)[:, None] < lens[None, :]).astype(np.float32)
+    case = (xpf, xpb, whf, whb, mask[:, :, None])
+    want = j_scan_bidir(*map(jnp.asarray, case))
+    got = gru_scan_bidir(*map(_t, case))
+    for g, w in zip(got, want):
+        assert g.shape == (Tw, Bw, Hw)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-5)
+    assert torch.equal(got[1][2:, 1], got[1][1:2, 1].expand(Tw - 2, Hw))
+
+
 def test_scan_bf16_matches_jax():
     """bf16 streams (xp, Wh and ys in bf16, h rounded to bf16 for h@Wh,
     f32 gates): atol 8e-3, the K2 tests' bound (one bf16 ulp at |ys| < 1

@@ -796,17 +796,28 @@ def _bidir_case(dev, H, B=7, T=37, dtype=torch.float32):
     return ins, mask.to(dev).contiguous(), [d.to(dev) for d in dys]
 
 
-@pytest.mark.parametrize("H,B", [(40, 7), (130, 20), (512, 16), (512, 128),
-                                 (512, 129)])
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
-                                       (torch.bfloat16, 2e-2)])
-def test_k7(dev, H, B, dtype, tol):
-    """K7 against its plain version: f32 within 1e-5 (K5's bound); bf16
-    streams within 2e-2 (K2's bf16 bound: a one-ulp difference of an f32
-    sum can flip a bf16 rounding of h and ride the recurrence); two
-    launches give the same bits. B=128 is the served batch (bf16: two row
-    groups of 64 rows a direction), B=129 a ragged one."""
-    ins, mask, _ = _bidir_case(dev, H, B, dtype=dtype)
+_K7_DTYPES = [(torch.float32, 1e-5), (torch.bfloat16, 2e-2)]
+_K7_CASES = ([(H, B, 37, dt, tol) for H, B in ((40, 7), (130, 20),
+                                                (512, 16), (512, 128),
+                                                (512, 129))
+              for dt, tol in _K7_DTYPES]
+             + [(512, 128, 249, torch.float32, 1e-4)]
+             + [(H, B, 37, torch.float32, 1e-5)
+                for H, B in ((640, 16), (640, 129), (1056, 7))])
+
+
+@pytest.mark.parametrize("H,B,T,dtype,tol", _K7_CASES)
+def test_k7(dev, H, B, T, dtype, tol):
+    """K7 against its plain version: f32 within 1e-5 (K5's bound; 1e-4 at
+    the trained length T=249, as chip_smoke: sums of 512 terms in another
+    order carried over 249 steps); bf16 streams within 2e-2 (K2's bf16
+    bound: a one-ulp difference of an f32 sum can flip a bf16 rounding of
+    h and ride the recurrence); two launches give the same bits. B=128 is
+    the served batch (bf16: two row groups of 64 rows a direction), B=129
+    a ragged one. f32 at H=640 (both directions in one grid of 16-unit
+    blocks) and H=1056 (a launch a direction) are the widths the old f32
+    kernel refused."""
+    ins, mask, _ = _bidir_case(dev, H, B, T, dtype=dtype)
     before = gru_scan_bidir_fwd.launches
     got = gru_scan_bidir_fwd(*ins, mask)
     again = gru_scan_bidir_fwd(*ins, mask)
@@ -851,22 +862,36 @@ def test_k7b(dev, H, B, T):
 
 
 def test_lean_and_k5b_plans_match_kernel_smem(dev):
-    """The plans' shared-memory reckoning (ops/gru.py::_lean_plan and
-    _k5b_plan) is the kernels' own on this card (tpuasr_gru_lean_smem,
-    tpuasr_gru_bwd_smem)."""
+    """The lean plan's shared-memory reckoning (ops/gru.py::_lean_plan, at
+    two directions for K7b and at one for K2b and K5b) is the kernel's own
+    on this card (tpuasr_gru_lean_smem)."""
     lean = _build.lib().tpuasr_gru_lean_smem
     lean.argtypes = [ctypes.c_int] * 3
     lean.restype = ctypes.c_longlong
-    k5b = _build.lib().tpuasr_gru_bwd_smem
-    k5b.argtypes = [ctypes.c_int]
-    k5b.restype = ctypes.c_longlong
     n_sm = gru_mod._sm_count(dev)
     for B, H in ((16, 512), (683, 512), (7, 40), (20, 130), (16, 640),
-                 (609, 384), (16, 1024), (16, 694), (16, 695)):
+                 (609, 384), (16, 1024), (16, 694), (16, 695), (64, 512),
+                 (16, 1056)):
         for ndir in (1, 2):
             plan = gru_mod._lean_plan(B, H, ndir, n_sm)
             assert lean(H, plan.U, plan.kc) == plan.smem
-        assert k5b(H) == gru_mod._k5b_plan(H, n_sm)[2]
+
+
+def test_k7_f32_plan_matches_kernel_smem(dev):
+    """K7's f32 plan (ops/gru.py::_bidir_f32_plan) reckons the shared
+    memory of csrc/gru_bidir.cu's layout (tpuasr_gru_bidir_fwd_smem), at
+    the trained widths, the repaired ones and ragged ones, at one and two
+    directions."""
+    fwd = _build.lib().tpuasr_gru_bidir_fwd_smem
+    fwd.argtypes = [ctypes.c_int] * 3
+    fwd.restype = ctypes.c_longlong
+    n_sm = gru_mod._sm_count(dev)
+    for B, H in ((16, 512), (64, 512), (128, 512), (683, 512), (7, 40),
+                 (20, 130), (16, 384), (16, 571), (16, 640), (129, 640),
+                 (16, 1024), (64, 1024), (7, 1056)):
+        for ndir in (1, 2):
+            plan = gru_mod._bidir_f32_plan(B, H, n_sm, ndir)
+            assert fwd(H, plan.U, plan.kc) == plan.smem
 
 
 @pytest.mark.parametrize("M,N1,N2,ones", [(3984, 512, 1536, False),
@@ -890,12 +915,14 @@ def test_weight_gradient_product(dev, M, N1, N2, ones):
                                atol=1e-5 * want.abs().max().item())
 
 
-def test_bidir_autograd_runs_k7_then_k7b(dev):
+@pytest.mark.parametrize("H", [64, 640])
+def test_bidir_autograd_runs_k7_then_k7b(dev, H):
     """Under autograd on CUDA, gru_scan_bidir launches K7 in the forward
     and K7b in the backward, and no plain version; the gradients match
     autograd through the plain version within 1e-4 of their largest
-    magnitude. Under no_grad only K7 runs."""
-    ins, mask, dys = _bidir_case(dev, 64, 9)
+    magnitude. Under no_grad only K7 runs. H=640 is a width the old f32
+    forward refused."""
+    ins, mask, dys = _bidir_case(dev, H, 9, 37 if H < 512 else 9)
     k7, k7b = gru_scan_bidir_fwd.launches, gru_scan_bidir_bwd.launches
     leaves = [t.clone().requires_grad_() for t in ins]
     with full_fp32(), \
@@ -918,15 +945,18 @@ def test_bidir_autograd_runs_k7_then_k7b(dev):
     assert gru_scan_bidir_bwd.launches == k7b + 1
 
 
-def test_fused_bidir_training_step_on_cuda(dev):
+@pytest.mark.parametrize("hidden", [48, 640])
+def test_fused_bidir_training_step_on_cuda(dev, hidden):
     """A DeepSpeechCTC(fused_bidir=True) training forward and backward on
     CUDA (K7, K7b once per layer) against the same model with the plain
     scans: log-probs within 1e-4, every gradient within 1e-4 of the
     model's largest gradient magnitude. (Not of each tensor's own: a
     batch-norm scale's gradient is a sum over every frame that cancels
     to far below its terms, so its own largest entry measures the
-    cancellation; the kernels' own bounds are held per output above.)"""
-    kw = dict(num_classes=12, rnn_hidden=48, rnn_layers=2, conv_channels=4,
+    cancellation; the kernels' own bounds are held per output above.)
+    rnn_hidden=640 is a width the old f32 forward refused."""
+    kw = dict(num_classes=12, rnn_hidden=hidden, rnn_layers=2,
+              conv_channels=4,
               dropout=0.0, fused_bidir=True, pallas_gru=True, in_features=40)
     g = torch.Generator().manual_seed(0)
     kern = create_model("deepspeech_ctc", **kw, generator=g)

@@ -13,9 +13,9 @@ import pytest
 import torch
 
 from tpuasr_torch.ops.gru import (_MODE_K2, _MODE_Q8, _MODE_Q8_REC,
-                                  _SMEM_BUDGET, _k5b_plan, _lean_plan,
-                                  _lean_rows, _lean_smem, _scan_plan,
-                                  _tn_slices, _units_per_block)
+                                  _SMEM_BUDGET, _bidir_f32_plan,
+                                  _bidir_f32_smem, _lean_plan, _lean_rows,
+                                  _lean_smem, _scan_plan, _tn_slices)
 
 N_SM = 132                  # SMs of an H100 SXM
 SMEM_MAX = 227 * 1024       # shared memory a block may take on an H100
@@ -133,11 +133,11 @@ def test_two_direction_plan_raises(B, H, mode, dtype, n_sm):
         _scan_plan(B, H, H, mode, dtype, n_sm=n_sm, ndir=2)
 
 
-# The float32 GRU backward (ops/gru.py, csrc/gru_lean.cu, csrc/gru_bptt.cu):
-# the lean recurrence of K2b (one direction) and K7b (two), and K5b, must
-# plan at every batch and at every width up to the forward's, 1056 on 132
-# SMs: the shapes the old fused kernels refused (B=683 and H >= 529 for all
-# three, B=146 at H=512 and B=609 at D=768 for K2b) among them.
+# The float32 GRU backward (ops/gru.py, csrc/gru_lean.cu): the lean
+# recurrence of K2b and K5b (one direction) and K7b (two) must plan at every
+# batch and at every width up to the forward's, 1056 on 132 SMs: the shapes
+# the old fused kernels refused (B=683 and H >= 529 for all three, B=146 at
+# H=512 and B=609 at D=768 for K2b) among them.
 BATCHES = (1, 7, 16, 64, 75, 128, 146, 683)
 WIDTHS = (384, 512, 529, 640, 1024)
 
@@ -153,28 +153,35 @@ def test_lean_plan_covers_every_row_once_within_budget(B, H, ndir):
     assert plan.kc % 128 == 0
     assert plan.grid == plan.ndir * plan.rg * -(-H // plan.U) <= N_SM
     assert plan.ndir in (1, ndir)
-    # Every row in exactly one row group, none empty; a group holds at
-    # least 16 rows unless the batch is smaller.
-    rows = _lean_rows(B, plan.rg)
-    assert rows[0][0] == 0 and rows[-1][1] == B
-    assert all(a1 == b0 for (_, a1), (b0, _) in zip(rows, rows[1:]))
-    assert all(b1 > b0 for b0, b1 in rows)
-    assert min(b1 - b0 for b0, b1 in rows) >= min(B, 16) - plan.rg
+    _check_rows(B, plan.rg)
     # The 3H contraction in whole chunks: Wh's rows then the staged chunk.
     nch = -(-3 * H // plan.kc)
     assert nch * plan.kc >= 3 * H > (nch - 1) * plan.kc
 
 
+def _check_rows(B, rg):
+    """Every row in exactly one row group, none empty; a group holds at
+    least 16 rows unless the batch is smaller."""
+    rows = _lean_rows(B, rg)
+    assert rows[0][0] == 0 and rows[-1][1] == B
+    assert all(a1 == b0 for (_, a1), (b0, _) in zip(rows, rows[1:]))
+    assert all(b1 > b0 for b0, b1 in rows)
+    assert min(b1 - b0 for b0, b1 in rows) >= min(B, 16) - rg
+
+
 @pytest.mark.parametrize("H", WIDTHS + (40, 130, 694, 695, 1056))
 def test_k5b_plan_takes_any_batch_up_to_the_forward_width(H):
-    """K5b's shared memory is K5's with the staged rows G gates wide,
-    whatever the batch: every width the forward plans (``_scan_plan`` in
-    f32) fits, all three gates at once up to H=694."""
-    U, G, smem = _k5b_plan(H, N_SM)
-    fwd = _scan_plan(16, H, H, _MODE_K2, torch.float32, n_sm=N_SM).smem
-    assert U == _units_per_block(H, N_SM) and U <= 16
-    assert G == (3 if H <= 694 else 1)
-    assert smem == fwd + 4 * 16 * (G - 1) * H <= _SMEM_BUDGET
+    """K5b runs the lean recurrence at one direction (``_lean_plan(B, H,
+    1)``): at every width the forward plans (``_scan_plan`` in f32, up to
+    1056) and at any batch, every row lies in one row group and the block
+    fits the budget; nothing in it grows with the batch."""
+    _scan_plan(16, H, H, _MODE_K2, torch.float32, n_sm=N_SM)
+    for B in (1, 16, 64, 683, 100_000):
+        plan = _lean_plan(B, H, 1, N_SM)
+        assert plan.ndir == 1 and plan.U in (1, 2, 4, 8, 16)
+        assert plan.smem == _lean_smem(H, plan.U, plan.kc) <= _SMEM_BUDGET
+        assert plan.grid == plan.rg * -(-H // plan.U) <= N_SM
+        _check_rows(B, plan.rg)
 
 
 def test_backward_plans_at_the_trained_shapes():
@@ -200,12 +207,24 @@ def test_two_directions_split_where_one_grid_cannot_hold_them():
     assert plan.ndir == 1 and plan.grid <= N_SM
 
 
+# The lean plan's widest H at one direction on 132 SMs (K5b, K2b): U=16
+# with chunks of 128 of the 3H contraction.
+LEAN_MAX_H = 1109
+
+
 @pytest.mark.parametrize("H,n_sm", [(1057, N_SM), (4096, N_SM)])
 def test_backward_plans_raise_past_the_width(H, n_sm):
+    """K5b's and K2b's plan (the lean plan at one direction) holds H up to
+    1109 on 132 SMs and raises past it; the forward (K5, K7) stops at
+    1056, so every width they train fits."""
+    _lean_plan(16, LEAN_MAX_H, 1, n_sm)
+    _lean_plan(683, LEAN_MAX_H, 1, n_sm)
     with pytest.raises(ValueError):
-        _k5b_plan(H, n_sm)
+        _lean_plan(16, LEAN_MAX_H + 1, 1, n_sm)
     with pytest.raises(ValueError):
         _lean_plan(16, 2 * H, 1, n_sm)
+    with pytest.raises(ValueError):
+        _bidir_f32_plan(16, H, n_sm)
 
 
 @pytest.mark.parametrize("M,N1,N2", [(3984, 512, 1536), (15936, 769, 1152),
@@ -218,3 +237,73 @@ def test_weight_gradient_slices(M, N1, N2):
     tiles = -(-N1 // 128) * -(-N2 // 128)
     assert S >= 1 and (S == 1 or M // S >= 512)
     assert S == 1 or S * tiles <= 2 * N_SM
+
+
+# K7's f32 forward (csrc/gru_bidir.cu, ``_bidir_f32_plan``): directions x
+# row groups x unit groups, Wh's 3U columns of a block's units resident,
+# the H contraction staged in chunks; both directions in one grid where the
+# contraction takes at most two chunks, else a launch each. It must plan
+# every batch at every width up to 1056 on 132 SMs (the old kernel refused
+# H >= 571).
+F32_BATCHES = (1, 7, 16, 64, 128, 129, 683)
+F32_WIDTHS = (40, 384, 512, 571, 640, 1024, 1056)
+
+
+def _two_directions_fit(H):
+    """Whether any U of 1-16 holds both directions in one grid: 2 *
+    ceil(H / U) blocks resident and the block within the budget with the
+    contraction in at most two chunks."""
+    for U in (1, 2, 4, 8, 16):
+        if 2 * -(-H // U) > N_SM:
+            continue
+        for nch in (1, 2):
+            kc = -(-(-(-H // nch)) // 128) * 128
+            if _bidir_f32_smem(H, U, kc) <= _SMEM_BUDGET:
+                return True
+    return False
+
+
+@pytest.mark.parametrize("H", F32_WIDTHS)
+@pytest.mark.parametrize("B", F32_BATCHES)
+def test_bidir_f32_plan_covers_every_row_once_within_budget(B, H):
+    plan = _bidir_f32_plan(B, H, N_SM)
+    assert plan.U in (1, 2, 4, 8, 16) and plan.kc % 128 == 0
+    # The kernel's layout (bidir_smem_bytes): Wh's 3U columns over the
+    # chunks, two staged chunks of 16 rows, the warps' sums (8 rows x 3
+    # gates x min(U, 2) units a warp).
+    nch = -(-H // plan.kc)
+    assert nch * plan.kc >= H > (nch - 1) * plan.kc
+    assert plan.smem == 4 * (3 * plan.U * nch * plan.kc + 2 * 16 * plan.kc
+                             + 16 * 8 * 3 * min(plan.U, 2))
+    assert plan.smem == _bidir_f32_smem(H, plan.U, plan.kc)
+    assert plan.smem <= _SMEM_BUDGET <= SMEM_MAX
+    assert plan.grid == plan.ndir * plan.rg * -(-H // plan.U) <= N_SM
+    _check_rows(B, plan.rg)
+    # A launch a direction exactly where the two cannot share a grid.
+    assert (plan.ndir == 2) == _two_directions_fit(H) == (H <= 768)
+
+
+def test_bidir_f32_plans_at_the_trained_shapes():
+    """At config 3's H=512: 2 directions x 64 groups of 8 units (128
+    blocks, one row group of 16 rows) at B=16; 2 x 2 row groups x 32
+    groups of 16 units at B=64 and 128 (32 and 64 rows a block, staged 16
+    a pass); at B=32, 16 rows a block. The repaired widths: H=640 in one
+    grid of 80 blocks of 16 units (203 KiB each: 120 KiB of Wh, two
+    staging buffers of 40 KiB), H=1056 a launch a direction of 132 blocks
+    of 8 units, the contraction in two chunks of 640."""
+    got = {B: _bidir_f32_plan(B, 512, N_SM) for B in (16, 32, 64, 128)}
+    assert [(p.U, p.rg, p.ndir, p.grid) for p in got.values()] == [
+        (8, 1, 2, 128), (16, 2, 2, 128), (16, 2, 2, 128), (16, 2, 2, 128)]
+    assert -(-32 // got[32].rg) == 16
+    plan = _bidir_f32_plan(16, 640, N_SM)
+    assert (plan.U, plan.ndir, plan.grid, plan.kc) == (16, 2, 80, 640)
+    assert plan.smem == 207872
+    plan = _bidir_f32_plan(16, 1056, N_SM)
+    assert (plan.U, plan.ndir, plan.grid, plan.kc) == (8, 1, 132, 640)
+
+
+@pytest.mark.parametrize("B,H,n_sm", [(16, 1057, N_SM), (683, 1100, N_SM),
+                                      (16, 4096, N_SM), (16, 512, 16)])
+def test_bidir_f32_plan_raises_past_the_width(B, H, n_sm):
+    with pytest.raises(ValueError, match="K7's f32 forward"):
+        _bidir_f32_plan(B, H, n_sm)

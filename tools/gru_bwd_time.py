@@ -8,13 +8,13 @@ recompute route (xp by a matmul, K5b, three matmuls) and cuDNN's GRU
 backward; K7b at config 3's layer (H=512, D=1024 for cuDNN, B=16, 64 and
 128) beside cuDNN's bidirectional backward; K5b at H=512, B=16 and 64,
 beside cuDNN's backward. Where the tree has the three-phase backward
-(ops/gru.py::_lean), its phases are timed apart too (chip_smoke's
-bwd_phases). CUDA events, mean of 10 calls after a warm-up, TF32 off.
---root imports tpuasr_torch from another checkout (for example the parent
-commit, unpacked by git archive), so two trees can be timed in turns in
-one call: parent, change, change, parent. Prints the card's name and power
-limit first; with --out, writes the numbers as JSON. Needs one CUDA card
-and nvcc.
+(ops/gru.py::_lean; for K5b, where it has no _k5b_plan), its phases are
+timed apart too (chip_smoke's bwd_phases). CUDA events, mean of 10 calls
+after a warm-up, TF32 off. --root imports tpuasr_torch from another
+checkout (for example the parent commit, unpacked by git archive), so two
+trees can be timed in turns in one call: parent, change, change, parent.
+Prints the card's name and power limit first; with --out, writes the
+numbers as JSON. Needs one CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -118,6 +118,8 @@ def main() -> int:
                 r5 = {"ms": ms(lambda: g.gru_scan_bwd(*a5)),
                       "cudnn_ms": cs.library_gru_ms(T, B, D, H,
                                                     torch.float32, True)}
+                if phased and not hasattr(g, "_k5b_plan"):
+                    r5["phases"] = cs.bwd_phases(g, "K5b", a5)
                 res[f"K5b B={B}"] = r5
                 print(f"K5b T={T} B={B} H={H}: {json.dumps(r5)}", flush=True)
             del a, xpf, xpb, ysf, ysb, yspf, yspb, dysf, dysb

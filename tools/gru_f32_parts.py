@@ -1,0 +1,159 @@
+"""Where a step of the float32 GRU recurrences goes, on one card.
+
+    python3 tools/gru_f32_parts.py
+
+Builds csrc/gru_bidir.cu (K7-f32's forward recurrence) and csrc/gru_lean.cu
+(the lean BPTT recurrence of K5b, K2b and K7b) as they are and in ablated
+copies, each with one part of the step taken out: the barrier (a
+__syncthreads in its place), the staging of the previous step's rows (h,
+or dhp), the product (and with it what the compiler drops when its sums
+are zero), and the loads of the gate items' inputs (xp and the mask; for
+the lean recurrence also hp, ysp and dys). Times each build's recurrence
+(CUDA events, mean of 5) at config 3's layer (T=249, H=512): K7-f32 at
+B=16, 64 and 128, K5b's lean recurrence at B=16 and 64, K7b's at B=16 and
+128, each under the plan ops/gru.py gives. An ablated build computes wrong
+values: its time only says what the part costs, and the parts overlap, so
+they need not add up. Prints the card's name and power limit first. Needs
+one CUDA card and nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import subprocess
+import sys
+import tempfile
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from unittest import mock
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(ROOT))
+
+from tpuasr_torch import _build  # noqa: E402
+from tpuasr_torch.ops import gru as gru_mod  # noqa: E402
+
+CSRC = ROOT / "tpuasr_torch" / "csrc"
+_PRODUCT = ("for (int q = kw * 32 + lane; q < kc4; q += WPT * 32) {",
+            "for (int q = kc4; q < kc4; q += WPT * 32) {")
+# source -> part -> [(text in the source, replacement)]
+ABLATIONS = {
+    "gru_bidir.cu": {
+        "as is": [],
+        "no barrier": [("group_sync(gbar, t + 1, UG);", "__syncthreads();")],
+        "no staging": [("if (t) stage(hprev, 0);", ""),
+                       ("if (i + 1 < items) stage(hprev, i + 1);", "")],
+        "no product": [_PRODUCT],
+        "no gate loads": [("if (gate && b < rb1) {", "if (false) {")],
+    },
+    "gru_lean.cu": {
+        "as is": [],
+        "no barrier": [("group_sync(gbar, s + 1, UG);", "__syncthreads();")],
+        "no staging": [("        if (vec) {\n          for (int e = tid; "
+                        "e < kR * kc4;",
+                        "        if (false) {\n          for (int e = tid; "
+                        "e < kR * kc4;"),
+                       ("        } else {\n          for (int e = tid; "
+                        "e < kR * KC;",
+                        "        } else if (false) {\n          for (int e "
+                        "= tid; e < kR * KC;")],
+        "no product": [_PRODUCT],
+        "no gate loads": [("  if (live) {\n    const size_t q = row * 3 * H "
+                           "+ j;", "  if (false) {\n    const size_t q = row "
+                           "* 3 * H + j;")],
+    },
+}
+
+
+def build(source: str, name: str, edits, out: Path) -> ctypes.CDLL:
+    src = (CSRC / source).read_text()
+    for old, new in edits:
+        if old not in src:
+            raise RuntimeError(f"{name}: {old!r} not in {source}")
+        src = src.replace(old, new)
+    d = out / f"{Path(source).stem}_{name.replace(' ', '_')}"
+    d.mkdir()
+    (d / source).write_text(src)
+    for f in CSRC.glob("*.cuh"):
+        (d / f.name).write_text(f.read_text())
+    so = d / "lib.so"
+    cmd = [_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(so),
+           str(d / source), str(CSRC / "common.cu")]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"{name}: nvcc failed\n{res.stderr}")
+    lib = ctypes.CDLL(str(so))
+    lib.tpuasr_error_string.argtypes = [ctypes.c_int]
+    lib.tpuasr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def timed(lib, call) -> float:
+    """Mean ms of call() with this build's library in the package's place."""
+    with mock.patch.object(_build, "_lib", lib):
+        call()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(5):
+            call()
+        end.record()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end) / 5
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("needs a CUDA device", file=sys.stderr)
+        return 1
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True).stdout.strip(), flush=True)
+    T, H = 249, 512
+    g = torch.Generator().manual_seed(0)
+    n_sm = gru_mod._sm_count(torch.device("cuda"))
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).cuda()
+
+    wh = [rnd(H, 3 * H, scale=H ** -0.5) for _ in range(2)]
+    cases = []                           # (label, source, call)
+    for B in (16, 64, 128):
+        plan = gru_mod._bidir_f32_plan(B, H, n_sm)
+        xps, m2 = (rnd(T, B, 3 * H), rnd(T, B, 3 * H)), torch.ones(
+            T, B, device="cuda")
+        cases.append((f"K7-f32 B={B} U={plan.U} rg={plan.rg} "
+                      f"dirs={plan.ndir} grid={plan.grid}", "gru_bidir.cu",
+                      lambda p=plan, x=xps, m=m2: gru_mod._bidir_f32(
+                          p, x, wh, m)))
+    for key, B, ndir in (("K5b", 16, 1), ("K5b", 64, 1), ("K7b", 16, 2),
+                         ("K7b", 128, 2)):
+        plan = gru_mod._lean_plan(B, H, ndir, n_sm)
+        ysp = [rnd(T, B, H, scale=0.5) for _ in range(ndir)]
+        dirs = [(rnd(T, B, 3 * H), gru_mod._hp(ysp[d], wh[d]), ysp[d],
+                 rnd(T, B, H), wh[d]) for d in range(ndir)]
+        m2 = torch.ones(T, B, device="cuda")
+        cases.append((f"{key} lean B={B} U={plan.U} rg={plan.rg} "
+                      f"dirs={plan.ndir} grid={plan.grid}", "gru_lean.cu",
+                      lambda p=plan, d=dirs, m=m2: gru_mod._lean(
+                          p, d, m, False)))
+    jobs = [(src, name, edits) for src, parts in ABLATIONS.items()
+            for name, edits in parts.items()]
+    with tempfile.TemporaryDirectory() as tmp:
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            libs = dict(zip([(s, n) for s, n, _ in jobs], pool.map(
+                lambda j: build(*j, Path(tmp)), jobs)))
+        for label, source, call in cases:
+            row = []
+            for name in ABLATIONS[source]:
+                ms = timed(libs[(source, name)], call)
+                row.append(f"{name} {ms:.3f} ms ({ms / T * 1e3:.2f} us)")
+            print(f"{label}: " + "; ".join(row), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,10 +1,11 @@
-// Shared pieces of the cooperative GRU kernels (csrc/gru_bptt.cu: K5,
-// K5b; csrc/gru_bidir.cu: K7's f32 forward; csrc/gru_lean.cu: the lean
-// BPTT recurrence of K2b and K7b; csrc/gru_scan.cu: K2, K4): the block
-// shape, the grid barrier (and a group's, for row groups), row and column
-// staging, the per-unit products with Wh resident in shared memory, the
-// occupancy-checked cooperative launch, and K5's forward kernel, which K2's
-// float32 recurrence launches too. See gru_bptt.cu for the design.
+// Shared pieces of the cooperative GRU kernels (csrc/gru_bptt.cu: K5;
+// csrc/gru_bidir.cu: K7's f32 forward; csrc/gru_lean.cu: the lean BPTT
+// recurrence of K2b, K5b and K7b; csrc/gru_scan.cu: K2, K4): the block
+// shape, the grid barrier (and a group's, for row groups), cp.async
+// staging, the warps' reduce-scatter, the occupancy-checked cooperative
+// launch, and K5's forward kernel with its row staging and per-unit
+// products, which K2's float32 recurrence launches too. See gru_bptt.cu
+// for K5's design.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -81,30 +82,30 @@ __device__ __forceinline__ void stage_rows(float* dst, const float* src,
   }
 }
 
-// Columns [c0, c0 + n) of rows b0 .. b0+kR-1 of a (B, ld) row-major array
-// into dst[kR][n], bypassing L1; rows past B become zeros.
-__device__ __forceinline__ void stage_cols(float* dst, const float* src,
-                                           int ld, int c0, int n, int b0,
-                                           int B) {
-  const int rows = min(kR, B - b0);
-  const float* s = src + static_cast<size_t>(b0) * ld + c0;
-  if (((ld | c0 | n) & 3) == 0) {
-    const int n4 = n / 4;
-    for (int i = threadIdx.x; i < kR * n4; i += kThreads) {
-      const int r = i / n4;
-      const int c = i - r * n4;
-      reinterpret_cast<float4*>(dst)[i] =
-          r < rows ? __ldcg(reinterpret_cast<const float4*>(
-                                s + static_cast<size_t>(r) * ld) + c)
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kR * n; i += kThreads) {
-      const int r = i / n;
-      const int c = i - r * n;
-      dst[i] = r < rows ? __ldcg(s + static_cast<size_t>(r) * ld + c) : 0.f;
-    }
-  }
+// 16 bytes global -> shared without registers, through L2 (cp.async.cg:
+// other blocks wrote them); zeros where !valid (src is then not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed cp.async groups are
+// pending (a __syncthreads must follow before other threads read them).
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// Commits and waits for all of this thread's cp.async copies.
+__device__ __forceinline__ void cp_async_wait() {
+  cp_async_commit();
+  cp_async_wait_group<0>();
 }
 
 // Sum of v over the 32 lanes of the warp, scattered: v holds kR groups of
@@ -129,27 +130,21 @@ __device__ __forceinline__ void reduce_scatter(float* v, int lane) {
   }
 }
 
-// The [r, z, n, 0] column vectors of units u0 .. u0+U-1 of a (K, 3H)
-// weight as wcol[U][K] (zero past H), widened to f32.
-template <int U, typename W>
-__device__ void load_columns(float4* wcol, const W* w, int K, int H, int u0) {
+// The [r, z, n, 0] column vectors of units u0 .. u0+U-1 of Wh (H, 3H) as
+// wcol[U][H] (zero past H).
+template <int U>
+__device__ void load_columns(float4* wcol, const float* wh, int H, int u0) {
   const int H3 = 3 * H;
-  for (int i = threadIdx.x; i < K * U; i += kThreads) {
-    const int u = i / K;
-    const int k = i - u * K;
+  for (int i = threadIdx.x; i < H * U; i += kThreads) {
+    const int u = i / H;
+    const int k = i - u * H;
     float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
     if (u0 + u < H) {
-      const W* p = w + static_cast<size_t>(k) * H3 + u0 + u;
-      v = make_float4(to_f32(p[0]), to_f32(p[H]), to_f32(p[2 * H]), 0.f);
+      const float* p = wh + static_cast<size_t>(k) * H3 + u0 + u;
+      v = make_float4(p[0], p[H], p[2 * H], 0.f);
     }
     wcol[i] = v;
   }
-}
-
-// The same for Wh (K = H).
-template <int U, typename W>
-__device__ void load_columns(float4* wcol, const W* wh, int H, int u0) {
-  load_columns<U>(wcol, wh, H, H, u0);
 }
 
 // hp of the staged rows for the block's units: warp w takes unit w % U and

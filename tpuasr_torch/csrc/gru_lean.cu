@@ -2,7 +2,7 @@
 // fixed-order products over all T*B rows that come after it.
 //
 // Replaces, with csrc/gru_scan.cu's f32 projection for the products over
-// x and ysp, two Pallas kernels of tpuasr/ops/pallas_gru.py:
+// x and ysp, three Pallas kernels of tpuasr/ops/pallas_gru.py:
 //   K2b  _bwd_xf_kernel (line 661), built by _build_bwd_xf (pallas_call at
 //        line 736), reached through _xf_bwd -> _xf_bwd_fused (lines
 //        829-838): dx, dWx, db and dWh of gru_scan_xfused from
@@ -11,7 +11,9 @@
 //        437): dxpf, dxpb, dWhf, dWhb of gru_scan_bidir from (xpf, xpb,
 //        yspf, yspb, whf, whb, mask, dysf, dysb), both directions forward
 //        in time under one mask;
-// and gives K5b (csrc/gru_bptt.cu) its dWh.
+//   K5b  _bwd_kernel (line 104), built by _build_bwd (line 190): dxp and
+//        dWh of gru_scan from (xp, ysp, wh, mask, dys), one direction,
+//        forward or reversed in time (K2b's phases without x).
 //
 // The BPTT step (pallas_gru.py:117-146, 686-727), in BPTT order:
 //   hp = h_prev Wh, r, z, n from (xp + hp) as in the forward,
@@ -237,7 +239,7 @@ size_t lean_smem_bytes(int H, int U, int KC) {
 // (d, rg, ug) runs direction d's units ug*U .. for the rows of group rg,
 // ceil(B / RG) of them. Rows never meet rows of another group or
 // direction, so each (direction, row group) has a barrier of its own, one
-// a step. reverse: the scan ran from t = T-1 down (K2b's reversed
+// a step. reverse: the scan ran from t = T-1 down (K2b's or K5b's reversed
 // direction), so BPTT runs up from t = 0.
 template <int U>
 __global__ void __launch_bounds__(kThreads, 1)

@@ -171,32 +171,6 @@ __device__ __forceinline__ void load_b(uint32_t* b, const unsigned char* t,
   b[1] = r[4];
 }
 
-// 16 bytes global -> shared without registers, through L2 (cp.async.cg:
-// other blocks wrote them); zeros where !valid (src is then not read).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(valid ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most N of this thread's committed cp.async groups are
-// pending (a __syncthreads must follow before other threads read them).
-template <int N>
-__device__ __forceinline__ void cp_async_wait_group() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-// Commits and waits for all of this thread's cp.async copies.
-__device__ __forceinline__ void cp_async_wait() {
-  cp_async_commit();
-  cp_async_wait_group<0>();
-}
-
 // Four 8 x 8 b16 matrices from shared memory, one register each (lanes
 // 8i .. 8i+7 give matrix i's row addresses): an A fragment or two B
 // fragments of the 32-byte step layout above.

@@ -4,8 +4,8 @@ Counterparts of tpuasr/ops/pallas_gru.py:
 
 * ``gru_scan`` (K5 forward, K5b backward; pallas_gru.py:238): the masked
   recurrence over xp = x@Wx+b, differentiable. Its kernels are
-  ``gru_scan_fwd`` and ``gru_scan_bwd`` (``csrc/gru_bptt.cu``, dWh from
-  ``csrc/gru_lean.cu``'s product over all rows);
+  ``gru_scan_fwd`` (``csrc/gru_bptt.cu``) and ``gru_scan_bwd`` (the three
+  phases of ``csrc/gru_lean.cu`` at one direction);
 * ``gru_scan_xfused`` (K2, pallas_gru.py:772): the input projection fused
   with the scan (``csrc/gru_scan.cu``: a tiled projection launch, then the
   recurrence, planned by ``_scan_plan``). Its backward takes JAX's route
@@ -20,8 +20,9 @@ Counterparts of tpuasr/ops/pallas_gru.py:
 * ``gru_scan_bidir`` (K7 forward, K7b backward; pallas_gru.py:501): both
   directions of a BiGRU over precomputed projections in one launch,
   differentiable in float32. Its kernels are ``gru_scan_bidir_fwd``
-  (``csrc/gru_bidir.cu``, and ``csrc/gru_scan.cu`` in bf16) and
-  ``gru_scan_bidir_bwd`` (the three phases, both directions in one grid).
+  (``csrc/gru_bidir.cu`` in f32, planned by ``_bidir_f32_plan``, and
+  ``csrc/gru_scan.cu`` in bf16) and ``gru_scan_bidir_bwd`` (the three
+  phases, both directions in one grid).
 
 Every kernel wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors. Layouts follow the JAX package: x (T, B, D)
@@ -483,8 +484,8 @@ def gru_scan_xfused_bwd_plain(x, ysp, wx, b, wh, mask, dys, reverse=False):
 # projection tiles; (b) the lean recurrence, a cooperative grid that does
 # the gate math from the saved xp and hp and dhp @ Wh^T, one barrier a step
 # per row group; (c) dWh = ysp^T dhp, and K2b's dWx = x^T dxp, db and
-# dx = dxp @ Wx^T, over all T*B rows. K5b keeps hp in its step and takes
-# its dWh from (c).
+# dx = dxp @ Wx^T, over all T*B rows. K5b runs the same three phases at
+# one direction.
 
 _LEAN_ROWS = 16             # kR: rows a pass stages
 _LEAN_TM = 8                # kTM in csrc/gru_lean.cu: rows of a lane's tile
@@ -492,13 +493,15 @@ _TN_MIN_ROWS = 512          # the fewest rows a slice of (c) sums
 
 
 @dataclasses.dataclass(frozen=True)
-class LeanPlan:
-    """How the lean recurrence (csrc/gru_lean.cu) runs: ``ndir``
-    directions in one cooperative grid of ``grid`` blocks, each direction's
-    rows in ``rg`` row groups times ceil(H / U) groups of ``U`` units, the
-    3H contraction staged in chunks of ``kc`` columns, ``smem`` bytes of
-    shared memory a block. Where two directions cannot share a grid,
-    ``_lean_plan`` gives ndir=1 and each direction is a launch."""
+class RowGroupPlan:
+    """How a row-grouped f32 recurrence runs: the lean recurrence
+    (csrc/gru_lean.cu, ``_lean_plan``) or K7's f32 forward
+    (csrc/gru_bidir.cu, ``_bidir_f32_plan``). ``ndir`` directions in one
+    cooperative grid of ``grid`` blocks, each direction's rows in ``rg``
+    row groups times ceil(H / U) groups of ``U`` units, the contraction
+    staged in chunks of ``kc`` columns, ``smem`` bytes of shared memory a
+    block. Where two directions cannot share a grid, the plan gives
+    ndir=1 and each direction is a launch."""
     U: int
     rg: int
     kc: int
@@ -516,34 +519,45 @@ def _lean_smem(H: int, U: int, kc: int) -> int:
                 + (_REC_THREADS // 32) * _LEAN_TM * min(U, 4))
 
 
+def _bidir_f32_smem(H: int, U: int, kc: int) -> int:
+    """Shared memory of a block of K7's f32 forward (bidir_smem_bytes in
+    csrc/gru_bidir.cu): Wh's 3U columns of its units over the chunks of
+    the H contraction, two staged chunks of 16 rows of h, the warps' sums
+    (8 rows x 3 gates x min(U, 2) units a warp)."""
+    nch = -(-H // kc)
+    return 4 * (3 * U * nch * kc + 2 * _LEAN_ROWS * kc
+                + (_REC_THREADS // 32) * _LEAN_TM * 3 * min(U, 2))
+
+
 def _lean_rows(B: int, rg: int):
-    """The row ranges [b0, b1) of the rg row groups, as the kernel cuts
+    """The row ranges [b0, b1) of the rg row groups, as the kernels cut
     them: ceil(B / rg) rows a group."""
     rpg = -(-B // rg)
     return [(min(B, g * rpg), min(B, (g + 1) * rpg)) for g in range(rg)]
 
 
-def _lean_plan(B: int, H: int, ndir: int = 1, n_sm: int = 132) -> LeanPlan:
-    """The plan of the lean recurrence at batch B and width H for ndir
-    directions (1: K2b; 2: K7b) on a card of n_sm SMs. For each U in 1, 2,
-    4, 8, 16 whose ndir * ceil(H / U) unit groups fit the SMs, the rows
-    split into as many row groups as the SMs left allow (no fewer than 16
-    rows a group), and the contraction into the fewest chunks that fit the
+def _row_group_plan(B: int, H: int, K: int, ndir: int, n_sm: int, smem_fn,
+                    what: str) -> RowGroupPlan:
+    """The plan of a row-grouped recurrence whose block keeps Wh's values
+    of its U units resident and stages 16 rows of a K-wide operand a pass
+    (``smem_fn(H, U, kc)``: a block's bytes). For each U in 1, 2, 4, 8, 16
+    whose ndir * ceil(H / U) unit groups fit the n_sm SMs, the rows split
+    into as many row groups as the SMs left allow (no fewer than 16 rows a
+    group), and the K contraction into the fewest chunks that fit the
     shared-memory budget. The plan that leaves a block the fewest rows
     wins, the smaller U on a tie (more blocks share the step's products).
     Two directions share a grid only where the contraction takes at most
     two chunks; otherwise each direction is a launch of its own. Raises
     ValueError where no plan fits."""
-    H3 = 3 * H
     options = []
     for U in (1, 2, 4, 8, 16):
         ug = -(-H // U)
         if ndir * ug > n_sm:
             continue
         rg = max(1, min(n_sm // (ndir * ug), -(-B // 16)))
-        for nch in range(1, -(-H3 // 128) + 1):
-            kc = _round_up(-(-H3 // nch), 128)
-            smem = _lean_smem(H, U, kc)
+        for nch in range(1, -(-K // 128) + 1):
+            kc = _round_up(-(-K // nch), 128)
+            smem = smem_fn(H, U, kc)
             if smem <= _SMEM_BUDGET:
                 break
         else:
@@ -553,16 +567,35 @@ def _lean_plan(B: int, H: int, ndir: int = 1, n_sm: int = 132) -> LeanPlan:
         options.append((-(-B // rg), U, rg, kc, smem))
     if not options:
         if ndir == 2:
-            return _lean_plan(B, H, 1, n_sm)
+            return _row_group_plan(B, H, K, 1, n_sm, smem_fn, what)
         raise ValueError(
-            f"the lean GRU backward cannot hold H={H} on {n_sm} SMs: no U "
-            f"of 1-16 units a block fits {_SMEM_BUDGET} bytes of shared "
-            f"memory with ceil(H / U) blocks resident")
+            f"{what} cannot hold H={H} on {n_sm} SMs: no U of 1-16 units a "
+            f"block fits {_SMEM_BUDGET} bytes of shared memory with "
+            f"ceil(H / U) blocks resident")
     _, U, rg, kc, smem = min(options)
-    return LeanPlan(U, rg, kc, smem, ndir * rg * -(-H // U), ndir)
+    return RowGroupPlan(U, rg, kc, smem, ndir * rg * -(-H // U), ndir)
 
 
-def _lean(plan: LeanPlan, dirs, mask2, reverse):
+def _lean_plan(B: int, H: int, ndir: int = 1,
+               n_sm: int = 132) -> RowGroupPlan:
+    """The plan of the lean recurrence (``_row_group_plan`` over the 3H
+    contraction of dhp @ Wh^T) at batch B and width H for ndir directions
+    (1: K2b, K5b; 2: K7b) on a card of n_sm SMs."""
+    return _row_group_plan(B, H, 3 * H, ndir, n_sm, _lean_smem,
+                           "the lean GRU backward")
+
+
+def _bidir_f32_plan(B: int, H: int, n_sm: int = 132,
+                    ndir: int = 2) -> RowGroupPlan:
+    """The plan of K7's f32 forward (``_row_group_plan`` over the H
+    contraction of h @ Wh) at batch B and width H on a card of n_sm SMs:
+    both directions in one grid where they fit, else a launch each.
+    ndir=1 plans the same recurrence for one direction."""
+    return _row_group_plan(B, H, H, ndir, n_sm, _bidir_f32_smem,
+                           "K7's f32 forward")
+
+
+def _lean(plan: RowGroupPlan, dirs, mask2, reverse):
     """Phase b: one (dxp, dhp) (T, B, 3H) f32 for each direction's
     (xp, hp, ysp, dys, wh), all f32 and contiguous, under mask2 (T, B); the
     directions share one launch where ``plan.ndir`` is 2, else a launch
@@ -922,31 +955,13 @@ def _k5_smem(H: int, U: int) -> int:
             + 4 * (_REC_THREADS // 32) * _K5_ROWS * 3)
 
 
-def _k5b_plan(H: int, n_sm: int = 132):
-    """(U, G, smem) of K5b's recurrence (csrc/gru_bptt.cu): K5's units per
-    block, the gates of dhp it stages at once (3 where they fit the
-    budget, else 1) and its shared memory, K5's with the staged rows G * H
-    wide, whatever the batch (its carried dh is in device memory). Raises
-    ValueError where it cannot hold H: H <= 1056 on 132 SMs, the forward's
-    limit."""
-    U = _units_per_block(H, n_sm)
-    smem = _k5_smem(H, U)
-    G = 3 if smem + 4 * _K5_ROWS * 2 * H <= _SMEM_BUDGET else 1
-    smem += 4 * _K5_ROWS * (G - 1) * H
-    if U > 16 or smem > _SMEM_BUDGET:
-        raise ValueError(
-            f"gru_scan_bwd (K5b) cannot hold H={H} on {n_sm} SMs: {U} units "
-            f"a block (at most 16), {smem} bytes of shared memory (at most "
-            f"{_SMEM_BUDGET})")
-    return U, G, smem
-
-
 def gru_scan_bwd(xp, ysp, wh, mask, dys, reverse=False):
     """K5b: (dxp (T, B, 3H), dwh (H, 3H)) f32 from xp, ysp = prev_states(ys),
-    wh, mask (T, B, 1) and dys (T, B, H). On the card the recurrence
-    (hp and dhp@Wh^T in each step, any batch; a width ``_k5b_plan`` cannot
-    hold raises ValueError before any launch) writes dxp and dhp, then
-    dWh = ysp^T dhp over all T*B rows, in a fixed order."""
+    wh, mask (T, B, 1) and dys (T, B, H). On the card, in three phases at
+    one direction: hp = ysp@Wh over all T*B rows, the lean recurrence
+    (``_lean_plan(B, H, 1)``: a shape it cannot hold raises ValueError
+    before any launch), then dWh = ysp^T dhp over all rows, in a fixed
+    order. One count a call."""
     if xp.device.type == "cpu":
         return gru_scan_bwd_plain(xp, ysp, wh, mask, dys, reverse)
     if xp.device.type != "cuda":
@@ -955,24 +970,12 @@ def gru_scan_bwd(xp, ysp, wh, mask, dys, reverse=False):
     f32 = (torch.float32,)
     _build.check_tensor("ysp", ysp, xp.device, f32, (T, B, H))
     _build.check_tensor("dys", dys, xp.device, f32, (T, B, H))
-    dxp = torch.empty_like(xp)
     if xp.numel() == 0:
-        return dxp, torch.zeros_like(wh)
-    _k5b_plan(H, _sm_count(xp.device))
-    dhp = torch.empty_like(xp)
-    dh = torch.zeros((B, H), dtype=torch.float32, device=xp.device)
-    fn = _build.lib().tpuasr_gru_bwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    bar = _barrier(xp.device)
-    with torch.cuda.device(xp.device):
-        code = fn(_build.ptr(xp), _build.ptr(ysp), _build.ptr(wh),
-                  _build.ptr(mask2), _build.ptr(dys), _build.ptr(dxp),
-                  _build.ptr(dhp), _build.ptr(dh), _build.ptr(bar), T, B, H,
-                  int(bool(reverse)), _build.stream_ptr(xp))
+        return torch.empty_like(xp), torch.zeros_like(wh)
+    plan = _lean_plan(B, H, 1, _sm_count(xp.device))
+    (dxp, dhp), = _lean(plan, [(xp, _hp(ysp, wh), ysp, dys, wh)], mask2,
+                        reverse)
     gru_scan_bwd.launches += 1
-    _build.check(code, "gru_scan_bwd")
     return dxp, _dwh(ysp, dhp)
 
 
@@ -1098,9 +1101,11 @@ def gru_scan_bidir_fwd(xpf, xpb, whf, whb, mask):
     whf, whb (H, 3H), all f32 or all bf16, and mask (T, B, 1) f32.
 
     bf16 (serving) runs K2's tensor-core recurrence with both directions in
-    one cooperative grid (``_scan_plan(..., ndir=2)``: a shape it cannot
-    hold raises ValueError before the launch); f32 (training) runs K5's
-    design, a block owning its units in both directions."""
+    one cooperative grid (``_scan_plan(..., ndir=2)``); f32 (training) runs
+    csrc/gru_bidir.cu's row-grouped recurrence (``_bidir_f32_plan``: both
+    directions in one grid where they fit, else a launch each). A shape the
+    plan cannot hold raises ValueError before any launch. One count a
+    call."""
     if xpf.device.type == "cpu":
         return gru_scan_bidir_plain(xpf, xpb, whf, whb, mask)
     if xpf.device.type != "cuda":
@@ -1108,44 +1113,51 @@ def gru_scan_bidir_fwd(xpf, xpb, whf, whb, mask):
                          f"{xpf.device}")
     T, B, H, mask2 = _check_bidir(xpf, xpb, whf, whb, mask,
                                   (torch.float32, torch.bfloat16))
-    ysf = torch.empty((T, B, H), dtype=xpf.dtype, device=xpf.device)
-    ysb = torch.empty_like(ysf)
-    if ysf.numel() == 0:
-        return ysf, ysb
+    if T * B * H == 0:
+        return (torch.empty((T, B, H), dtype=xpf.dtype, device=xpf.device),
+                torch.empty((T, B, H), dtype=xpf.dtype, device=xpf.device))
+    n_sm = _sm_count(xpf.device)
     if xpf.dtype == torch.bfloat16:
-        plan = _scan_plan(B, H, H, _MODE_K2, torch.bfloat16,
-                          _sm_count(xpf.device), ndir=2)
+        plan = _scan_plan(B, H, H, _MODE_K2, torch.bfloat16, n_sm, ndir=2)
         ysf, ysb = _recur_dirs(plan, (xpf, xpb),
                                (_pack_rec(whf, plan), _pack_rec(whb, plan)),
                                None, mask2, False, torch.bfloat16)
-        gru_scan_bidir_fwd.launches += 1
-        return ysf, ysb
-    hbuf = torch.empty((2, 2, B, H), dtype=torch.float32, device=xpf.device)
-    fn = _build.lib().tpuasr_gru_bidir_fwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    bar = _barrier(xpf.device)
-    with torch.cuda.device(xpf.device):
-        code = fn(_build.ptr(xpf), _build.ptr(xpb), _build.ptr(whf),
-                  _build.ptr(whb), _build.ptr(mask2), _build.ptr(ysf),
-                  _build.ptr(ysb), _build.ptr(hbuf), _build.ptr(bar), T, B,
-                  H, _build.stream_ptr(xpf))
+    else:
+        ysf, ysb = _bidir_f32(_bidir_f32_plan(B, H, n_sm), (xpf, xpb),
+                              (whf, whb), mask2)
     gru_scan_bidir_fwd.launches += 1
-    _build.check(code, "gru_scan_bidir_fwd")
     return ysf, ysb
 
 
 gru_scan_bidir_fwd.launches = 0
 
 
-def _units_per_block(H: int, n_sm: int) -> int:
-    """K5's and K7's units per block (units_per_block in
-    csrc/gru_coop.cuh): ceil(H / n_sm) rounded up to a power of two."""
-    U = 1
-    while U * n_sm < H:
-        U *= 2
-    return U
+def _bidir_f32(plan: RowGroupPlan, xps, whs, mask2):
+    """K7's f32 recurrence (csrc/gru_bidir.cu): one ys (T, B, H) f32 for
+    each direction's xp (T, B, 3H) and wh (H, 3H), f32 and contiguous, all
+    forward in time under mask2 (T, B); the directions share one launch
+    where ``plan.ndir`` is their number, else a launch each."""
+    T, B, H3 = xps[0].shape
+    H = H3 // 3
+    dev = xps[0].device
+    fn = _build.lib().tpuasr_gru_bidir_fwd
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+                   + [ctypes.c_longlong, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    ys = [torch.empty((T, B, H), dtype=torch.float32, device=dev)
+          for _ in xps]
+    dirs = list(zip(xps, whs, ys))
+    groups = [dirs] if plan.ndir == len(dirs) else [[d] for d in dirs]
+    for group in groups:
+        bar = _barrier(dev, plan.ndir * plan.rg)
+        # With one direction, its pointers stand for the second, unread.
+        with torch.cuda.device(dev):
+            code = fn(*map(_build.ptr, group[0]), *map(_build.ptr, group[-1]),
+                      _build.ptr(mask2), _build.ptr(bar), T, B, H, plan.U,
+                      plan.rg, plan.kc, len(group), plan.smem,
+                      _build.stream_ptr(mask2))
+        _build.check(code, "gru_scan_bidir_fwd (f32)")
+    return tuple(ys)
 
 
 def gru_scan_bidir_bwd_phases_plain(xpf, xpb, yspf, yspb, whf, whb, mask,
