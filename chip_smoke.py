@@ -11,8 +11,10 @@ Phases, each fatal on failure:
      card, with its error, tolerance, timing, the least time the card could
      take for its work (bound) and, where one PyTorch call computes the
      same function, that call's time: the serving kernels K1, K2, K4, K3
-     (without and with bigram/trigram LM fusion) and K10 (the graph row
-     gather) at the shapes of the served model (B=128 utterances of 10 s at
+     (without and with bigram/trigram LM fusion; with the backtrack kernel
+     of its packed backpointers, and the search's wall time against its
+     device time) and K10 (the graph row gather) at the shapes of the
+     served model (B=128 utterances of 10 s at
      8 kHz, C=64, a 512 x 4 BiGRU, beam K=8; K2/K4 also on ragged batches
      of 1 and 129 rows, with the projection and the recurrence of one call
      timed apart), K2 in float32 at the deepspeech_var train step's
@@ -25,8 +27,10 @@ Phases, each fatal on failure:
      (widths its old kernel refused), and the training kernels K5, K5b,
      K7b, K6, K6b at the shapes of the BASELINE config-3 train step (B=16
      x 5 s, T'=249, U=24; K5b also at B=64, K7b at B=64 and 128, the
-     batches the train phases run, each beside cuDNN), the f32 recurrence
-     of K7-f32 at one direction beside K5's forward (a printed line), K2b
+     batches the train phases run, each beside cuDNN), K5's forward (the
+     f32 recurrence of csrc/gru_bidir.cu at one direction, which K2's f32
+     recurrence also runs) at H=512 and 384, B=16 and 64, both scan senses,
+     and once at H=640 and 1056, K2b
      (the fused-projection scan's backward) at the deepspeech_var step's
      shapes (H=384, D=512 and 768; timed at B=16 and 64 beside cuDNN and
      the recompute route), K2b's, K5b's and K7b's three phases (pre-scan
@@ -396,7 +400,7 @@ def lm_graph_slice(kernels, wrappers, model, feat_cfg, wav_d, lens_d, tabs_g,
     phase(f"[5 lm+graph] launch counts per batch: {json.dumps(per_arm)}")
     none = {k: 0 for k in wrappers}
     want = {arm: dict(none, K1=1, K4=2 * LAYERS,
-                      **({"K3": 1} if arm == "int8+bigram"
+                      **({"K3": 1, "K3-backtrack": 1} if arm == "int8+bigram"
                          else {"K10": T_out})) for arm in recs}
     if per_arm != want:
         fail(f"LM/graph launch counts {per_arm} != {want}")
@@ -563,6 +567,8 @@ def train_kernels(record, gen) -> None:
                 ys = gru_mod.gru_scan_fwd(xp, wh, mask, rev)
                 ref = gru_mod.gru_scan_plain(xp, wh, mask, rev)
                 err = (ys - ref).abs().max().item()
+                same_fwd = torch.equal(ys, gru_mod.gru_scan_fwd(xp, wh, mask,
+                                                                rev))
                 ysp = gru_mod.prev_states(ref, rev)
                 dxp, dwh = gru_mod.gru_scan_bwd(xp, ysp, wh, mask, dys, rev)
                 rdxp, rdwh = gru_mod.gru_scan_bwd_plain(xp, ysp, wh, mask,
@@ -575,13 +581,14 @@ def train_kernels(record, gen) -> None:
                     (dxp, dwh),
                     gru_mod.gru_scan_bwd(xp, ysp, wh, mask, dys, rev)))
                 ok = (err <= 1e-4 and e_dxp <= t_dxp and e_dwh <= t_dwh
-                      and same)
+                      and same and same_fwd)
                 parts = ""
                 if D == 1024 and not rev:      # K5b's three phases apart
                     parts = "; " + bwd_phases(gru_mod, "K5b", (
                         xp, ysp, wh, mask, dys, rev))
                 phase(f"[3 K5/K5b] gru T={T} B={Bt} D={D} H={H} reverse="
-                      f"{rev}: ys max_abs_err {err:.3e} (tol 1e-4); dxp "
+                      f"{rev}: ys max_abs_err {err:.3e} (tol 1e-4), two "
+                      f"calls equal bit for bit {same_fwd}; dxp "
                       f"{e_dxp:.3e} (tol {t_dxp:.3e}), dwh {e_dwh:.3e} (tol "
                       f"{t_dwh:.3e}); two calls equal bit for bit {same}"
                       f"{parts}")
@@ -609,7 +616,7 @@ def train_kernels(record, gen) -> None:
                           f"bound {bbd[0]:.4f} ms ({bbd[1]}) torch.nn.GRU "
                           f"backward {blib:.3f} ms")
                     t5, t5b = (ms, pms, bd, lib), (bms, pbms, bbd, blib)
-                record("K5", "gru_scan_fwd", "tpuasr_torch/csrc/gru_bptt.cu",
+                record("K5", "gru_scan_fwd", "tpuasr_torch/csrc/gru_bidir.cu",
                        "tpuasr/ops/pallas_gru.py:163", err, *t5)
                 record("K5b", "gru_scan_bwd", "tpuasr_torch/csrc/gru_lean.cu",
                        "tpuasr/ops/pallas_gru.py:190", max(e_dxp, e_dwh),
@@ -644,7 +651,7 @@ def train_kernels(record, gen) -> None:
         record("K5b", "gru_scan_bwd", "tpuasr_torch/csrc/gru_lean.cu",
                "tpuasr/ops/pallas_gru.py:190", max(errs64))
         del x64, xp64, ysp64, dys64, a64, got64, want64
-    one_direction_lines(gru_mod, gen, T)
+    one_direction_checks(record, gru_mod, gen, T)
     # K5b at the shapes the old kernel refused (683 rows at H=512; H=640),
     # at a short T: within 1e-4 of each output's largest magnitude.
     for Bq, Hq in ((683, 512), (16, 640)):
@@ -959,41 +966,49 @@ def xfb_kernels(record, gen) -> None:
     torch.cuda.empty_cache()
 
 
-def one_direction_lines(gru_mod, gen, T) -> None:
-    """The f32 recurrence of csrc/gru_bidir.cu (K7's f32 forward) at one
-    direction beside K5's forward, which K5 and K2-f32's recurrence run, at
-    their shapes: H=512 (config 3, K5) and H=384 (deepspeech_var, K2-f32),
-    B=16 and 64, T'=249. A printed line only: no path runs it at one
-    direction."""
+def one_direction_checks(record, gru_mod, gen, T) -> None:
+    """K5's forward (gru_scan_fwd: csrc/gru_bidir.cu's recurrence at one
+    direction, planned by _f32_rec_plan; K2's f32 recurrence runs it too)
+    at config 3's H=512 and deepspeech_var's H=384, B=16 and 64, T'=249,
+    both scan senses, on ragged rows: within 1e-4 of gru_scan_plain, two
+    calls bit for bit; timed forward at each shape with its plan. Then
+    once at H=640 (B=16) and H=1056 (B=7), T'=37, within 1e-5."""
     from tpuasr_torch.precision import full_fp32
 
     dev = torch.device("cuda")
     n_sm = gru_mod._sm_count(dev)
-    for H in (HIDDEN, 384):
-        for Bn in (TRAIN_B, 64):
-            xp = torch.randn(T, Bn, 3 * H, generator=gen).to(dev)
-            wh = (torch.randn(H, 3 * H, generator=gen) / H ** 0.5).to(dev)
-            mask = torch.ones(T, Bn, 1, device=dev)
-            plan = gru_mod._bidir_f32_plan(Bn, H, n_sm, ndir=1)
-
-            def rows():
-                return gru_mod._bidir_f32(plan, (xp,), (wh,),
-                                          mask.reshape(T, Bn))[0]
-
-            with full_fp32():
-                err = (rows() - gru_mod.gru_scan_plain(xp, wh, mask)).abs(
-                    ).max().item()
-            ms = cuda_ms(rows, 10)
-            k5 = cuda_ms(lambda: gru_mod.gru_scan_fwd(xp, wh, mask), 10)
-            phase(f"[3 K7-f32 one direction] T={T} B={Bn} H={H}: "
-                  f"max_abs_err {err:.3e} (tol 1e-4) {ms:.3f} ms "
-                  f"({ms / T * 1e3:.2f} us a step; U={plan.U}, {plan.rg} row "
-                  f"group(s), grid {plan.grid}) against K5's forward "
-                  f"{k5:.3f} ms ({k5 / T * 1e3:.2f} us a step)")
-            if not err <= 1e-4:
-                fail(f"the one-direction f32 recurrence disagrees at B={Bn} "
-                     f"H={H}")
-            del xp, wh
+    shapes = [(H, Bn, T, 1e-4) for H in (HIDDEN, 384) for Bn in (TRAIN_B, 64)]
+    shapes += [(640, TRAIN_B, 37, 1e-5), (1056, 7, 37, 1e-5)]
+    for H, Bn, Tn, tol in shapes:
+        xp = torch.randn(Tn, Bn, 3 * H, generator=gen).to(dev)
+        wh = (torch.randn(H, 3 * H, generator=gen) / H ** 0.5).to(dev)
+        ln = torch.randint(Tn // 2, Tn + 1, (Bn,), generator=gen)
+        ln[0] = Tn
+        mask = (torch.arange(Tn)[:, None] < ln[None, :]).float()[:, :, None]
+        mask = mask.to(dev).contiguous()
+        plan = gru_mod._f32_rec_plan(Bn, H, n_sm)
+        errs, same = [], True
+        with full_fp32():
+            for rev in (False, True):
+                got = gru_mod.gru_scan_fwd(xp, wh, mask, rev)
+                want = gru_mod.gru_scan_plain(xp, wh, mask, rev)
+                errs.append((got - want).abs().max().item())
+                same &= torch.equal(got, gru_mod.gru_scan_fwd(xp, wh, mask,
+                                                              rev))
+        timing = ""
+        if Tn == T:
+            ms = cuda_ms(lambda: gru_mod.gru_scan_fwd(xp, wh, mask), 10)
+            timing = (f"; {ms:.3f} ms ({ms / Tn * 1e3:.2f} us a step)")
+        phase(f"[3 K5] gru_scan_fwd T={Tn} B={Bn} H={H}: max_abs_err "
+              f"forward {errs[0]:.3e}, reverse {errs[1]:.3e} (tol {tol}); two "
+              f"calls equal bit for bit {same}; plan U={plan.U}, {plan.rg} "
+              f"row group(s), grid {plan.grid}, kc {plan.kc}{timing}")
+        if not (max(errs) <= tol and same):
+            fail(f"K5's forward disagrees with gru_scan_plain at B={Bn} "
+                 f"H={H}")
+        record("K5", "gru_scan_fwd", "tpuasr_torch/csrc/gru_bidir.cu",
+               "tpuasr/ops/pallas_gru.py:163", max(errs))
+        del xp, wh
 
 
 def bwd_phases(gru_mod, key, args) -> str:
@@ -1512,8 +1527,9 @@ def capsnet_slice(kernels, wrappers, card, plain_path) -> None:
         per_arm[arm] = {k: w.launches - before[k] for k, w in wrappers.items()}
     phase(f"[4 capsnet] launch counts per batch: {json.dumps(per_arm)}")
     none = {k: 0 for k in wrappers}
-    want = {arm: dict(none, K1=1, K8=1, **({"K3": 1} if dec == "beam"
-                                          else {}))
+    want = {arm: dict(none, K1=1, K8=1,
+                      **({"K3": 1, "K3-backtrack": 1} if dec == "beam"
+                         else {}))
             for arm, (dec, _) in arms.items()}
     if per_arm != want:
         fail(f"CapsNet launch counts {per_arm} != {want}")
@@ -2043,7 +2059,8 @@ def main() -> int:
     same_bp = torch.equal(got[0], ref[0])
     same_sc = torch.equal(got[1], ref[1]) and torch.equal(got[2], ref[2])
     out_k = beam_mod.ctc_beam_search(lp, blens, bcfg)
-    with mock.patch.object(beam_mod, "beam_scan", beam_mod.beam_scan_plain):
+    with mock.patch.object(beam_mod, "beam_scan", beam_mod.beam_scan_plain), \
+            mock.patch.object(beam_mod, "backtrack", beam_mod.backtrack_plain):
         out_p = beam_mod.ctc_beam_search(lp, blens, bcfg)
     same_tok = (torch.equal(out_k["tokens"], out_p["tokens"])
                 and torch.equal(out_k["token_lens"], out_p["token_lens"]))
@@ -2066,6 +2083,44 @@ def main() -> int:
           "it")
     record("K3", "ctc_beam (no LM)", "tpuasr_torch/csrc/ctc_beam.cu",
            "tpuasr/decode/pallas_beam.py:455", sc_err, ms, pms, bd)
+
+    # The backtrack of K3's packed backpointers (JAX's reverse scan,
+    # pallas_beam.py:612-629) as one launch: tokens and lengths exactly
+    # those of backtrack_plain, for the 1-best and for 3-best lists with a
+    # max_len cap that cuts rows.
+    bt_same = True
+    for n_best, cap in ((1, bcfg.max_len), (3, 40)):
+        idx = torch.argsort(-(got[1] + got[2]), dim=1)[:, :n_best]
+        bt = beam_mod.backtrack(got[0], idx, cap)
+        bt_p = beam_mod.backtrack_plain(got[0], idx, cap)
+        bt_same &= all(torch.equal(a, r) for a, r in zip(bt, bt_p))
+    idx = torch.zeros((B, 1), dtype=torch.int64, device=dev)
+    bt_ms = queued_ms(lambda: beam_mod.backtrack(got[0], idx, 256), 20)
+    bt_pms = cuda_ms(lambda: beam_mod.backtrack_plain(got[0], idx, 256), 2)
+    # Bytes: one backpointer read a frame for each utterance's walk, the
+    # tokens and lengths written.
+    bt_bd = bound(4 * (B * T_out + B * 256 + B), 0, "fp32")
+    phase(f"[3 K3-backtrack] B={B} T={T_out} K={BEAM}: tokens+lengths equal "
+          f"backtrack_plain {bt_same} (1-best; 3-best capped at 40) (tol: "
+          f"exact) kernel {bt_ms:.4f} ms plain {bt_pms:.3f} ms bound "
+          f"{bt_bd[0]:.5f} ms ({bt_bd[1]}); no PyTorch call computes it")
+    if not bt_same:
+        fail("the backtrack kernel disagrees with backtrack_plain")
+    record("K3-backtrack", "backtrack", "tpuasr_torch/csrc/ctc_beam.cu",
+           "tpuasr/decode/pallas_beam.py:612", 0.0, bt_ms, bt_pms, bt_bd)
+    # The whole search's wall time (host clock, synchronised) against the
+    # device time of one call.
+    beam_mod.ctc_beam_search(lp, blens, bcfg)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        beam_mod.ctc_beam_search(lp, blens, bcfg)
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 5 * 1e3
+    dev_t = device_breakdown(
+        lambda: beam_mod.ctc_beam_search(lp, blens, bcfg))
+    phase(f"[3 K3] ctc_beam_search B={B} T={T_out} K={BEAM}: wall {wall:.3f}"
+          f" ms a call (host clock) against device time {dev_t}")
 
     # K3 with LM fusion and K10, on the graph built above.
     lms = {order: unit_lm(order) for order in (2, 3)}
@@ -2136,6 +2191,7 @@ def main() -> int:
                 "K7": gru_mod.gru_scan_bidir_fwd,
                 "K7b": gru_mod.gru_scan_bidir_bwd,
                 "K3": beam_mod.beam_scan,
+                "K3-backtrack": beam_mod.backtrack,
                 "K10": gather_mod.gather_rows,
                 "K8": routing_mod.routed_caps,
                 "K8b": routing_mod.routed_caps_bwd,
@@ -2144,7 +2200,8 @@ def main() -> int:
                 "K2b": gru_mod.gru_scan_xfused_bwd,
                 "K6": ctc_mod.ctc_alphas_kernel,
                 "K6b": ctc_mod.ctc_betas_kernel}
-    serving = ("K1", "K2", "K4", "K9", "K9-taps", "K9-slab", "K7", "K3")
+    serving = ("K1", "K2", "K4", "K9", "K9-taps", "K9-slab", "K7", "K3",
+               "K3-backtrack")
     plain_patches = (
         (fused_mod, "fbank_power", fused_mod.fbank_power_plain),
         (layers_mod, "gru_scan_xfused", gru_mod.gru_scan_xfused_plain),
@@ -2154,6 +2211,7 @@ def main() -> int:
              *a, mode=conv_mod.resolve_mode(None))),
         (gru_mod, "gru_scan_bidir_fwd", gru_mod.gru_scan_bidir_plain),
         (beam_mod, "beam_scan", beam_mod.beam_scan_plain),
+        (beam_mod, "backtrack", beam_mod.backtrack_plain),
         (prefix_beam_mod, "gather_rows", gather_mod.gather_rows_plain),
         (capsnet_mod, "routed_caps", routing_mod.routed_caps_plain),
     )
@@ -2195,13 +2253,14 @@ def main() -> int:
     phase(f"[4 slice] launch counts per batch: {json.dumps(per_arm)}; "
           f"cuDNN conv calls per batch: {json.dumps(convs)}")
     none = {k: 0 for k in wrappers}
-    want = {"int8": dict(none, K1=1, K4=2 * LAYERS, K3=1),
-            "bf16": dict(none, K1=1, K2=2 * LAYERS, K3=1),
-            "int8+int8_conv": dict(none, K1=1, K9=1, K4=2 * LAYERS, K3=1),
-            "bf16+fused_bidir": dict(none, K1=1, K7=LAYERS, K3=1)}
+    beam = {"K3": 1, "K3-backtrack": 1}
+    want = {"int8": dict(none, K1=1, K4=2 * LAYERS, **beam),
+            "bf16": dict(none, K1=1, K2=2 * LAYERS, **beam),
+            "int8+int8_conv": dict(none, K1=1, K9=1, K4=2 * LAYERS, **beam),
+            "bf16+fused_bidir": dict(none, K1=1, K7=LAYERS, **beam)}
     for body in ("taps", "slab"):
         want[f"int8+int8_conv/{body}"] = dict(none, K1=1, K4=2 * LAYERS,
-                                              K3=1, **{f"K9-{body}": 1})
+                                              **beam, **{f"K9-{body}": 1})
     want_convs = {arm: 1 if arm.startswith("int8+int8_conv") else 2
                   for arm in arms}
     if per_arm != want or convs != want_convs:
@@ -2396,8 +2455,8 @@ def main() -> int:
          for i, (name, t) in enumerate(clock[1:])}))
 
     order = ("K1", "K2", "K2-f32", "K4", "K9", "K9-taps", "K9-slab", "K7",
-             "K7-f32", "K3", "K3-LM", "K10", "K8", "K8b", "K5", "K5b", "K7b",
-             "K2b", "K6", "K6b")
+             "K7-f32", "K3", "K3-LM", "K3-backtrack", "K10", "K8", "K8b",
+             "K5", "K5b", "K7b", "K2b", "K6", "K6b")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

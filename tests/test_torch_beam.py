@@ -19,7 +19,8 @@ from tpuasr.lm import train_ngram as j_train_ngram
 from tpuasr_torch.decode import (BeamSearchConfig, beam_scan,
                                  ctc_beam_search, ctc_beam_search_xla,
                                  get_beam_search)
-from tpuasr_torch.decode.beam import _wrap32, backtrack, logaddexp
+from tpuasr_torch.decode.beam import (LANES, _wrap32, backtrack,
+                                      backtrack_plain, beam_plan, logaddexp)
 
 
 # Every test file starts with empty JAX caches (tests/jax_cache_isolation.py).
@@ -180,3 +181,96 @@ def test_get_beam_search():
     assert get_beam_search("xla") is ctc_beam_search_xla
     with pytest.raises(ValueError):
         get_beam_search("cuda")
+
+
+def _jax_backtrack(bp, beam_idx, max_len):
+    """The JAX wrapper's backpointer reconstruction, as written in
+    tpuasr/decode/pallas_beam.py:612-629 (one reverse lax.scan, then the
+    left-compaction into a max_len buffer)."""
+    bp = jnp.asarray(bp)
+    beam_idx = jnp.asarray(beam_idx)
+    B, n_best = beam_idx.shape
+
+    def back(cur, bp_t):
+        pk = jnp.take_along_axis(bp_t, cur, axis=1)
+        return pk // 65536, pk % 65536 - 1
+
+    _, toks_rev = jax.lax.scan(back, beam_idx, bp[::-1])
+    toks_rev = jnp.transpose(toks_rev, (1, 2, 0))
+    toks = toks_rev[:, :, ::-1]
+    keep = toks >= 0
+    pos = jnp.cumsum(keep, axis=2) - 1
+    L = max_len
+    pos = jnp.where(keep & (pos < L), pos, L)
+    out = jnp.full((B, n_best, L + 1), -1, jnp.int32)
+    b_idx = jnp.arange(B)[:, None, None]
+    n_idx = jnp.arange(n_best)[None, :, None]
+    out = out.at[b_idx, n_idx, pos].set(jnp.where(keep, toks, -1))
+    token_lens = jnp.minimum(jnp.sum(keep, axis=2), L).astype(jnp.int32)
+    return np.asarray(out[:, :, :L]), np.asarray(token_lens)
+
+
+@pytest.mark.parametrize("T,B,K,n,max_len", [(30, 5, 8, 1, 30),
+                                             (30, 5, 8, 4, 6),
+                                             (17, 3, 33, 33, 17),
+                                             (1, 2, 1, 1, 3)])
+def test_backtrack_plain_matches_jax_scan(T, B, K, n, max_len):
+    """backtrack_plain (the backtrack kernel's plain version) equals JAX's
+    reverse scan on the same seeded backpointers: random parents and
+    classes, rows frozen past their length (k * 65536), n-best entries
+    from distinct beams and a max_len cap that cuts the longest rows.
+    Tokens and lengths exact."""
+    rng = np.random.default_rng(T * 31 + K + n)
+    parent = rng.integers(0, K, (T, B, K))
+    ch = rng.integers(-1, 20, (T, B, K))
+    bp = (parent * 65536 + ch + 1).astype(np.int32)
+    lens = rng.integers(0, T + 1, B)
+    lens[0] = T
+    for b in range(B):
+        bp[lens[b]:, b] = np.arange(K) * 65536
+    idx = np.stack([rng.permutation(K)[:n] for _ in range(B)]).astype(
+        np.int32)
+    want_tok, want_len = _jax_backtrack(bp, idx, max_len)
+    tok, tl = backtrack_plain(torch.tensor(bp), torch.tensor(idx).long(),
+                              max_len)
+    np.testing.assert_array_equal(tok.numpy(), want_tok)
+    np.testing.assert_array_equal(tl.numpy(), want_len)
+    assert tok.dtype == torch.int32 and tl.dtype == torch.int32
+    # On a CPU tensor the wrapper is the plain version.
+    before = backtrack.launches
+    got = backtrack(torch.tensor(bp), torch.tensor(idx).long(), max_len)
+    assert backtrack.launches == before
+    assert torch.equal(got[0], tok) and torch.equal(got[1], tl)
+
+
+@pytest.mark.parametrize("order", [0, 2, 3])
+@pytest.mark.parametrize("C", [5, 48, 64, 1000])
+def test_beam_plan(C, order):
+    """K3's launch plan at every beam width the search accepts (K + 1 <=
+    128 lanes): one warp an utterance, 1-4 utterances a block spread over
+    the SMs, the block within the shared-memory budget, the bigram table
+    staged only for order 2 and only where it takes at most 128 KiB."""
+    for K in range(1, LANES):
+        per = 4 * (2 * C + 23 * K + K * -(-C // 32))
+        for B, n_sm in ((1, 132), (16, 132), (128, 132), (1000, 132),
+                        (128, 16)):
+            plan = beam_plan(B, K, C, order, n_sm)
+            assert 1 <= plan.warps <= 4 and plan.warps <= max(1, B)
+            assert plan.warps == min(4, -(-B // n_sm)) or (
+                plan.smem + per > 220 * 1024)
+            tab = 4 * (C + 1) * C
+            assert plan.staged == (order == 2 and tab <= 128 * 1024)
+            assert plan.smem == (tab if plan.staged else 0) + plan.warps * per
+            assert plan.smem <= 220 * 1024
+    with pytest.raises(ValueError):
+        beam_plan(16, LANES, C, order)
+    with pytest.raises(ValueError):
+        beam_plan(16, 0, C, order)
+
+
+def test_beam_plan_raises_past_shared_memory():
+    """A warp's state grows with K and C: past the budget the plan raises
+    (K=127 holds C up to 8,800 or so)."""
+    beam_plan(128, 127, 8000, 0)
+    with pytest.raises(ValueError, match="cannot hold"):
+        beam_plan(128, 127, 10000, 0)

@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from tpuasr_torch import _build
-from tpuasr_torch.decode.beam import beam_scan, beam_scan_plain
+from tpuasr_torch.decode.beam import (backtrack, backtrack_plain, beam_plan,
+                                      beam_scan, beam_scan_plain)
 from tpuasr_torch.decode.beam import ctc_beam_search as kernel_search
 from tpuasr_torch.features import FeatureConfig, fbank_power
 from tpuasr_torch.features.fused import fbank_power_plain
@@ -187,11 +188,18 @@ def test_k2_k4_refuse_an_unplannable_shape(dev, kind):
                                    (16, 768, 384), (129, 512, 520)])
 def test_scan_plan_matches_kernel_layout(dev, kind, B, D, H):
     """The plan's shared memory is what the recurrence kernel lays out for
-    its (U, R): the launcher refuses any other."""
+    its (U, R) (the f32 recurrence, csrc/gru_bidir.cu's, for its (U, kc)):
+    the launcher refuses any other."""
     dtype, which = XFUSED_KINDS[kind]
     mode = {"k2": gru_mod._MODE_K2, "k4": gru_mod._MODE_Q8,
             "rec": gru_mod._MODE_Q8_REC}[which]
     plan = gru_mod._scan_plan(B, D, H, mode, dtype, gru_mod._sm_count(dev))
+    if plan.rec == "f32":
+        fn = _build.lib().tpuasr_gru_bidir_fwd_smem
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_longlong
+        assert fn(H, plan.U, plan.kc) == plan.smem
+        return
     fn = _build.lib().tpuasr_gru_rec_smem
     fn.argtypes = [ctypes.c_int] * 4
     fn.restype = ctypes.c_longlong
@@ -230,6 +238,74 @@ def test_k3_lm_exact(dev, order, C, K, track):
     ref = beam_scan_plain(*args)
     for a, r in zip(got, ref):
         assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("order", [0, 2, 3])
+@pytest.mark.parametrize("C", [5, 48, 64])
+@pytest.mark.parametrize("K", [1, 8, 32, 33, 127])
+def test_k3_exact_any_beam(dev, K, C, order):
+    """K3 at every lane-list layout (K <= 8: lists of 8; K up to 32: lists
+    of 32; K = 33 and 127: passes of 32) without and with LM fusion equals
+    its plain version bit for bit: backpointers, scores, LM scores, last
+    and last2, on ragged rows (0, 1 and full length) with the max_len cap
+    reached."""
+    g = torch.Generator().manual_seed(K * 100 + C + order)
+    T = 12 if K > 32 else 24
+    lp = torch.log_softmax(torch.randn(4, T, C, generator=g) * 2, -1)
+    tab = (torch.log_softmax(torch.randn((C + 1) ** (order - 1), C,
+                                         generator=g), -1).to(dev)
+           if order else None)
+    lens = torch.tensor([T, 0, 1, T - 3], dtype=torch.int32).to(dev)
+    args = (lp.to(dev).contiguous(), lens, K, 0, T // 2, tab, order, 0.6,
+            order == 3)
+    before = beam_scan.launches
+    got = beam_scan(*args)
+    assert beam_scan.launches == before + 1
+    ref = beam_scan_plain(*args)
+    for a, r in zip(got, ref):
+        assert torch.equal(a, r)
+
+
+@pytest.mark.parametrize("T,B,K,n,max_len", [(40, 6, 8, 1, 40),
+                                             (40, 6, 8, 3, 7),
+                                             (499, 128, 8, 1, 256),
+                                             (12, 5, 127, 127, 12),
+                                             (1, 1, 1, 1, 1)])
+def test_backtrack_kernel_exact(dev, T, B, K, n, max_len):
+    """The backtrack kernel equals backtrack_plain on seeded backpointers
+    (random parents and classes, rows frozen past their length, n-best
+    entries from distinct beams, the max_len cap): tokens and lengths
+    exact; one launch a call."""
+    g = torch.Generator().manual_seed(T + B + K + n)
+    parent = torch.randint(0, K, (T, B, K), generator=g)
+    ch = torch.randint(-1, 30, (T, B, K), generator=g)
+    bp = (parent * 65536 + ch + 1).to(torch.int32)
+    lens = torch.randint(0, T + 1, (B,), generator=g)
+    for b in range(B):
+        bp[lens[b]:, b] = (torch.arange(K) * 65536).to(torch.int32)
+    idx = torch.stack([torch.randperm(K, generator=g)[:n] for _ in range(B)])
+    before = backtrack.launches
+    tok, tl = backtrack(bp.to(dev), idx.to(dev), max_len)
+    assert backtrack.launches == before + 1
+    want_tok, want_tl = backtrack_plain(bp, idx, max_len)
+    assert torch.equal(tok.cpu(), want_tok)
+    assert torch.equal(tl.cpu(), want_tl)
+
+
+def test_beam_plan_matches_kernel_smem(dev):
+    """K3's plan (decode/beam.py::beam_plan) reckons the shared memory of
+    csrc/ctc_beam.cu's layout (tpuasr_ctc_beam_smem) for every lane-list
+    layout, C and LM order, at the served batch and at one utterance."""
+    fn = _build.lib().tpuasr_ctc_beam_smem
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_longlong
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    for K in (1, 8, 9, 32, 33, 127):
+        for C in (5, 48, 64, 1000):
+            for order in (0, 2, 3):
+                for B in (1, 128, 1000):
+                    plan = beam_plan(B, K, C, order, n_sm)
+                    assert fn(K, C, plan.warps, int(plan.staged)) == plan.smem
 
 
 def test_k3_lm_search_trigram_eos(dev):
@@ -319,6 +395,62 @@ def test_k5b_any_batch_and_width(dev, B, H, reverse):
         assert torch.equal(a, b)
         torch.testing.assert_close(a, w, rtol=0,
                                    atol=1e-4 * w.abs().max().item())
+
+
+# K5's forward and K2's f32 recurrence: csrc/gru_bidir.cu's row-grouped
+# recurrence at one direction (ops/gru.py::_f32_rec_plan), forward and
+# reverse, at the widths and batches K5 serves.
+_ONE_DIR = [(H, B) for H in (384, 512, 640, 1056) for B in (1, 16, 64, 683)]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("H,B", _ONE_DIR)
+def test_k5_one_direction(dev, H, B, reverse):
+    """K5 against gru_scan_plain within 1e-5 at a short T (T=9: float32
+    sums of H terms in another order, carried over 9 steps) on ragged rows
+    (a row of length 0 stays zero); two calls give the same bits; a call
+    counts one launch."""
+    xp, wh, mask, _ = _scan_case(dev, H, B, T=9)
+    before = gru_scan_fwd.launches
+    with full_fp32():
+        got = gru_scan_fwd(xp, wh, mask, reverse)
+        again = gru_scan_fwd(xp, wh, mask, reverse)
+        want = gru_scan_plain(xp, wh, mask, reverse)
+    assert gru_scan_fwd.launches == before + 2
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    if B > 3:
+        assert not got[:, 3].any()
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("H,B", [(512, 16), (384, 64)])
+def test_k5_trained_length(dev, H, B, reverse):
+    """K5 at the trained length (T=249) within 1e-4, chip_smoke's gate
+    (sums of H terms in another order carried over 249 steps)."""
+    xp, wh, mask, _ = _scan_case(dev, H, B, T=249)
+    with full_fp32():
+        got = gru_scan_fwd(xp, wh, mask, reverse)
+        want = gru_scan_plain(xp, wh, mask, reverse)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+    assert torch.equal(got, gru_scan_fwd(xp, wh, mask, reverse))
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("H,B", [(384, 16), (384, 64), (512, 683), (640, 1),
+                                 (1056, 16)])
+def test_k2_f32_recurrence(dev, H, B, reverse):
+    """K2 in float32 (its projection, then K5's recurrence) against its
+    plain version within 1e-5 at T=9; two calls give the same bits; an
+    all-padded row stays zero."""
+    kern, plain, args, kw = _xfused_call("k2_f32", 9, B, 96, H, reverse, dev)
+    with full_fp32():
+        got = kern(*args, **kw)
+        want = plain(*args, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert torch.equal(got, kern(*args, **kw))
+    if B > 2:
+        assert not got[:, 2].any()
 
 
 def test_k2_backward_route(dev):
@@ -878,10 +1010,10 @@ def test_lean_and_k5b_plans_match_kernel_smem(dev):
 
 
 def test_k7_f32_plan_matches_kernel_smem(dev):
-    """K7's f32 plan (ops/gru.py::_bidir_f32_plan) reckons the shared
-    memory of csrc/gru_bidir.cu's layout (tpuasr_gru_bidir_fwd_smem), at
-    the trained widths, the repaired ones and ragged ones, at one and two
-    directions."""
+    """K7's f32 plan (ops/gru.py::_bidir_f32_plan) and the one-direction
+    plan of K5 (_f32_rec_plan) reckon the shared memory of
+    csrc/gru_bidir.cu's layout (tpuasr_gru_bidir_fwd_smem), at the trained
+    widths, the repaired ones and ragged ones."""
     fwd = _build.lib().tpuasr_gru_bidir_fwd_smem
     fwd.argtypes = [ctypes.c_int] * 3
     fwd.restype = ctypes.c_longlong
@@ -889,8 +1021,8 @@ def test_k7_f32_plan_matches_kernel_smem(dev):
     for B, H in ((16, 512), (64, 512), (128, 512), (683, 512), (7, 40),
                  (20, 130), (16, 384), (16, 571), (16, 640), (129, 640),
                  (16, 1024), (64, 1024), (7, 1056)):
-        for ndir in (1, 2):
-            plan = gru_mod._bidir_f32_plan(B, H, n_sm, ndir)
+        for plan in (gru_mod._bidir_f32_plan(B, H, n_sm),
+                     gru_mod._f32_rec_plan(B, H, n_sm)):
             assert fwd(H, plan.U, plan.kc) == plan.smem
 
 

@@ -14,8 +14,9 @@ import torch
 
 from tpuasr_torch.ops.gru import (_MODE_K2, _MODE_Q8, _MODE_Q8_REC,
                                   _SMEM_BUDGET, _bidir_f32_plan,
-                                  _bidir_f32_smem, _lean_plan, _lean_rows,
-                                  _lean_smem, _scan_plan, _tn_slices)
+                                  _bidir_f32_smem, _f32_rec_plan, _lean_plan,
+                                  _lean_rows, _lean_smem, _scan_plan,
+                                  _tn_slices, gru_scan_plain)
 
 N_SM = 132                  # SMs of an H100 SXM
 SMEM_MAX = 227 * 1024       # shared memory a block may take on an H100
@@ -39,7 +40,11 @@ def _check_fits(plan, B, H):
     assert plan.grid <= N_SM
     assert plan.grid == plan.ndir * plan.rg * -(-H // plan.U)
     if plan.rec == "f32":             # K5's forward: 16 rows a pass
-        assert plan.R == 16 and plan.rg == 1 and plan.U & (plan.U - 1) == 0
+        assert plan.R == 16 and plan.U in (1, 2, 4, 8, 16)
+        rp = _f32_rec_plan(B, H, N_SM)
+        assert (plan.U, plan.rg, plan.grid, plan.smem, plan.kc) == (
+            rp.U, rp.rg, rp.grid, rp.smem, rp.kc)
+        _check_rows(B, plan.rg)
     else:                             # two (row, unit) items a thread
         assert plan.U in (8, 16)
         assert plan.R * plan.U <= 1024 and plan.R in (16, 32, 64, 128)
@@ -72,7 +77,7 @@ def test_plan_serving_layer():
         plan = _scan_plan(16, 1024, 512, *MODES[mode])
         assert (plan.U, plan.R, plan.rg, plan.grid) == (8, 16, 1, 64)
     plan = _scan_plan(128, 1024, 512, *MODES["k2_f32"])
-    assert (plan.U, plan.R, plan.grid) == (4, 16, 128)
+    assert (plan.U, plan.R, plan.rg, plan.grid) == (16, 16, 4, 128)
 
 
 def test_plan_any_batch():
@@ -87,7 +92,7 @@ def test_plan_any_batch():
 @pytest.mark.parametrize("B,D,H,mode,n_sm", [
     (16, 512, 2048, "k2_bf16", N_SM),     # Wh columns + one pass > budget
     (16, 512, 2200, "k2_bf16", N_SM),     # > 132 blocks of 16 units
-    (16, 512, 3000, "k2_f32", N_SM),      # K5: > 16 units a block
+    (16, 512, 3000, "k2_f32", N_SM),      # f32: > 132 blocks of 16 units
     (16, 512, 512, "k4_rec_q8", 16),      # a small card: > 16 blocks
 ])
 def test_plan_raises_for_shapes_that_cannot_fit(B, D, H, mode, n_sm):
@@ -307,3 +312,97 @@ def test_bidir_f32_plans_at_the_trained_shapes():
 def test_bidir_f32_plan_raises_past_the_width(B, H, n_sm):
     with pytest.raises(ValueError, match="K7's f32 forward"):
         _bidir_f32_plan(B, H, n_sm)
+
+
+# The f32 recurrence at one direction (``_f32_rec_plan``): K5's forward and
+# K2's f32 recurrence run csrc/gru_bidir.cu's kernel with it, forward or
+# reverse. It must plan every batch at every width K5 served before (H up
+# to 1056 on 132 SMs), cover each (row, unit) of a step exactly once, and
+# fill the card at the trained shapes.
+ONE_DIR_BATCHES = (1, 16, 64, 683)
+ONE_DIR_WIDTHS = (40, 130, 384, 512, 640, 1024, 1056)
+
+
+def _emulate_rows(plan, xp, wh, mask, reverse):
+    """The plan's schedule on the CPU: each step, block (rg, ug) computes
+    the gates of its row group's rows for its U units from h_prev (ys at
+    the previous step's time), as the kernel does; every (row, unit) of a
+    step must be written exactly once."""
+    T, B, H3 = xp.shape
+    H = H3 // 3
+    ys = torch.zeros(T, B, H, dtype=torch.float64)
+    for s in range(T):
+        t = T - 1 - s if reverse else s
+        tp = t + 1 if reverse else t - 1
+        h_prev = ys[tp] if s else torch.zeros(B, H, dtype=torch.float64)
+        hits = torch.zeros(B, H, dtype=torch.int64)
+        for b0, b1 in _lean_rows(B, plan.rg):
+            for u0 in range(0, H, plan.U):
+                j = torch.arange(u0, min(H, u0 + plan.U))
+                hp = h_prev[b0:b1] @ wh[:, torch.cat([j, H + j, 2 * H + j])]
+                x = xp[t, b0:b1]
+                n = len(j)
+                r = torch.sigmoid(x[:, j] + hp[:, :n])
+                z = torch.sigmoid(x[:, H + j] + hp[:, n:2 * n])
+                g = torch.tanh(x[:, 2 * H + j] + r * hp[:, 2 * n:])
+                h = h_prev[b0:b1][:, j]
+                m = mask[t, b0:b1]
+                ys[t, b0:b1, u0:u0 + n] = m * ((1 - z) * g + z * h) + (
+                    1 - m) * h
+                hits[b0:b1, u0:u0 + n] += 1
+        assert bool((hits == 1).all())
+    return ys
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("H", ONE_DIR_WIDTHS)
+@pytest.mark.parametrize("B", ONE_DIR_BATCHES)
+def test_one_direction_plan_covers_every_row_once_within_budget(B, H,
+                                                                reverse):
+    plan = _f32_rec_plan(B, H, N_SM)
+    assert plan.ndir == 1 and plan.U in (1, 2, 4, 8, 16)
+    assert plan.kc % 128 == 0
+    nch = -(-H // plan.kc)
+    assert nch * plan.kc >= H > (nch - 1) * plan.kc
+    assert plan.smem == _bidir_f32_smem(H, plan.U, plan.kc) <= _SMEM_BUDGET
+    assert plan.grid == plan.rg * -(-H // plan.U) <= N_SM
+    _check_rows(B, plan.rg)
+    # The schedule at a short T on ragged rows: each (row, unit) once a
+    # step, and the plain scan's result (the emulation runs in float64, the
+    # plain scan in float32: within 1e-6).
+    if B * H > 64 * 512:
+        return
+    T = 3
+    g = torch.Generator().manual_seed(B * 7 + H)
+    xp = torch.randn(T, B, 3 * H, generator=g, dtype=torch.float64)
+    wh = torch.randn(H, 3 * H, generator=g, dtype=torch.float64) / H ** 0.5
+    lens = torch.randint(0, T + 1, (B,), generator=g)
+    lens[0] = T
+    mask = (torch.arange(T)[:, None] < lens[None, :]).double()[:, :, None]
+    got = _emulate_rows(plan, xp, wh, mask, reverse)
+    want = gru_scan_plain(xp, wh, mask, reverse)
+    torch.testing.assert_close(got, want.double(), rtol=0, atol=1e-6)
+
+
+def test_one_direction_plan_fills_the_card_at_the_trained_shapes():
+    """Config 3 (H=512) and deepspeech_var (H=384) at B=16: 128 and 96
+    blocks of 4 units, every row in one row group; at B=64 four row groups
+    of 16 rows of 16-unit blocks."""
+    for H, grid in ((512, 128), (384, 96)):
+        plan = _f32_rec_plan(16, H, N_SM)
+        assert (plan.U, plan.rg, plan.grid) == (4, 1, grid)
+        assert plan.grid >= 96
+        plan = _f32_rec_plan(64, H, N_SM)
+        assert (plan.U, plan.rg) == (16, 4) and plan.grid >= 96
+        # K2's f32 recurrence takes the same plan.
+        sp = _scan_plan(16, 768, H, _MODE_K2, torch.float32, N_SM)
+        assert (sp.U, sp.rg, sp.grid, sp.kc) == (4, 1, grid, H)
+
+
+@pytest.mark.parametrize("B,H,n_sm", [(16, 1057, N_SM), (683, 1100, N_SM),
+                                      (16, 4096, N_SM), (16, 512, 16)])
+def test_one_direction_plan_raises_past_the_width(B, H, n_sm):
+    with pytest.raises(ValueError, match="f32 GRU recurrence"):
+        _f32_rec_plan(B, H, n_sm)
+    with pytest.raises(ValueError):
+        _scan_plan(B, 512, H, _MODE_K2, torch.float32, n_sm)

@@ -2,19 +2,24 @@
 
     python3 tools/gru_f32_parts.py
 
-Builds csrc/gru_bidir.cu (K7-f32's forward recurrence) and csrc/gru_lean.cu
-(the lean BPTT recurrence of K5b, K2b and K7b) as they are and in ablated
+Builds csrc/gru_bidir.cu (the f32 forward recurrence of K5, K2 in f32 and
+K7-f32) and csrc/gru_lean.cu (the lean BPTT recurrence of K5b, K2b and
+K7b) as they are and in ablated
 copies, each with one part of the step taken out: the barrier (a
 __syncthreads in its place), the staging of the previous step's rows (h,
 or dhp), the product (and with it what the compiler drops when its sums
 are zero), and the loads of the gate items' inputs (xp and the mask; for
 the lean recurrence also hp, ysp and dys). Times each build's recurrence
 (CUDA events, mean of 5) at config 3's layer (T=249, H=512): K7-f32 at
-B=16, 64 and 128, K5b's lean recurrence at B=16 and 64, K7b's at B=16 and
-128, each under the plan ops/gru.py gives. An ablated build computes wrong
+B=16, 64 and 128, K5's forward (one direction, ``_f32_rec_plan``) at B=16
+and 64 and at deepspeech_var's H=384, K5b's lean recurrence at B=16 and 64,
+K7b's at B=16 and 128, each under the plan ops/gru.py gives. An ablated build computes wrong
 values: its time only says what the part costs, and the parts overlap, so
-they need not add up. Prints the card's name and power limit first. Needs
-one CUDA card and nvcc.
+they need not add up. Then K5's forward as it is, with its contraction
+staged in chunks of 128, 256 and all of H (the plan takes all of H where
+it fits): more chunks overlap a chunk's copy with the previous chunk's
+product. Prints the card's name and power limit first. Needs one CUDA card
+and nvcc.
 """
 
 from __future__ import annotations
@@ -42,8 +47,8 @@ _PRODUCT = ("for (int q = kw * 32 + lane; q < kc4; q += WPT * 32) {",
 ABLATIONS = {
     "gru_bidir.cu": {
         "as is": [],
-        "no barrier": [("group_sync(gbar, t + 1, UG);", "__syncthreads();")],
-        "no staging": [("if (t) stage(hprev, 0);", ""),
+        "no barrier": [("group_sync(gbar, s + 1, UG);", "__syncthreads();")],
+        "no staging": [("if (s) stage(hprev, 0);", ""),
                        ("if (i + 1 < items) stage(hprev, i + 1);", "")],
         "no product": [_PRODUCT],
         "no gate loads": [("if (gate && b < rb1) {", "if (false) {")],
@@ -129,6 +134,14 @@ def main() -> int:
                       f"dirs={plan.ndir} grid={plan.grid}", "gru_bidir.cu",
                       lambda p=plan, x=xps, m=m2: gru_mod._bidir_f32(
                           p, x, wh, m)))
+    for Hk, B in ((512, 16), (512, 64), (384, 16), (384, 64)):
+        plan = gru_mod._f32_rec_plan(B, Hk, n_sm)
+        xp, m2 = rnd(T, B, 3 * Hk), torch.ones(T, B, device="cuda")
+        whk = rnd(Hk, 3 * Hk, scale=Hk ** -0.5)
+        cases.append((f"K5 fwd H={Hk} B={B} U={plan.U} rg={plan.rg} "
+                      f"grid={plan.grid}", "gru_bidir.cu",
+                      lambda p=plan, x=xp, w=whk, m=m2: gru_mod._bidir_f32(
+                          p, (x,), (w,), m)))
     for key, B, ndir in (("K5b", 16, 1), ("K5b", 64, 1), ("K7b", 16, 2),
                          ("K7b", 128, 2)):
         plan = gru_mod._lean_plan(B, H, ndir, n_sm)
@@ -152,6 +165,22 @@ def main() -> int:
                 ms = timed(libs[(source, name)], call)
                 row.append(f"{name} {ms:.3f} ms ({ms / T * 1e3:.2f} us)")
             print(f"{label}: " + "; ".join(row), flush=True)
+        lib = libs[("gru_bidir.cu", "as is")]
+        for Hk, B in ((512, 16), (512, 64), (384, 16), (384, 64)):
+            base = gru_mod._f32_rec_plan(B, Hk, n_sm)
+            xp, m2 = rnd(T, B, 3 * Hk), torch.ones(T, B, device="cuda")
+            whk = rnd(Hk, 3 * Hk, scale=Hk ** -0.5)
+            row = []
+            for kc in (128, 256, -(-Hk // 128) * 128):
+                plan = gru_mod.RowGroupPlan(
+                    base.U, base.rg, kc, gru_mod._bidir_f32_smem(Hk, base.U,
+                                                                 kc),
+                    base.grid, 1)
+                ms = timed(lib, lambda p=plan: gru_mod._bidir_f32(
+                    p, (xp,), (whk,), m2))
+                row.append(f"kc={kc} {ms:.3f} ms ({ms / T * 1e3:.2f} us)")
+            print(f"K5 fwd H={Hk} B={B} U={base.U} rg={base.rg} by "
+                  f"contraction chunk: " + "; ".join(row), flush=True)
     return 0
 
 

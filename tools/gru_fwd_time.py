@@ -7,8 +7,11 @@ K7 in float32 (gru_scan_bidir_fwd, both directions) at config 3's layer
 (B=16, 64 and 128 at T'=249) and at the served shape (B=128, T'=499),
 beside cuDNN's bidirectional forward in full float32 (torch.nn.GRU, b_hh =
 0; its time includes the input projection); K5's forward (gru_scan_fwd) at
-H=512 and 384, B=16 and 64; and, where the tree has it (ops/gru.py::
-_bidir_f32), K7-f32's recurrence at one direction at those shapes. CUDA
+H=512 and 384, B=16 and 64 (since PR 13 it runs csrc/gru_bidir.cu's
+recurrence at one direction, which K2's f32 recurrence shares); and, where
+the tree has it (ops/gru.py::_bidir_f32), that recurrence at one
+direction under its one-direction plan (_f32_rec_plan; PR 12's tree:
+_bidir_f32_plan with ndir=1) at those shapes. CUDA
 events, mean of 10 calls after a warm-up, TF32 off. --root imports
 tpuasr_torch from another checkout (for example the parent commit,
 unpacked by git archive), so two trees can be timed in turns in one call:
@@ -90,8 +93,10 @@ def main() -> int:
                 r = {"k5_ms": cs.cuda_ms(lambda: g.gru_scan_fwd(xp, wh, mask),
                                          10)}
                 if hasattr(g, "_bidir_f32"):
-                    plan = g._bidir_f32_plan(B, H, g._sm_count(xp.device),
-                                             ndir=1)
+                    n_sm = g._sm_count(xp.device)
+                    plan = (g._f32_rec_plan(B, H, n_sm)
+                            if hasattr(g, "_f32_rec_plan")
+                            else g._bidir_f32_plan(B, H, n_sm, ndir=1))
                     r["one_direction_ms"] = cs.cuda_ms(
                         lambda: g._bidir_f32(plan, (xp,), (wh,),
                                              mask.reshape(T, B)), 10)

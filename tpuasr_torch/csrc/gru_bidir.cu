@@ -1,35 +1,45 @@
-// Both directions of a bidirectional GRU: the forward scan in f32
-// (training). The bf16 forward (serving) is K2's tensor-core recurrence
-// over both directions (csrc/gru_scan.cu, tpuasr_gru_rec); the f32
-// backward, K7b, is csrc/gru_lean.cu's lean recurrence over both
-// directions with its products before and after.
+// The float32 forward GRU recurrence, one or two directions in one
+// cooperative grid: K5's forward, the second launch of K2 in float32 (after
+// its input projection on K2's f32 tiles) and K7's f32 forward (both
+// directions of a bidirectional GRU). The bf16 forwards (serving) are K2's
+// tensor-core recurrence (csrc/gru_scan.cu, tpuasr_gru_rec); the f32
+// backwards (K5b, K2b, K7b) are csrc/gru_lean.cu's lean recurrence with
+// their products before and after.
 //
-// Replaces, for f32 streams, K7 of tpuasr/ops/pallas_gru.py:
-// _bidir_fwd_kernel (line 319), built by _build_bidir_fwd (pallas_call at
-// line 406): ysf, ysb = gru_scan_bidir(xpf, xpb, whf, whb, mask). xpb is
-// built by the caller from the per-row reversed input, so both recursions
-// run forward in time under the same mask. Per direction and step
-// (pallas_gru.py:70-74, gate order r, z, n): hp = h Wh,
-// r = sigmoid(xp_r + hp_r), z = sigmoid(xp_z + hp_z),
+// Replaces, for f32 streams, of tpuasr/ops/pallas_gru.py:
+//   K5  _fwd_kernel (line 77), built by _build_fwd (pallas_call at line
+//       163): ys = gru_scan(xp, wh, mask, reverse). With reverse the scan
+//       runs t = T-1 down to 0 with h_prev = ys[t+1], on left-aligned
+//       ragged rows under the same mask (a row's padded tail keeps h = 0).
+//   K2  _fwd_xf_kernel (pallas_call at line 615) in f32: its recurrence.
+//   K7  _bidir_fwd_kernel (line 319), built by _build_bidir_fwd
+//       (pallas_call at line 406): ysf, ysb = gru_scan_bidir(xpf, xpb, whf,
+//       whb, mask). xpb is built by the caller from the per-row reversed
+//       input, so both recursions run forward in time under the same mask.
+// Per direction and step (pallas_gru.py:70-74, gate order r, z, n):
+// hp = h Wh, r = sigmoid(xp_r + hp_r), z = sigmoid(xp_z + hp_z),
 // n = tanh(xp_n + r hp_n), h' = (1 - z) n + z h, h = m h' + (1 - m) h.
 //
 // What bounds it on the H100: the operations (fp32 on the FMA units, never
-// TF32). Training at T=249, B=128, H=512 does 2 x 249 x 128 x 512 x 1536
-// multiply-adds, 1.50 ms at the 67 TFLOP/s fp32 peak; at B=16, 0.19 ms.
+// TF32). K7 in training at T=249, B=128, H=512 does 2 x 249 x 128 x 512 x
+// 1536 multiply-adds, 1.50 ms at the 67 TFLOP/s fp32 peak; at B=16, 0.19
+// ms; K5 at B=16 one direction, 0.094 ms.
 // But the steps are sequential and each is a small product, so what a
 // design reaches is set by how many SMs share a step and what each must
 // stage per step.
 //
 // Design: a cooperative grid of directions x row groups x unit groups, as
 // K2's recurrence and the lean recurrence are split (ops/gru.py::
-// _bidir_f32_plan picks U, the row groups and the contraction chunk; both
-// directions share a grid where the H contraction takes at most two
-// chunks, else each is a launch). Block (d, rg, ug) keeps Wh's 3U columns
+// _bidir_f32_plan picks U, the row groups and the contraction chunk for
+// two directions, and shares one grid where the H contraction takes at
+// most two chunks, else each is a launch; _f32_rec_plan plans one
+// direction). Block (d, rg, ug) keeps Wh's 3U columns
 // of direction d's units ug*U .. (U of 1-16) in shared memory for the
 // whole scan, contraction contiguous, and runs the rows of its row group,
 // ceil(B / RG) of them; each (direction, row group) has a barrier of its
-// own, one a step. The state is ys itself: step t stages rows of ys[t-1]
-// (cp.async through L2: other blocks wrote them), 16 rows a pass, in
+// own, one a step. The state is ys itself: a step stages rows of ys at
+// the previous step's time (t-1, or t+1 with reverse; cp.async through
+// L2: other blocks wrote them), 16 rows a pass, in
 // chunks of KC of the H contraction, into two buffers, so that the next
 // pass's (or chunk's) copy runs during this one's product, with one
 // __syncthreads a staged item. The product is tiled in registers: each
@@ -75,7 +85,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 gru_bidir_f32_kernel(BidirDir d0, BidirDir d1,
                      const float* __restrict__ mask,   // (T, B)
                      unsigned* __restrict__ bar,       // (dirs, RG), zeroed
-                     int T, int B, int H, int RG, int KC) {
+                     int T, int B, int H, int RG, int KC, int reverse) {
   constexpr int TN = bidir_tn(U);
   constexpr int P = kTM * TN;             // (row, unit) pairs of a tile
   constexpr int N = 3 * P;                // sums a lane keeps
@@ -161,13 +171,17 @@ gru_bidir_f32_kernel(BidirDir d0, BidirDir d1,
       }
     }
   };
-  XIn pre = load_x(0, rb0);
+  XIn pre = load_x(reverse ? T - 1 : 0, rb0);
   __syncthreads();
 
-  for (int t = 0; t < T; ++t) {
+  // Step s runs time t (T-1-s with reverse); h_prev is ys at the previous
+  // step's time, zero at s = 0.
+  for (int s = 0; s < T; ++s) {
+    const int t = reverse ? T - 1 - s : s;
     const size_t tb = static_cast<size_t>(t) * B;
-    const float* hprev = t ? io.ys + (tb - B) * H : io.ys;   // ys[t-1]
-    if (t) stage(hprev, 0);
+    const float* hprev =
+        s ? io.ys + (reverse ? tb + B : tb - B) * H : io.ys;
+    if (s) stage(hprev, 0);
     for (int pass = 0; pass < npass; ++pass) {
       const int b0 = rb0 + pass * kR;
       const int rows = min(kR, rb1 - b0);
@@ -175,10 +189,10 @@ gru_bidir_f32_kernel(BidirDir d0, BidirDir d1,
       const XIn x = pass == 0 ? pre : load_x(t, b0);
       // The item's own h_prev (this thread wrote it in the last step).
       const float h =
-          live && t ? __ldcg(hprev + static_cast<size_t>(b0 + gr) * H + j)
+          live && s ? __ldcg(hprev + static_cast<size_t>(b0 + gr) * H + j)
                     : 0.f;
       float p[3] = {0.f, 0.f, 0.f};                       // h_prev Wh
-      if (t) {
+      if (s) {
         float acc[N];
 #pragma unroll
         for (int e = 0; e < N; ++e) acc[e] = 0.f;
@@ -244,18 +258,18 @@ gru_bidir_f32_kernel(BidirDir d0, BidirDir d1,
         io.ys[(tb + b0 + gr) * H + j] = x.m * hn + (1.f - x.m) * h;
       }
     }
-    if (t + 1 == T) break;
-    pre = load_x(t + 1, rb0);               // loaded across the barrier
-    group_sync(gbar, t + 1, UG);            // the row group's ys[t] is out
+    if (s + 1 == T) break;
+    pre = load_x(reverse ? t - 1 : t + 1, rb0);   // loaded across the barrier
+    group_sync(gbar, s + 1, UG);            // the row group's ys[t] is out
   }
 }
 
 template <int U>
 int launch_bidir(const BidirDir& d0, const BidirDir& d1, const float* mask,
                  unsigned* bar, int T, int B, int H, int RG, int KC,
-                 int ndir, cudaStream_t stream) {
+                 int reverse, int ndir, cudaStream_t stream) {
   BidirDir a = d0, b = d1;
-  void* args[] = {&a, &b, &mask, &bar, &T, &B, &H, &RG, &KC};
+  void* args[] = {&a, &b, &mask, &bar, &T, &B, &H, &RG, &KC, &reverse};
   return launch_cooperative(
       reinterpret_cast<const void*>(gru_bidir_f32_kernel<U>),
       ndir * RG * ((H + U - 1) / U), bidir_smem_bytes(H, U, KC), args,
@@ -264,15 +278,17 @@ int launch_bidir(const BidirDir& d0, const BidirDir& d1, const float* mask,
 
 }  // namespace
 
-// K7's f32 recurrence's dynamic shared memory a block at (H, U, KC).
+// The f32 recurrence's dynamic shared memory a block at (H, U, KC).
 extern "C" long long tpuasr_gru_bidir_fwd_smem(int H, int U, int KC) {
   return static_cast<long long>(bidir_smem_bytes(H, U, KC));
 }
 
-// K7 in f32 over ndir directions (1 or 2) with the plan (U, RG, KC, smem)
-// of ops/gru.py::_bidir_f32_plan: direction d reads xp<d> (T, B, 3H) and
-// wh<d> (H, 3H) and writes ys<d> (T, B, H), all f32 and contiguous, the
-// second set read only with ndir = 2; mask (T, B) f32; bar: ndir * RG
+// The f32 recurrence over ndir directions (1 or 2) with the plan (U, RG,
+// KC, smem) of ops/gru.py::_bidir_f32_plan (K7) or _f32_rec_plan (K5, K2
+// in f32; one direction): direction d reads xp<d> (T, B, 3H) and wh<d>
+// (H, 3H) and writes ys<d> (T, B, H), all f32 and contiguous, the second
+// set read only with ndir = 2; mask (T, B) f32; reverse: every direction
+// scans from t = T-1 down (K5's reverse; K7 passes 0); bar: ndir * RG
 // zeroed uint32 words. A plan the kernel does not lay out the same way is
 // refused.
 extern "C" int tpuasr_gru_bidir_fwd(const float* xp0, const float* wh0,
@@ -280,7 +296,7 @@ extern "C" int tpuasr_gru_bidir_fwd(const float* xp0, const float* wh0,
                                     const float* wh1, float* ys1,
                                     const float* mask, unsigned* bar, int T,
                                     int B, int H, int U, int RG, int KC,
-                                    int ndir, long long smem,
+                                    int reverse, int ndir, long long smem,
                                     cudaStream_t stream) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
   if (ndir < 1 || ndir > 2 || RG < 1 || KC <= 0 || KC % 128 ||
@@ -289,7 +305,7 @@ extern "C" int tpuasr_gru_bidir_fwd(const float* xp0, const float* wh0,
   const BidirDir d0{xp0, wh0, ys0};
   const BidirDir d1{xp1, wh1, ys1};
 #define TPUASR_BIDIR(N)                                                       \
-  launch_bidir<N>(d0, d1, mask, bar, T, B, H, RG, KC, ndir, stream)
+  launch_bidir<N>(d0, d1, mask, bar, T, B, H, RG, KC, reverse, ndir, stream)
   TPUASR_BY_UNITS(TPUASR_BIDIR)
 #undef TPUASR_BIDIR
 }

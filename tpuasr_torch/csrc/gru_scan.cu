@@ -59,8 +59,9 @@
 //      block derives the same scales from the same absmax. (Quantizing the
 //      whole state in every block instead, after one barrier, made a step
 //      about three times as long: PERF.md.)
-//      f32: K5's forward (gru_coop.cuh), FMA products, the state exchanged
-//      through ys.
+//      f32 (K2 in float32, training): the second launch is csrc/
+//      gru_bidir.cu's row-grouped recurrence at one direction
+//      (tpuasr_gru_bidir_fwd, launched by ops/gru.py), not this kernel.
 //   The staging is per block, so the plan (ops/gru.py::_scan_plan) splits
 //   the rows over as many row groups as the SMs allow: at the served layer
 //   4 groups of 32 rows times 32 groups of 16 units, 128 blocks, against
@@ -796,17 +797,17 @@ extern "C" int tpuasr_gru_proj(int kind, int x_bf16, const void* x, int lda,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Dynamic shared memory the recurrence of a kind lays out for (H, U, R).
+// Dynamic shared memory the recurrence of a kind (1 or 2) lays out for
+// (H, U, R).
 extern "C" long long tpuasr_gru_rec_smem(int kind, int H, int U, int R) {
-  if (kind == 0) return static_cast<long long>(fwd_smem_bytes(H, U));
+  if (kind != 1 && kind != 2) return -1;
   return static_cast<long long>(rec_smem_bytes(kind == 2, H, U, R));
 }
 
 // ys (T, B, H) from xp (T, B, 3H) and mask (T, B) with the plan (U, R, RG,
 // smem) of ops/gru.py::_scan_plan, over ndir directions: block d of the
 // grid's first dimension reads xp<d>, wh<d> and writes ys<d> (with one
-// direction xp1, wh1, ys1 are not read). kind 0: xp f32, wh (H, 3H) f32,
-// ys f32, K5's forward (RG = 1, one direction); kind 1: xp f32 (K2) or
+// direction xp1, wh1, ys1 are not read). kind 1: xp f32 (K2) or
 // bf16 (xp_bf16: K7, one or two directions), wh packed bf16, ys bf16; kind
 // 2: xp f32, wh packed int8 with swh (3H,), ys f32 or bf16 (ys_bf16), one
 // direction; hbuf: the scratch of ops/gru.py::_rec_scratch. bar: ndir * RG
@@ -824,16 +825,6 @@ extern "C" int tpuasr_gru_rec(int kind, int ys_bf16, int xp_bf16,
       smem != tpuasr_gru_rec_smem(kind, H, U, R) ||
       (xp_bf16 && kind != 1) || (ndir == 2 && kind != 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (kind == 0) {
-    if (ys_bf16 || RG != 1) return static_cast<int>(cudaErrorInvalidValue);
-    const float* x = static_cast<const float*>(xp0);
-    float* y = static_cast<float*>(ys0);
-    const float* w = static_cast<const float*>(wh0);
-#define TPUASR_FWD(N) \
-  launch_fwd<N>(x, w, mask, y, bar, T, B, H, reverse, stream)
-    TPUASR_BY_UNITS(TPUASR_FWD)
-#undef TPUASR_FWD
-  }
   if (R < 16 || R > 128 || (R & (R - 1)) || R * U > kGI * kThreads ||
       (kind == 1 && !ys_bf16))
     return static_cast<int>(cudaErrorInvalidValue);

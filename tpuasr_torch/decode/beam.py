@@ -2,10 +2,13 @@
 
 Counterpart of ``tpuasr/decode/pallas_beam.py::ctc_beam_search_pallas``,
 with bigram or trigram shallow LM fusion. ``beam_scan`` runs the per-frame
-update (K3): the CUDA kernel of ``csrc/ctc_beam.cu`` for a CUDA tensor,
-``beam_scan_plain`` for a CPU tensor. ``ctc_beam_search`` checks the fusion
-tables, applies the end-of-sentence term, turns the packed backpointers into
-token sequences and picks the n-best in plain torch, as the JAX wrapper does
+update (K3): the CUDA kernel of ``csrc/ctc_beam.cu`` for a CUDA tensor
+(one warp an utterance, planned by ``beam_plan``), ``beam_scan_plain`` for a
+CPU tensor. ``backtrack`` turns the packed backpointers into token sequences:
+``csrc/ctc_beam.cu``'s backtrack kernel (a thread per utterance and n-best
+entry) for a CUDA tensor, ``backtrack_plain`` for a CPU tensor.
+``ctc_beam_search`` checks the fusion tables, applies the end-of-sentence
+term and picks the n-best in plain torch, as the JAX wrapper does
 (pallas_beam.py:525-629).
 
 Semantics follow the Pallas kernel for every live hypothesis: stay/extend
@@ -21,6 +24,7 @@ so the scores of dead beams (about -1e30) are not held to Pallas.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -33,6 +37,57 @@ from tpuasr_torch.decode.prefix_beam import (_H1_INIT as _I1,
                                              logaddexp, topk_indices)
 
 LANES = 128
+# csrc/ctc_beam.cu: utterances (warps) a block at most, the shared memory a
+# block may take, and the largest bigram table staged in it.
+_MAX_WARPS = 4
+_SMEM_BUDGET = 220 * 1024
+_MAX_STAGED_TABLE = 128 * 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class BeamPlan:
+    """How K3 runs a batch: ``warps`` utterances a block (a warp each),
+    the bigram table ``staged`` in shared memory once a block, and the
+    block's ``smem`` bytes."""
+    warps: int
+    staged: bool
+    smem: int
+
+
+def _warp_words(K: int, C: int) -> int:
+    """32-bit words of a warp's shared memory (warp_words in
+    csrc/ctc_beam.cu): two log-prob rows, two buffers of the 8 state
+    fields, p_tot, stay_pb, stay_pnb, the stay ranks, the two hash
+    products, the winners' indices, and a bit set of merged classes a
+    beam."""
+    return 2 * C + 23 * K + K * -(-C // 32)
+
+
+def beam_plan(B: int, K: int, C: int, lm_order: int = 0,
+              n_sm: int = 132) -> BeamPlan:
+    """The launch plan of K3 at batch B, beam K, C classes and LM order
+    (0, 2 or 3) on a card of n_sm SMs: one warp an utterance, as many
+    utterances a block as spread the batch over the SMs (at most 4, fewer
+    where the shared memory does not hold them); the bigram table staged
+    in shared memory where it takes at most 128 KiB and fits beside one
+    warp. Raises ValueError for a shape no block can hold."""
+    if not 1 <= K <= LANES - 1:
+        raise ValueError(f"beam_width {K} outside [1, {LANES - 1}]")
+    if C < 1 or lm_order not in (0, 2, 3):
+        raise ValueError(f"beam_plan: C={C}, lm_order={lm_order}")
+    per = 4 * _warp_words(K, C)
+    tab = 4 * (C + 1) * C
+    staged = lm_order == 2 and tab <= _MAX_STAGED_TABLE and (
+        tab + per <= _SMEM_BUDGET)
+    tab = tab if staged else 0
+    if tab + per > _SMEM_BUDGET:
+        raise ValueError(
+            f"the beam kernel cannot hold K={K}, C={C}: a warp's state "
+            f"takes {per} bytes of shared memory (at most {_SMEM_BUDGET})")
+    warps = max(1, min(_MAX_WARPS, -(-max(B, 1) // n_sm)))
+    while tab + warps * per > _SMEM_BUDGET:
+        warps -= 1
+    return BeamPlan(warps, staged, tab + warps * per)
 
 
 def beam_scan_plain(log_probs, lengths, K: int, blank: int, max_len: int,
@@ -205,6 +260,9 @@ def beam_scan(log_probs, lengths, K: int, blank: int, max_len: int,
         rows = (C + 1) ** (lm_order - 1)
         _build.check_tensor("beam_scan: lm_table", lm_table, dev,
                             (torch.float32,), (rows, C))
+    plan = beam_plan(B, K, C, lm_order,
+                     torch.cuda.get_device_properties(dev)
+                     .multi_processor_count)
     bp = torch.empty((T, B, K), dtype=torch.int32, device=dev)
     pb = torch.empty((B, K), dtype=torch.float32, device=dev)
     pnb, lm = torch.empty_like(pb), torch.empty_like(pb)
@@ -212,7 +270,8 @@ def beam_scan(log_probs, lengths, K: int, blank: int, max_len: int,
     last2 = torch.empty_like(last)
     fn = _build.lib().tpuasr_ctc_beam
     fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_float] + [ctypes.c_int] * 3
+                   + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     with torch.cuda.device(dev):
         code = fn(_build.ptr(log_probs), _build.ptr(lengths),
@@ -220,7 +279,8 @@ def beam_scan(log_probs, lengths, K: int, blank: int, max_len: int,
                   _build.ptr(bp), _build.ptr(pb), _build.ptr(pnb),
                   _build.ptr(lm), _build.ptr(last), _build.ptr(last2),
                   B, T, C, K, blank, max_len, lm_order, lm_w,
-                  int(track_last2), _build.stream_ptr(log_probs))
+                  int(track_last2), plan.warps, int(plan.staged), plan.smem,
+                  _build.stream_ptr(log_probs))
     beam_scan.launches += 1
     _build.check(code, "beam_scan")
     return bp, pb, pnb, lm, last, last2
@@ -229,9 +289,10 @@ def beam_scan(log_probs, lengths, K: int, blank: int, max_len: int,
 beam_scan.launches = 0
 
 
-def backtrack(bp: torch.Tensor, beam_idx: torch.Tensor, max_len: int):
-    """Packed backpointers (T, B, K) + final beams (B, n) -> left-compacted
-    tokens (B, n, max_len) int32 (pad -1) and token_lens (B, n) int32."""
+def backtrack_plain(bp: torch.Tensor, beam_idx: torch.Tensor, max_len: int):
+    """Plain version of the backtrack kernel: packed backpointers (T, B, K)
+    + final beams (B, n) -> left-compacted tokens (B, n, max_len) int32
+    (pad -1) and token_lens (B, n) int32. A loop over the frames."""
     T, B, _ = bp.shape
     n = beam_idx.shape[1]
     cur = beam_idx.to(torch.int64)
@@ -249,6 +310,43 @@ def backtrack(bp: torch.Tensor, beam_idx: torch.Tensor, max_len: int):
     out.scatter_(2, pos, torch.where(keep, toks, -1))
     token_lens = torch.clamp(keep.sum(dim=2), max=max_len).to(torch.int32)
     return out[:, :, :max_len].to(torch.int32), token_lens
+
+
+def backtrack(bp: torch.Tensor, beam_idx: torch.Tensor, max_len: int):
+    """The reverse walk of the packed backpointers (JAX's reverse scan,
+    pallas_beam.py:612-629): bp (T, B, K) int32 and the final beams
+    beam_idx (B, n) -> tokens (B, n, max_len) int32 left-compacted, capped
+    at max_len and padded with -1, and token_lens (B, n) int32. CPU tensors
+    take ``backtrack_plain``; CUDA tensors launch the kernel (one launch, a
+    thread per utterance and n-best entry)."""
+    if bp.device.type == "cpu":
+        return backtrack_plain(bp, beam_idx, max_len)
+    if bp.device.type != "cuda":
+        raise ValueError(f"backtrack: unsupported device {bp.device}")
+    T, B, K = bp.shape
+    n = beam_idx.shape[1]
+    dev = bp.device
+    _build.check_tensor("backtrack: bp", bp, dev, (torch.int32,), (T, B, K))
+    idx = beam_idx.to(torch.int32).contiguous()
+    _build.check_tensor("backtrack: beam_idx", idx, dev, (torch.int32,),
+                        (B, n))
+    tokens = torch.empty((B, n, max_len), dtype=torch.int32, device=dev)
+    token_lens = torch.empty((B, n), dtype=torch.int32, device=dev)
+    chars = torch.empty((T, B * n), dtype=torch.int32, device=dev)
+    fn = _build.lib().tpuasr_ctc_backtrack
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(dev):
+        code = fn(_build.ptr(bp), _build.ptr(idx), _build.ptr(chars),
+                  _build.ptr(tokens), _build.ptr(token_lens), T, B, K, n,
+                  max_len, _build.stream_ptr(bp))
+    backtrack.launches += 1
+    _build.check(code, "backtrack")
+    return tokens, token_lens
+
+
+backtrack.launches = 0
 
 
 def _round_up(x: int, m: int) -> int:

@@ -4,11 +4,13 @@ Counterparts of tpuasr/ops/pallas_gru.py:
 
 * ``gru_scan`` (K5 forward, K5b backward; pallas_gru.py:238): the masked
   recurrence over xp = x@Wx+b, differentiable. Its kernels are
-  ``gru_scan_fwd`` (``csrc/gru_bptt.cu``) and ``gru_scan_bwd`` (the three
-  phases of ``csrc/gru_lean.cu`` at one direction);
+  ``gru_scan_fwd`` (``csrc/gru_bidir.cu``'s row-grouped f32 recurrence at
+  one direction, planned by ``_f32_rec_plan``) and ``gru_scan_bwd`` (the
+  three phases of ``csrc/gru_lean.cu`` at one direction);
 * ``gru_scan_xfused`` (K2, pallas_gru.py:772): the input projection fused
   with the scan (``csrc/gru_scan.cu``: a tiled projection launch, then the
-  recurrence, planned by ``_scan_plan``). Its backward takes JAX's route
+  recurrence, planned by ``_scan_plan``; in f32 the recurrence is
+  ``gru_scan_fwd``'s). Its backward takes JAX's route
   (``_xf_bwd``, pallas_gru.py:829-835): where wx, dwx, wh and dwh fit JAX's
   11 MiB budget, K2b (``gru_scan_xfused_bwd``; pallas_gru.py:736) in three
   phases (xp and hp over all rows, the lean recurrence of
@@ -96,7 +98,6 @@ _REC_THREADS = 512          # kThreads in csrc/gru_coop.cuh
 _GATE_ITEMS = 2             # kGI in csrc/gru_scan.cu: (row, unit) a thread
 _PROJ_TILE = 128            # rows and columns of a projection tile
 _PROJ_STAGE = 64            # bytes of the contraction a projection stage
-_K5_ROWS = 16               # kR in csrc/gru_coop.cuh: K5's staged rows
 
 
 def _round_up(x: int, m: int) -> int:
@@ -112,7 +113,9 @@ class ScanPlan:
     and takes ``smem`` bytes of shared memory a block; the projection's
     weights are padded to ``kp`` x ``np`` and the resident Wh columns to
     ``hk`` contraction indices. ``ndir`` is 2 for K7's bf16 forward, whose
-    grid holds both directions' row groups and unit groups."""
+    grid holds both directions' row groups and unit groups. ``kc`` is the
+    contraction chunk of the f32 recurrence (``_f32_rec_plan``), 0 for the
+    tensor-core ones."""
     proj: str
     rec: str
     U: int
@@ -124,6 +127,7 @@ class ScanPlan:
     np: int
     hk: int
     ndir: int = 1
+    kc: int = 0
 
 
 def _scan_plan(B: int, D: int, H: int, mode: int, dtype: torch.dtype,
@@ -137,7 +141,8 @@ def _scan_plan(B: int, D: int, H: int, mode: int, dtype: torch.dtype,
     shared-memory budget.
 
     The recurrence's arithmetic follows Wh's type: f32 runs K5's forward
-    (U = ceil(H / n_sm) rounded up to a power of two, 16 rows a pass); bf16
+    (``_f32_rec_plan``: csrc/gru_bidir.cu's row-grouped recurrence at one
+    direction, 16 rows a pass); bf16
     and int8 run on the tensor cores, U = 8 or 16 units a block (24 or 48
     columns, whole n8 tiles), the rows split over as many row groups as the
     SMs left allow (``_rows_plan``): the U that leaves a block the fewest
@@ -155,16 +160,9 @@ def _scan_plan(B: int, D: int, H: int, mode: int, dtype: torch.dtype,
         D, _PROJ_STAGE // es)
     np_ = _round_up(3 * H, _PROJ_TILE)
     if rec == "f32":
-        U = 1
-        while U * n_sm < H:
-            U *= 2
-        R, rg, hk = _K5_ROWS, 1, H
-        smem = _k5_smem(H, U)
-        if U > 16 or smem > _SMEM_BUDGET:
-            raise ValueError(
-                f"K2's f32 recurrence cannot hold H={H} on {n_sm} SMs: "
-                f"{U} units a block (at most 16), {smem} bytes of shared "
-                f"memory (at most {_SMEM_BUDGET})")
+        rp = _f32_rec_plan(B, H, n_sm)
+        return ScanPlan(proj, rec, rp.U, _LEAN_ROWS, rp.rg, rp.grid, rp.smem,
+                        kp, np_, H, 1, rp.kc)
     else:
         options = []
         for U in (8, 16):
@@ -221,7 +219,7 @@ def _rec_scratch(plan: ScanPlan, B: int, H: int, device) -> torch.Tensor:
     """The recurrence's scratch, in f32 words: each block's own (B, H)
     state (one a direction); for int8 then, each part 16-byte aligned, the
     rows' absmax (2, B), zeroed, and the quantized state (B, round_up(H,
-    16)) int8; none for f32 (K5's forward exchanges the state through
+    16)) int8; none for f32 (its recurrence exchanges the state through
     ys)."""
     if plan.rec == "bf16":
         return torch.empty((plan.ndir * B * H,), dtype=torch.float32,
@@ -251,7 +249,7 @@ def _pack_rec(wh: torch.Tensor, plan: ScanPlan) -> torch.Tensor:
     """Wh (H, 3H) as the recurrence's blocks keep it in shared memory:
     (ceil(H / U), 3U, hk), unit group g's row q*U + u is Wh's column
     q*H + g*U + u (gate q, unit g*U + u), contraction contiguous, zero past
-    H in both. f32 (K5's forward) takes Wh as it is."""
+    H in both. f32 (``gru_scan_fwd``'s recurrence) takes Wh as it is."""
     if plan.rec == "f32":
         return wh
     H = wh.shape[0]
@@ -319,7 +317,11 @@ def _proj_rows(kind, x, wxp, b, kp, np_, sw=None):
 
 def _recur(plan: ScanPlan, xp, whp, swh, mask2, reverse, out_dtype):
     """The second launch: ys (T, B, H) in ``out_dtype`` from xp, whp (from
-    ``_pack_rec``), swh (rec_q8's scales) and mask2 (T, B)."""
+    ``_pack_rec``), swh (rec_q8's scales) and mask2 (T, B). f32 runs
+    ``gru_scan_fwd``'s recurrence (csrc/gru_bidir.cu)."""
+    if plan.rec == "f32":
+        rp = RowGroupPlan(plan.U, plan.rg, plan.kc, plan.smem, plan.grid, 1)
+        return _bidir_f32(rp, (xp,), (whp,), mask2, reverse)[0]
     return _recur_dirs(plan, (xp,), (whp,), swh, mask2, reverse,
                        out_dtype)[0]
 
@@ -585,14 +587,22 @@ def _lean_plan(B: int, H: int, ndir: int = 1,
                            "the lean GRU backward")
 
 
-def _bidir_f32_plan(B: int, H: int, n_sm: int = 132,
-                    ndir: int = 2) -> RowGroupPlan:
+def _bidir_f32_plan(B: int, H: int, n_sm: int = 132) -> RowGroupPlan:
     """The plan of K7's f32 forward (``_row_group_plan`` over the H
     contraction of h @ Wh) at batch B and width H on a card of n_sm SMs:
-    both directions in one grid where they fit, else a launch each.
-    ndir=1 plans the same recurrence for one direction."""
-    return _row_group_plan(B, H, H, ndir, n_sm, _bidir_f32_smem,
+    both directions in one grid where they fit, else a launch each."""
+    return _row_group_plan(B, H, H, 2, n_sm, _bidir_f32_smem,
                            "K7's f32 forward")
+
+
+def _f32_rec_plan(B: int, H: int, n_sm: int = 132) -> RowGroupPlan:
+    """The plan of the f32 recurrence at one direction (K5's forward, and
+    K2's in f32): csrc/gru_bidir.cu's kernel under ``_row_group_plan``'s
+    rule. At config 3's B=16, H=512 it runs 128 blocks of 4 units, at
+    deepspeech_var's H=384 96 blocks of 4; at B=64 four row groups of 16
+    rows. Any batch; H up to 1056 on 132 SMs (ValueError past it)."""
+    return _row_group_plan(B, H, H, 1, n_sm, _bidir_f32_smem,
+                           "the f32 GRU recurrence (K5, K2 in f32)")
 
 
 def _lean(plan: RowGroupPlan, dirs, mask2, reverse):
@@ -921,38 +931,24 @@ def _barrier(device, n=1):
 
 
 def gru_scan_fwd(xp, wh, mask, reverse=False):
-    """K5: ys (T, B, H) f32 from xp (T, B, 3H), wh (H, 3H), mask (T, B, 1)."""
+    """K5: ys (T, B, H) f32 from xp (T, B, 3H), wh (H, 3H), mask (T, B, 1).
+    On the card, csrc/gru_bidir.cu's row-grouped recurrence at one
+    direction (``_f32_rec_plan``; a shape it cannot hold raises ValueError
+    before any launch). One count a call."""
     if xp.device.type == "cpu":
         return gru_scan_plain(xp, wh, mask, reverse)
     if xp.device.type != "cuda":
         raise ValueError(f"gru_scan_fwd: unsupported device {xp.device}")
     T, B, H, mask2 = _check_scan(xp, wh, mask)
-    ys = torch.empty((T, B, H), dtype=torch.float32, device=xp.device)
-    if ys.numel() == 0:
-        return ys
-    fn = _build.lib().tpuasr_gru_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    bar = _barrier(xp.device)
-    with torch.cuda.device(xp.device):
-        code = fn(_build.ptr(xp), _build.ptr(wh), _build.ptr(mask2),
-                  _build.ptr(ys), _build.ptr(bar), T, B, H,
-                  int(bool(reverse)), _build.stream_ptr(xp))
+    if xp.numel() == 0:
+        return torch.empty((T, B, H), dtype=torch.float32, device=xp.device)
+    plan = _f32_rec_plan(B, H, _sm_count(xp.device))
+    ys, = _bidir_f32(plan, (xp,), (wh,), mask2, reverse)
     gru_scan_fwd.launches += 1
-    _build.check(code, "gru_scan_fwd")
     return ys
 
 
 gru_scan_fwd.launches = 0
-
-
-def _k5_smem(H: int, U: int) -> int:
-    """K5's (and K5b's) shared memory a block (fwd_smem_bytes in
-    csrc/gru_coop.cuh): Wh's [r, z, n, 0] columns of its U units, one
-    staged pass of 16 rows, the warps' sums."""
-    return (16 * U * H + 4 * _K5_ROWS * H
-            + 4 * (_REC_THREADS // 32) * _K5_ROWS * 3)
 
 
 def gru_scan_bwd(xp, ysp, wh, mask, dys, reverse=False):
@@ -1132,16 +1128,17 @@ def gru_scan_bidir_fwd(xpf, xpb, whf, whb, mask):
 gru_scan_bidir_fwd.launches = 0
 
 
-def _bidir_f32(plan: RowGroupPlan, xps, whs, mask2):
-    """K7's f32 recurrence (csrc/gru_bidir.cu): one ys (T, B, H) f32 for
+def _bidir_f32(plan: RowGroupPlan, xps, whs, mask2, reverse=False):
+    """The f32 recurrence (csrc/gru_bidir.cu): one ys (T, B, H) f32 for
     each direction's xp (T, B, 3H) and wh (H, 3H), f32 and contiguous, all
-    forward in time under mask2 (T, B); the directions share one launch
-    where ``plan.ndir`` is their number, else a launch each."""
+    scanned in one sense under mask2 (T, B) (from t = T-1 down with
+    ``reverse``: K5's reverse); the directions share one launch where
+    ``plan.ndir`` is their number, else a launch each."""
     T, B, H3 = xps[0].shape
     H = H3 // 3
     dev = xps[0].device
     fn = _build.lib().tpuasr_gru_bidir_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
                    + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     ys = [torch.empty((T, B, H), dtype=torch.float32, device=dev)
@@ -1154,9 +1151,9 @@ def _bidir_f32(plan: RowGroupPlan, xps, whs, mask2):
         with torch.cuda.device(dev):
             code = fn(*map(_build.ptr, group[0]), *map(_build.ptr, group[-1]),
                       _build.ptr(mask2), _build.ptr(bar), T, B, H, plan.U,
-                      plan.rg, plan.kc, len(group), plan.smem,
-                      _build.stream_ptr(mask2))
-        _build.check(code, "gru_scan_bidir_fwd (f32)")
+                      plan.rg, plan.kc, int(bool(reverse)), len(group),
+                      plan.smem, _build.stream_ptr(mask2))
+        _build.check(code, "the f32 GRU recurrence")
     return tuple(ys)
 
 
