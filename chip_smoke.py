@@ -40,7 +40,11 @@ Phases, each fatal on failure:
      and slab bodies beside its im2col body, and K8 and
      K8b (CapsNet routing, forward and backward) at the shapes of BASELINE
      config 4 (B=8 and B=32 x 5 s, T'=249, I=256, Din=8, O=48, D=16, 3
-     iterations);
+     iterations): K8 with its launch plan, the clusters the card holds at
+     once and the cost of its saving mode (V and s for the backward), two
+     calls the same bits; K8b from the saved V and s (the train step's
+     route) and standalone from (u, W, dv), the two bit for bit the same,
+     two calls the same bits;
   4. the serving slice through Recognizer: the int8 arm (the default), the
      bf16 arm, the int8 arm with conv2 as K9 (int8_conv, bench.py's
      --int8-conv; once with each of K9's three bodies, chosen by
@@ -1419,53 +1423,82 @@ def capsnet_kernels(record, gen) -> None:
         # kernel against the einsum path (float32 sums in other orders).
         with full_fp32():
             got, ref = kern(), plain()
+            again = kern()
             err = (got - ref).abs().max().item()
             ok = bool(torch.allclose(got, ref, rtol=2e-5, atol=2e-6))
             ms = cuda_ms(kern, 10)
+            save_ms = cuda_ms(lambda: routing_mod.routing_residuals(
+                u, W, O, D, iters), 10)
             pms = cuda_ms(plain, 3)
         # Operations the function needs: u_hat, then the weighted sum in
         # every iteration and the agreement in all but the last
         # (tpuasr/models/capsnet.py:42-52); bytes: u and W in, v out.
         ops = Bc * T * (2 * Din * O * D * I + (4 * iters - 2) * O * D * I)
         bd = bound(nbytes(u, W, got), ops, "fp32")
+        plan = routing_mod.routing_plan(Bc * T, I, Din, O, D)
+        clusters = routing_mod.max_active_clusters(Bc * T, I, Din, O, D)
         phase(f"[3 K8] routed_caps B={Bc} T={T} I={I} Din={Din} O={O} D={D}"
               f" iters={iters} ({Bc * T} rows): max_abs_err {err:.3e} (tol "
               f"rtol 2e-5 atol 2e-6; |v| max {ref.abs().max().item():.3f}) "
-              f"kernel {ms:.3f} ms plain {pms:.3f} ms bound {bd[0]:.4f} ms "
-              f"({bd[1]}); no PyTorch call computes it")
+              f"kernel {ms:.3f} ms, saving V and s {save_ms:.3f} ms (+"
+              f"{save_ms - ms:.3f}) plain {pms:.3f} ms bound {bd[0]:.4f} ms "
+              f"({bd[1]}); no PyTorch call computes it; plan: {plan.tiles} "
+              f"tiles of {plan.rows} rows, clusters of {plan.cluster} CTAs "
+              f"x {plan.threads} threads, {plan.stages} stages, "
+              f"{plan.smem} B shared; {clusters} clusters at once "
+              f"(cudaOccupancyMaxActiveClusters)")
         if not ok:
             fail(f"K8 disagrees with its plain version at B={Bc}")
+        if not torch.equal(got, again):
+            fail(f"K8: two calls differ at B={Bc}")
         record("K8", "routed_caps (routing forward)",
                "tpuasr_torch/csrc/routing.cu",
                "tpuasr/ops/pallas_routing.py:161", err,
                *((ms, pms, bd) if timed else ()))
-        del got, ref
+        del got, ref, again
 
-        # K8b: du and dW each within K8B_TOL of its largest magnitude.
+        # K8b: du and dW each within K8B_TOL of its largest magnitude, from
+        # K8's saved V and s (the train step's route) and standalone from
+        # (u, W, dv), which must give the same bits; and two calls the same.
         with full_fp32():
-            got, ref = kern_bwd(), plain_bwd()
+            _, V, sv = routing_mod.routing_residuals(u, W, O, D, iters)
+
+            def kern_res():
+                return routing_mod.routed_caps_bwd_from(u, W, V, sv, dv, O,
+                                                        D)
+
+            got, ref = kern_res(), plain_bwd()
+            again, alone = kern_res(), kern_bwd()
             errs = [(a - r).abs().max().item() for a, r in zip(got, ref)]
             tops = [r.abs().max().item() for r in ref]
-            ms = cuda_ms(kern_bwd, 10)
+            ms = cuda_ms(kern_res, 10)
+            alone_ms = cuda_ms(kern_bwd, 10)
             torch.cuda.reset_peak_memory_stats()
             pms = cuda_ms(plain_bwd, 2)
             plain_gb = torch.cuda.max_memory_allocated() / 1e9
-        # Operations the gradient needs per row: u_hat, the routing to the
-        # final s, du_hat, du and dW; bytes: u, W and dv in, du and dW out.
-        ops = Bc * T * (6 * Din + 4 * iters - 1) * O * D * I
-        bd = bound(nbytes(u, W, dv, *got), ops, "fp32")
+        # Operations the gradient needs per row from V and s: u_hat, b,
+        # du_hat, du and dW; bytes: u, W, V, s and dv in, du and dW out.
+        ops = Bc * T * (6 * Din + 3) * O * D * I
+        bd = bound(nbytes(u, W, V, sv, dv, *got), ops, "fp32")
         phase(f"[3 K8b] routed_caps_bwd B={Bc}: du max_abs_err {errs[0]:.3e}"
               f" of |du| max {tops[0]:.3e} (rel {errs[0] / tops[0]:.2e}), dW "
               f"{errs[1]:.3e} of {tops[1]:.3e} (rel {errs[1] / tops[1]:.2e};"
-              f" tol {K8B_TOL:g} of each) kernel {ms:.3f} ms plain "
-              f"{pms:.3f} ms (peak memory {plain_gb:.2f} GB) bound "
-              f"{bd[0]:.4f} ms ({bd[1]}); no PyTorch call computes it")
+              f" tol {K8B_TOL:g} of each) kernel from saved V and s "
+              f"{ms:.3f} ms, standalone (K8 saving, then K8b) {alone_ms:.3f}"
+              f" ms; plain {pms:.3f} ms (peak memory {plain_gb:.2f} GB) "
+              f"bound {bd[0]:.4f} ms ({bd[1]}); no PyTorch call computes it")
         if not all(e <= K8B_TOL * t for e, t in zip(errs, tops)):
             fail(f"K8b disagrees with its plain version at B={Bc}")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"K8b: two calls differ at B={Bc}")
+        if not all(torch.equal(a, b) for a, b in zip(got, alone)):
+            fail(f"K8b from saved V and s differs from the standalone "
+                 f"routed_caps_bwd at B={Bc}")
         record("K8b", "routed_caps_bwd (routing backward)",
                "tpuasr_torch/csrc/routing_bwd.cu",
                "tpuasr/ops/pallas_routing.py:180", max(errs),
                *((ms, pms, bd) if timed else ()))
+        del V, sv, again, alone
         del u, W, dv, got, ref
     torch.cuda.empty_cache()
 

@@ -112,6 +112,47 @@ def test_routing_grad_matches_jax(B, T, I, Din, O, D, iters):
                                            rtol=1e-4, atol=1e-5)
 
 
+# The kernels' seam: K8's saving mode keeps V and s, K8b starts from them.
+# Their plain versions composed are the plain backward (rtol 1e-5 / atol
+# 1e-6: the coupling from b = u_hat . V where the plain backward adds the
+# agreement iteration by iteration) and jax.grad of the reference within
+# the JAX test's bound for its Pallas VJP.
+@pytest.mark.parametrize("iters", [1, 2, 3])
+@pytest.mark.parametrize("B,T,I,Din,O,D", GRAD_CASES)
+def test_residual_split_matches_jax(B, T, I, Din, O, D, iters):
+    rng = np.random.default_rng(2)
+    u = (rng.normal(size=(B, T, I, Din)) * 0.5).astype(np.float32)
+    u[0, 0] = 0.0
+    W = (rng.normal(size=(I, Din, O * D)) * 0.2).astype(np.float32)
+    tgt = rng.normal(size=(B, T, O, D)).astype(np.float32)
+
+    def loss(u, W):
+        return jnp.sum((_ref_routed(u, W, O, D, iters) - tgt) ** 2)
+
+    want = jax.grad(loss, argnums=(0, 1))(jnp.asarray(u), jnp.asarray(W))
+    tu, tW = torch.tensor(u), torch.tensor(W)
+    v = routing_mod.routed_caps_plain(tu, tW, O, D, iters)
+    dv = 2.0 * (v - torch.tensor(tgt))
+    V, s = routing_mod.routing_residuals_plain(tu, tW, O, D, iters)
+    assert V.shape == s.shape == (B, T, O, D)
+    torch.testing.assert_close(routing_mod.squash(s), v, rtol=1e-5,
+                               atol=1e-6)
+    if iters == 1:
+        assert not V.any()
+    got = routing_mod.routed_caps_bwd_from_plain(tu, tW, V, s, dv, O, D)
+    plain = routing_mod.routed_caps_bwd_plain(tu, tW, dv, O, D, iters)
+    for g, p, w in zip(got, plain, want):
+        torch.testing.assert_close(g, p, rtol=1e-5, atol=1e-6)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4,
+                                   atol=1e-5)
+    # The wrappers take the plain versions for CPU tensors.
+    res = routing_mod.routing_residuals(tu, tW, O, D, iters)
+    assert torch.equal(res[0], v)
+    assert torch.equal(res[1], V) and torch.equal(res[2], s)
+    same = routing_mod.routed_caps_bwd_from(tu, tW, V, s, dv, O, D)
+    assert all(torch.equal(a, b) for a, b in zip(same, got))
+
+
 @pytest.mark.parametrize("kw", [{}, dict(m_plus=0.8, m_minus=0.2, lam=0.3)])
 def test_margin_loss_matches_jax(kw):
     rng = np.random.default_rng(4)

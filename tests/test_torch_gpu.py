@@ -43,8 +43,12 @@ from tpuasr_torch.models import capsnet as capsnet_mod
 from tpuasr_torch.models import create_model
 from tpuasr_torch.ops import routing as routing_mod
 from tpuasr_torch.ops.routing import (routed_caps, routed_caps_bwd,
+                                      routed_caps_bwd_from,
                                       routed_caps_bwd_plain,
-                                      routed_caps_plain, squash)
+                                      routed_caps_plain, routing_plan,
+                                      routing_residuals,
+                                      routing_residuals_plain, routing_smem,
+                                      squash)
 from tpuasr_torch.precision import full_fp32
 
 pytestmark = pytest.mark.gpu
@@ -594,18 +598,24 @@ def _routing_case(dev, B, T, I, Din, O, D, seed=10):
     return u.to(dev).contiguous(), W.to(dev).contiguous()
 
 
-# (B, T, I, Din, O, D, iters). Row counts 21, 22, 9, 10, 15, 13, 14, 5
-# and 6 are multiples of neither 4 nor 8 rows per block; I = 96 (the JAX
-# tests' unaligned I), 95, 93, 17 and 33 (odd: a half-filled last chunk of
-# 2 capsules); O*D = 21 and 30 are not multiples of 8, and D = 3 and 6
-# take the kernel's unvectorized W loads; Din = 5 gives u's staged rows an
-# odd length and makes the W chunks' copies 4-byte; Din = 16 fills a warp's
-# lanes with a row's chunk of u, Din = 1 leaves all but two idle; O = 128
-# and 96 at D = 16 read W from L2 (their chunks do not fit the shared
-# memory of the 512- and 384-thread launch shapes), the others stage it.
-# K8b's second pass has an instance per (Din <= 8 or <= 16, up to 256 or
-# 512 class threads): O = 72 at D = 16 (288 threads) with Din = 12 takes
-# the last of them.
+# (B, T, I, Din, O, D, iters). Row counts 21, 22, 9, 10, 15, 13, 14, 5,
+# 6, 40 and 100 are multiples of no tile's rows (routing_plan: 8 x row
+# groups); I = 96 (the JAX tests' unaligned I), 95, 93, 17, 33 and 5 split
+# unevenly over a cluster's CTAs, and O = 5, 7 leave a CTA one class to
+# squash (test_k8_cluster_sizes takes clusters of 1, 4 and 8: CTAs with no
+# capsule or no class); O*D = 21 and 30 are not multiples of 8, and D = 3
+# and 6 take the kernel's unvectorized W loads; Din = 5 and 1 are not
+# multiples of 4 (the producer warp copies the stages in place of TMA);
+# Din = 16 fills the u rows' float4s. O = 128 at D = 16 (512 threads) and
+# O = 96 at D = 16 with Din = 16 take the variant that reads W from L2; O
+# = 96 at Din = 8 has three ring stages; I = 256 at O = 48, D = 16 is
+# config 4's plan (16 rows, 3 stages of W and u); I = 3600 at Din = 16
+# leaves no room for the tile's u block either, smaller shapes take it; D
+# = 32 and 64 give 8 and 16 lanes a class (b's sums by reduce-scatter up to
+# 8 lanes, by shuffles of every row beyond). K8b's second pass has an
+# instance per (Din <= 8: staged V and ds for up to 384 class threads, or
+# from L2 beyond; Din <= 16: up to 256 or 512 class threads): O = 72 at D
+# = 16 (288 threads) with Din = 12 takes the last of them.
 K8_CASES = [
     (3, 7, 96, 8, 10, 4, 3),
     (2, 11, 256, 8, 48, 16, 3),
@@ -618,6 +628,14 @@ K8_CASES = [
     (2, 3, 17, 16, 9, 8, 2),
     (1, 6, 33, 1, 4, 4, 3),
     (1, 5, 20, 12, 72, 16, 3),
+    (2, 50, 256, 8, 48, 16, 3),
+    (1, 40, 5, 8, 7, 4, 3),
+    (1, 10, 20, 8, 96, 16, 2),
+    (1, 9, 12, 16, 96, 16, 2),
+    (2, 11, 93, 16, 10, 4, 1),
+    (1, 7, 3600, 16, 4, 4, 2),
+    (1, 9, 10, 8, 12, 32, 2),
+    (1, 5, 6, 8, 6, 64, 2),
 ]
 
 
@@ -637,6 +655,66 @@ def test_k8(dev, B, T, I, Din, O, D, iters):
     torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-6)
 
 
+@pytest.mark.parametrize("B,T,I,Din,O,D,iters", K8_CASES)
+def test_k8_saving_mode(dev, B, T, I, Din, O, D, iters):
+    """K8's saving mode gives the same v bit for bit, and each row's V and
+    final s within 2e-5 of their largest magnitude of
+    routing_residuals_plain (s sums I terms); a second call gives the same
+    bits (no atomics in any sum)."""
+    u, W = _routing_case(dev, B, T, I, Din, O, D)
+    with full_fp32():
+        v = routed_caps(u, W, O, D, iters)
+        got = routing_residuals(u, W, O, D, iters)
+        again = routing_residuals(u, W, O, D, iters)
+        want = routing_residuals_plain(u, W, O, D, iters)
+    assert torch.equal(got[0], v)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    for a, r in zip(got[1:], want):
+        torch.testing.assert_close(a, r, rtol=0,
+                                   atol=2e-5 * r.abs().max().item())
+
+
+@pytest.mark.parametrize("cluster", [1, 4, 8])
+@pytest.mark.parametrize("B,T,I,Din,O,D,iters", [
+    (1, 21, 5, 8, 7, 4, 3),      # I, O < 8: CTAs with no capsule or class
+    (2, 9, 17, 5, 3, 3, 2),      # warp copies, O = 3
+    (1, 40, 256, 8, 48, 16, 3),  # config 4's widths
+])
+def test_k8_cluster_sizes(dev, cluster, B, T, I, Din, O, D, iters):
+    """K8 and K8b at other cluster sizes than the plan's (the kernel takes
+    1-8 CTAs a cluster): the same bounds as test_k8 and test_k8b."""
+    u, W = _routing_case(dev, B, T, I, Din, O, D)
+    g = torch.Generator().manual_seed(11)
+    dv = torch.randn(B, T, O, D, generator=g).to(dev)
+    with full_fp32(), mock.patch.object(routing_mod, "_CLUSTER", cluster):
+        assert routing_plan(B * T, I, Din, O, D).cluster == cluster
+        got = routed_caps(u, W, O, D, iters)
+        grads = routed_caps_bwd(u, W, dv, O, D, iters)
+        torch.cuda.synchronize()
+        ref = routed_caps_plain(u, W, O, D, iters)
+        gref = routed_caps_bwd_plain(u, W, dv, O, D, iters)
+    torch.testing.assert_close(got, ref, rtol=2e-5, atol=2e-6)
+    for a, r in zip(grads, gref):
+        tol = K8B_TOL * r.abs().max().item()
+        torch.testing.assert_close(a, r, rtol=0, atol=tol)
+
+
+def test_routing_plan_matches_kernel_smem(dev):
+    """routing_plan's shared memory is the kernel's own layout
+    (tpuasr_routing_smem), for every variant the plans take."""
+    fn = _build.lib().tpuasr_routing_smem
+    fn.argtypes = [ctypes.c_int] * 7
+    fn.restype = ctypes.c_longlong
+    for R, I, Din, O, D in ((1992, 256, 8, 48, 16), (21, 20, 5, 7, 3),
+                            (14, 96, 8, 128, 16), (10, 64, 8, 96, 16),
+                            (9, 12, 16, 512, 4), (35, 9, 1, 12, 16),
+                            (7, 3600, 16, 4, 4)):
+        plan = routing_plan(R, I, Din, O, D)
+        args = (Din, O, D, plan.cluster, plan.row_groups, plan.stages,
+                plan.wide)
+        assert fn(*map(int, args)) == plan.smem == routing_smem(*args)
+
+
 def test_k8_launch_code_checked(dev):
     """A launch the kernel refuses returns its CUDA error, which the
     wrapper's check raises; the wrapper refuses such shapes, another dtype
@@ -644,11 +722,17 @@ def test_k8_launch_code_checked(dev):
     u, W = _routing_case(dev, 1, 3, 8, 4, 200, 16)
     v = torch.empty(1, 3, 200, 16, device=dev)
     fn = _build.lib().tpuasr_routing_fwd
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [
+        ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    code = fn(_build.ptr(u), _build.ptr(W), _build.ptr(v), 3, 8, 4, 200, 16,
-              3, _build.stream_ptr(u))
+    plan = routing_plan(3, 8, 4, 6, 16)
+    args = (plan.cluster, plan.row_groups, plan.stages, int(plan.wide))
+    code = fn(_build.ptr(u), _build.ptr(W), _build.ptr(v), None, None, 3, 8,
+              4, 200, 16, 3, *args, plan.smem, _build.stream_ptr(u))
+    assert code != 0
+    # A plan whose shared memory is not the kernel's layout is refused.
+    code = fn(_build.ptr(u), _build.ptr(W), _build.ptr(v), None, None, 3, 8,
+              4, 6, 16, 3, *args, plan.smem + 16, _build.stream_ptr(u))
     assert code != 0
     with pytest.raises(RuntimeError, match="routed_caps: CUDA error"):
         _build.check(code, "routed_caps")
@@ -695,6 +779,24 @@ def test_k8b(dev, B, T, I, Din, O, D, iters):
         torch.testing.assert_close(a, r, rtol=0, atol=tol)
 
 
+@pytest.mark.parametrize("B,T,I,Din,O,D,iters", K8_CASES)
+def test_k8b_from_residuals_is_standalone(dev, B, T, I, Din, O, D, iters):
+    """K8b from K8's saved V and s (the route autograd takes) equals the
+    standalone routed_caps_bwd bit for bit, and autograd through
+    routed_caps gives those bits too."""
+    u, W = _routing_case(dev, B, T, I, Din, O, D)
+    g = torch.Generator().manual_seed(11)
+    dv = torch.randn(B, T, O, D, generator=g).to(dev)
+    with full_fp32():
+        want = routed_caps_bwd(u, W, dv, O, D, iters)
+        _, V, s = routing_residuals(u, W, O, D, iters)
+        got = routed_caps_bwd_from(u, W, V, s, dv, O, D)
+        ku, kW = u.clone().requires_grad_(), W.clone().requires_grad_()
+        routed_caps(ku, kW, O, D, iters).backward(dv)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(ku.grad, want[0]) and torch.equal(kW.grad, want[1])
+
+
 def _no_plain(*a, **k):
     raise AssertionError("a plain routing version ran on CUDA tensors")
 
@@ -712,6 +814,10 @@ def test_routed_caps_autograd_runs_k8_then_k8b(dev):
         ku, kW = u.clone().requires_grad_(), W.clone().requires_grad_()
         with mock.patch.object(routing_mod, "routed_caps_plain", _no_plain), \
                 mock.patch.object(routing_mod, "routed_caps_bwd_plain",
+                                  _no_plain), \
+                mock.patch.object(routing_mod, "routed_caps_bwd_from_plain",
+                                  _no_plain), \
+                mock.patch.object(routing_mod, "routing_residuals_plain",
                                   _no_plain):
             v = routed_caps(ku, kW, O, D)
             assert (routed_caps.launches, routed_caps_bwd.launches) == (
@@ -780,16 +886,15 @@ def test_k8b_launch_code_checked(dev):
     such shapes, another dtype and a non-contiguous dv before launching."""
     u, W = _routing_case(dev, 1, 3, 8, 4, 200, 16)
     dv = torch.zeros(1, 3, 200, 16, device=dev)
-    scratch = [torch.empty(3, 200, 16, device=dev) for _ in range(2)]
+    rows = [torch.empty(3, 200, 16, device=dev) for _ in range(3)]
     du, dW = torch.empty_like(u), torch.empty_like(W)
     fn = _build.lib().tpuasr_routing_bwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    code = fn(_build.ptr(u), _build.ptr(W), _build.ptr(dv),
-              *[_build.ptr(t) for t in scratch], _build.ptr(du),
-              _build.ptr(dW), _build.ptr(dW), 3, 8, 4, 200, 16, 3, 1,
-              _build.stream_ptr(u))
+    code = fn(_build.ptr(u), _build.ptr(W), *[_build.ptr(t) for t in rows],
+              _build.ptr(dv), _build.ptr(du), _build.ptr(dW), _build.ptr(dW),
+              3, 8, 4, 200, 16, 1, _build.stream_ptr(u))
     assert code != 0
     before = routed_caps_bwd.launches
     with pytest.raises(ValueError, match="at most 128 classes"):
