@@ -10,14 +10,16 @@ Phases, each fatal on failure:
      timed; then each kernel against its plain PyTorch version on the
      card, with its error, tolerance, timing, the least time the card could
      take for its work (bound) and, where one PyTorch call computes the
-     same function, that call's time: the serving kernels K1, K2, K4, K3
-     (without and with bigram/trigram LM fusion; with the backtrack kernel
-     of its packed backpointers, and the search's wall time against its
-     device time) and K10 (the graph row gather) at the shapes of the
-     served model (B=128 utterances of 10 s at
-     8 kHz, C=64, a 512 x 4 BiGRU, beam K=8; K2/K4 also on ragged batches
-     of 1 and 129 rows, with the projection and the recurrence of one call
-     timed apart), K2 in float32 at the deepspeech_var train step's
+     same function, that call's time: the serving kernels K1 (and K1b, the
+     same kernel at 16 kHz, B=32: its plan, two calls bit for bit, the
+     cuFFT pipeline's time beside it, and once a tone with noise 90 dB
+     below it), K2, K4, K3 (without and with bigram/trigram LM fusion;
+     with the backtrack kernel of its packed backpointers, and the
+     search's wall time against its device time) and K10 (the graph row
+     gather) at the shapes of the served model (B=128 utterances of 10 s
+     at 8 kHz, C=64, a 512 x 4 BiGRU, beam K=8; K2/K4 also on ragged
+     batches of 1 and 129 rows, with the projection and the recurrence
+     of one call timed apart), K2 in float32 at the deepspeech_var train step's
      forward shapes (H=384, D=512 and 768, B=16 and 64), K9 (the int8
      conv2) at its shapes in that model beside the bf16 and fp32
      F.conv2d, K7 (both GRU directions in one launch) at the served
@@ -135,7 +137,7 @@ CAPS_TRAIN_U = 16
 K8B_TOL = 2e-5
 # Published H100 SXM peaks: HBM bytes/s and dense operations/s by type.
 HBM_BPS = 3.35e12
-PEAK = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
+PEAK = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12, "int8": 1979e12}
 
 
 def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
@@ -1888,6 +1890,158 @@ def capsnet_train_slice(kernels, wrappers, card) -> None:
                 check=check)
 
 
+def wide_range_wav(n: int, S: int, sr: int, db: float = 90.0) -> np.ndarray:
+    """n utterances of a 1 kHz tone of amplitude 0.5 plus white noise db
+    below it (tests/test_torch_fbank_plan.py::wide_range_signal)."""
+    rng = np.random.default_rng(SEED)
+    t = np.arange(S) / sr
+    return (0.5 * np.sin(2 * np.pi * 1000.0 * t)[None]
+            + 0.5 * 10 ** (-db / 20) * rng.standard_normal((n, S))
+            ).astype(np.float32)
+
+
+def stft_mel_ms(wav, tabs, cfg, T) -> float:
+    """ms of the cuFFT pipeline for the same function: torch.stft with the
+    window zero-padded to n_fft, center=False, the wav padded so that the
+    last frame fits, then the power, then @ proj. A yardstick only: the
+    port never calls it, and it is several calls."""
+    n_fft, hop = cfg.fft_size, cfg.hop_length
+    window = torch.nn.functional.pad(tabs["window"],
+                                     (0, n_fft - cfg.win_length))
+    pad = max(0, (T - 1) * hop + n_fft - wav.shape[1])
+
+    def run():
+        x = torch.nn.functional.pad(wav, (0, pad))
+        spec = torch.stft(x, n_fft, hop_length=hop, win_length=n_fft,
+                          window=window, center=False, return_complex=True)
+        p = spec.real ** 2 + spec.imag ** 2
+        return p[:, :, :T].transpose(1, 2) @ tabs["proj"]
+
+    return cuda_ms(run, 5)
+
+
+def fbank_kernels(record, gen, dev) -> None:
+    """K1 (8 kHz, B=128 x 10 s) and K1b (16 kHz, B=32): log-mel (after the
+    log floor) within 1e-3 of the plain version, the JAX featurizer parity
+    tolerance (tests/test_features_pallas.py:36); the kernel's split-TF32
+    products (three a term, 22 bits) and the plain float32 matmuls lie about
+    as far from a float64 rDFT (tools/fbank_time.py --precision), summed in
+    other orders. Two calls the same bits; the plan;
+    kernel, plain and cuFFT-pipeline times; the bound at float32 precision
+    on the tensor cores (3 TF32 products a term at 495 TFLOP/s) and, beside
+    it, the float32 FMA bound (67 TFLOP/s). Then the wide-range gate once:
+    a tone with noise 90 dB below it, where one TF32 product would miss.
+    Then the spectrogram at full size (8 kHz B=16 and 16 kHz B=8 x 10 s)
+    against a float64 rDFT: its single bins near a spectral null are where
+    rounding shows most, and the plain float32 matmuls themselves lie
+    ~2-3e-3 from float64 there, more than the 1e-3 gate against the plain
+    version allows. Split TF32 keeps 22 of float32's 24 bits of each
+    operand, a unit roundoff 4x float32's, so the kernel is held to lie at
+    most 4x as far from float64 as the plain version does."""
+    from tpuasr_torch.features import FeatureConfig, fbank_power
+    from tpuasr_torch.features import fused as fused_mod
+    from tpuasr_torch.features.reference import (feature_tables,
+                                                 frames_plain, num_frames)
+    tol = 1e-3
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def log_err(a, b, floor):
+        return (torch.log(a.clamp(min=floor))
+                - torch.log(b.clamp(min=floor))).abs().max().item()
+
+    for sr, nb, key, line in ((8000, B, "K1", 109), (16000, 32, "K1b", 137)):
+        cfg = FeatureConfig(sample_rate=sr)
+        tabs = feature_tables(cfg, dev)
+        tabs["packed"] = fused_mod.pack_tables(tabs)
+        S = int(sr * SECONDS)
+        T = num_frames(cfg, S)
+        wav = (torch.randn(nb, S, generator=gen) * 0.1).to(dev)
+        hop, win = cfg.hop_length, cfg.win_length
+        nf, nm = tabs["cos"].shape[1], tabs["proj"].shape[1]
+        plan = fused_mod.fbank_plan(nb, T, hop, win, nf, nm, n_sm,
+                                    tabs["packed"]["nyq"] >= 0)
+        got = fbank_power(wav, tabs, hop, T)
+        same = torch.equal(got, fbank_power(wav, tabs, hop, T))
+        ref = fused_mod.fbank_power_plain(wav, tabs, hop, T)
+        err = log_err(got, ref, cfg.log_floor)
+        ms = cuda_ms(lambda: fbank_power(wav, tabs, hop, T), 20)
+        pms = cuda_ms(lambda: fused_mod.fbank_power_plain(wav, tabs, hop, T),
+                      5)
+        fft_ms = stft_mel_ms(wav, tabs, cfg, T)
+        flops = 2 * nb * T * (2 * win * nf + nf * nm)
+        tables = ("dft_wg", "mel_wg") if plan.M == 64 else ("dft", "mel")
+        moved = nbytes(wav, got, tabs["packed"]["window"],
+                       *(tabs["packed"][k] for k in tables))
+        bd = bound(moved, 3 * flops, "tf32")
+        bd32 = bound(moved, flops, "fp32")
+        phase(f"[3 {key}] fbank {sr} Hz B={nb} T={T} win={win} hop={hop}: "
+              f"plan M={plan.M} ({'wgmma' if plan.M == 64 else 'mma.sync'}) "
+              f"stages={plan.stages} of {plan.stage_k} rDFT k-steps, rDFT "
+              f"{plan.dft_chunks} "
+              f"chunk(s) of {plan.dft_nt} n-tiles, mel {plan.mel_chunks} of "
+              f"{plan.mel_nt}, smem {plan.smem} B, grid {plan.grid}; log-mel "
+              f"max_abs_err {err:.3e} (tol {tol}); two calls equal bit for "
+              f"bit {same}; kernel {ms:.4f} ms plain {pms:.4f} ms cuFFT "
+              f"pipeline {fft_ms:.4f} ms")
+        phase(f"[3 {key}] bound {bd[0]:.4f} ms ({bd[1]}: 3 x "
+              f"{flops / 1e9:.2f} GFLOP in TF32 at 495 TFLOP/s; "
+              f"{moved / 1e6:.1f} MB {moved / HBM_BPS * 1e3:.4f} ms); float32 "
+              f"FMA bound {bd32[0]:.4f} ms; kernel at {ms / bd[0]:.2f}x its "
+              "bound; no single PyTorch call computes it")
+        if not err <= tol:
+            fail(f"fbank kernel disagrees at {sr} Hz: {err} > {tol}")
+        if not same:
+            fail(f"fbank kernel: two calls differ at {sr} Hz")
+        record(key, "fbank_power" + ("" if key == "K1" else
+                                     " (16 kHz, hop > 128 lanes)"),
+               "tpuasr_torch/csrc/fbank.cu",
+               f"tpuasr/features/pallas_fused.py:{line}", err, ms, pms, bd)
+
+    cfg = FeatureConfig()
+    tabs = feature_tables(cfg, dev)
+    S = int(SR * SECONDS)
+    T = num_frames(cfg, S)
+    wav = torch.as_tensor(wide_range_wav(8, S, SR), device=dev)
+    got = fbank_power(wav, tabs, cfg.hop_length, T)
+    ref = fused_mod.fbank_power_plain(wav, tabs, cfg.hop_length, T)
+    err = log_err(got, ref, cfg.log_floor)
+    lo = torch.log(ref.clamp(min=cfg.log_floor))
+    phase(f"[3 K1] wide range (1 kHz tone, noise 90 dB below, B=8 x 10 s): "
+          f"log-mel from {lo.min().item():.2f} to {lo.max().item():.2f}, "
+          f"max_abs_err {err:.3e} (tol {tol})")
+    if not err <= tol:
+        fail(f"fbank kernel disagrees on the wide-range signal: {err} > "
+             f"{tol}")
+    record("K1", "fbank_power", "tpuasr_torch/csrc/fbank.cu",
+           "tpuasr/features/pallas_fused.py:109", err)
+
+    g64 = torch.Generator().manual_seed(SEED)
+    for sr, nb in ((8000, 16), (16000, 8)):
+        cfg = FeatureConfig(sample_rate=sr, feature_type="spectrogram")
+        tabs = feature_tables(cfg, dev)
+        S = int(sr * SECONDS)
+        T = num_frames(cfg, S)
+        wav = (torch.randn(nb, S, generator=g64) * 0.1).to(dev)
+        got = fbank_power(wav, tabs, cfg.hop_length, T)
+        ref = fused_mod.fbank_power_plain(wav, tabs, cfg.hop_length, T)
+        t64 = {k: tabs[k].double() for k in ("window", "cos", "sin", "proj")}
+        x = frames_plain(wav.double(), cfg.hop_length, cfg.win_length,
+                         T) * t64["window"]
+        exact = ((x @ t64["cos"]) ** 2 + (x @ t64["sin"]) ** 2) @ t64["proj"]
+        got, ref = got.double(), ref.double()
+        ek = log_err(got, exact, cfg.log_floor)
+        ep = log_err(ref, exact, cfg.log_floor)
+        phase(f"[3 K1] spectrogram {sr} Hz B={nb} x {SECONDS:g} s "
+              f"({tabs['cos'].shape[1]} bins): largest log difference from "
+              f"a float64 rDFT: kernel {ek:.3e}, plain {ep:.3e} (gate: the "
+              f"kernel at most 4x the plain's); kernel-plain "
+              f"{log_err(got, ref, cfg.log_floor):.3e}")
+        if not ek <= 4 * ep:
+            fail(f"fbank kernel's spectrogram at {sr} Hz lies more than 4x "
+                 f"as far from float64 as the plain version: {ek} > 4 x "
+                 f"{ep}")
+
+
 def main() -> int:
     # ---- 1. environment -------------------------------------------------
     clock = [("start", time.perf_counter())]     # (phase, its end)
@@ -1910,9 +2064,9 @@ def main() -> int:
     from tpuasr_torch.decode import BeamSearchConfig
     from tpuasr_torch.decode import beam as beam_mod
     from tpuasr_torch.decode import prefix_beam as prefix_beam_mod
-    from tpuasr_torch.features import FeatureConfig, fbank_power
+    from tpuasr_torch.features import FeatureConfig
     from tpuasr_torch.features import fused as fused_mod
-    from tpuasr_torch.features.reference import feature_tables, num_frames
+    from tpuasr_torch.features.reference import num_frames
     from tpuasr_torch.lm import train_ngram
     from tpuasr_torch.losses import ctc as ctc_mod
     from tpuasr_torch.models import capsnet as capsnet_mod
@@ -1962,37 +2116,7 @@ def main() -> int:
             k["library_ms"] = library_ms
 
     # Kernels against their plain versions.
-    # K1 / K1b: log-mel (after the log floor) within 1e-3, the JAX
-    # featurizer parity tolerance (tests/test_features_pallas.py:36); the
-    # kernel and the plain matmuls are both fp32, summed in other orders.
-    for sr, nb, key in ((8000, B, "K1"), (16000, 32, None)):
-        cfg = FeatureConfig(sample_rate=sr)
-        tabs = feature_tables(cfg, dev)
-        S = int(sr * SECONDS)
-        T = num_frames(cfg, S)
-        wav = (torch.randn(nb, S, generator=gen) * 0.1).to(dev)
-        hop = cfg.hop_length
-        got = fbank_power(wav, tabs, hop, T)
-        ref = fused_mod.fbank_power_plain(wav, tabs, hop, T)
-        err = (torch.log(got.clamp(min=cfg.log_floor))
-               - torch.log(ref.clamp(min=cfg.log_floor))).abs().max().item()
-        tol = 1e-3
-        ms = cuda_ms(lambda: fbank_power(wav, tabs, hop, T), 20)
-        pms = cuda_ms(lambda: fused_mod.fbank_power_plain(wav, tabs, hop, T),
-                      5)
-        phase(f"[3 K1{'' if key else 'b'}] fbank {sr} Hz B={nb} T={T} "
-              f"win={cfg.win_length} hop={hop}: log-mel max_abs_err {err:.3e}"
-              f" (tol {tol}) kernel {ms:.3f} ms plain {pms:.3f} ms")
-        if not err <= tol:
-            fail(f"fbank kernel disagrees at {sr} Hz: {err} > {tol}")
-        nf, nm = tabs["cos"].shape[1], tabs["proj"].shape[1]
-        flops = 2 * nb * T * (2 * cfg.win_length * nf + nf * nm)
-        bd = bound(nbytes(wav, got, *tabs.values()), flops, "fp32")
-        phase(f"[3 K1{'' if key else 'b'}] bound {bd[0]:.4f} ms ({bd[1]}); "
-              "no single PyTorch call computes it")
-        if key:
-            record(key, "fbank_power", "tpuasr_torch/csrc/fbank.cu",
-                   "tpuasr/features/pallas_fused.py:109", err, ms, pms, bd)
+    fbank_kernels(record, gen, dev)
 
     # K2 / K4 at the served layer shapes. ys is bf16: one bf16 ulp is
     # 3.9e-3 near 1, and the kernel sums x@Wx and h@Wh in another order
@@ -2487,8 +2611,8 @@ def main() -> int:
         {name: round(t - clock[i][1], 1)
          for i, (name, t) in enumerate(clock[1:])}))
 
-    order = ("K1", "K2", "K2-f32", "K4", "K9", "K9-taps", "K9-slab", "K7",
-             "K7-f32", "K3", "K3-LM", "K3-backtrack", "K10", "K8", "K8b",
+    order = ("K1", "K1b", "K2", "K2-f32", "K4", "K9", "K9-taps", "K9-slab",
+             "K7", "K7-f32", "K3", "K3-LM", "K3-backtrack", "K10", "K8", "K8b",
              "K5", "K5b", "K7b", "K2b", "K6", "K6b")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {

@@ -11,8 +11,10 @@ small ragged shapes that a kernel edit can be iterated on.
 
 import contextlib
 import ctypes
+import dataclasses
 from unittest import mock
 
+import numpy as np
 import pytest
 import torch
 
@@ -22,7 +24,8 @@ from tpuasr_torch.decode.beam import (backtrack, backtrack_plain, beam_plan,
 from tpuasr_torch.decode.beam import ctc_beam_search as kernel_search
 from tpuasr_torch.features import FeatureConfig, fbank_power
 from tpuasr_torch.features.fused import fbank_power_plain
-from tpuasr_torch.features.reference import feature_tables, num_frames
+from tpuasr_torch.features.reference import (feature_tables, frames_plain,
+                                             num_frames)
 from tpuasr_torch.decode.prefix_beam import BeamSearchConfig
 from tpuasr_torch.losses import ctc as ctc_mod
 from tpuasr_torch.ops.gather import gather_rows, gather_rows_plain
@@ -61,18 +64,169 @@ def dev():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("sr", [8000, 16000])
-def test_fbank(dev, sr):
-    cfg = FeatureConfig(sample_rate=sr)
+# test_fbank's cases: (FeatureConfig fields, B, S). S = 1.5 s + 17 samples
+# gives T off any tile height (148 frames at 8 kHz, 148 at 16 kHz); "B1_T1"
+# is one frame of one utterance; "T65" one frame past a tile of 64.
+FBANK_CASES = {
+    "8000": (dict(sample_rate=8000), 3, 12017),
+    "16000": (dict(sample_rate=16000), 3, 24017),
+    "spectrogram8000": (dict(feature_type="spectrogram"), 2, 12017),
+    "spectrogram16000": (dict(sample_rate=16000, feature_type="spectrogram"),
+                         2, 24017),
+    "nfft512_8000": (dict(n_fft=512), 2, 12017),
+    "nfft2048_16000": (dict(sample_rate=16000, n_fft=2048), 2, 24017),
+    "hop110": (dict(sample_rate=11025), 3, 16555),
+    "B1_T1": (dict(), 1, 200),
+    "T65": (dict(), 5, 64 * 80 + 200),
+}
+
+
+def _fbank_inputs(dev, case, seed=0):
+    kw, nb, S = FBANK_CASES[case]
+    cfg = FeatureConfig(**kw)
     tabs = feature_tables(cfg, dev)
-    S = 3 * sr // 2 + 17
-    T = num_frames(cfg, S)
-    wav = torch.randn(3, S, generator=torch.Generator().manual_seed(0)).to(dev)
-    got = fbank_power(wav, tabs, cfg.hop_length, T)
-    ref = fbank_power_plain(wav, tabs, cfg.hop_length, T)
+    wav = torch.randn(nb, S, generator=torch.Generator().manual_seed(seed))
+    return cfg, tabs, wav.to(dev), num_frames(cfg, S)
+
+
+def _log_close(got, ref):
     torch.testing.assert_close(torch.log(got.clamp(min=1e-10)),
                                torch.log(ref.clamp(min=1e-10)),
                                rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("case", list(FBANK_CASES))
+def test_fbank(dev, case):
+    cfg, tabs, wav, T = _fbank_inputs(dev, case)
+    got = fbank_power(wav, tabs, cfg.hop_length, T)
+    ref = fbank_power_plain(wav, tabs, cfg.hop_length, T)
+    assert got.shape == ref.shape == (wav.shape[0], T, cfg.base_dim)
+    _log_close(got, ref)
+
+
+@pytest.mark.parametrize("sr", [8000, 16000])
+def test_fbank_wide_range(dev, sr):
+    """A 1 kHz tone with noise 90 dB below it: split TF32 holds the gate
+    (tests/test_torch_fbank_plan.py shows one TF32 product does not)."""
+    cfg = FeatureConfig(sample_rate=sr)
+    tabs = feature_tables(cfg, dev)
+    S = 2 * sr
+    rng = np.random.default_rng(0)
+    t = np.arange(S) / sr
+    wav = (0.5 * np.sin(2 * np.pi * 1000.0 * t)[None]
+           + 0.5 * 10 ** -4.5 * rng.standard_normal((2, S)))
+    wav = torch.as_tensor(wav.astype(np.float32), device=dev)
+    T = num_frames(cfg, S)
+    _log_close(fbank_power(wav, tabs, cfg.hop_length, T),
+               fbank_power_plain(wav, tabs, cfg.hop_length, T))
+
+
+@pytest.mark.parametrize("sr,nb", [(8000, 16), (16000, 8)])
+def test_fbank_spectrogram_against_float64(dev, sr, nb):
+    """The spectrogram at full size (10 s): its single bins near a spectral
+    null are where rounding shows most, and there the plain float32 matmuls
+    themselves lie ~2-3e-3 (log) from a float64 rDFT, more than the 1e-3
+    gate against the plain version. Split TF32 keeps 22 of float32's 24
+    bits of each operand (a unit roundoff 4x float32's): the kernel must
+    lie at most 4x as far from float64 as the plain version does."""
+    cfg = FeatureConfig(sample_rate=sr, feature_type="spectrogram")
+    tabs = feature_tables(cfg, dev)
+    S = 10 * sr
+    wav = (torch.randn(nb, S, generator=torch.Generator().manual_seed(1))
+           * 0.1).to(dev)
+    T = num_frames(cfg, S)
+    got = fbank_power(wav, tabs, cfg.hop_length, T).double()
+    ref = fbank_power_plain(wav, tabs, cfg.hop_length, T).double()
+    t64 = {k: tabs[k].double() for k in ("window", "cos", "sin", "proj")}
+    x = frames_plain(wav.double(), cfg.hop_length, cfg.win_length,
+                     T) * t64["window"]
+    exact = ((x @ t64["cos"]) ** 2 + (x @ t64["sin"]) ** 2) @ t64["proj"]
+
+    def err(a):
+        return (torch.log(a.clamp(min=cfg.log_floor))
+                - torch.log(exact.clamp(min=cfg.log_floor))).abs().max()
+
+    assert err(got) <= 4 * err(ref)
+
+
+@pytest.mark.parametrize("case", ["8000", "16000", "hop110"])
+def test_fbank_two_calls_same_bits(dev, case):
+    cfg, tabs, wav, T = _fbank_inputs(dev, case, seed=2)
+    a = fbank_power(wav, tabs, cfg.hop_length, T)
+    assert torch.equal(a, fbank_power(wav, tabs, cfg.hop_length, T))
+
+
+# Plans the plan does not pick at these sizes: the mma.sync tile heights, a
+# ring of 2 or 3 stages, narrow chunks (many rDFT and mel chunks), and few
+# persistent CTAs, each walking several tiles.
+FBANK_PLANS = {
+    "M64_k2_2stages": dict(M=64, stage_k=2, stages=2),
+    "M64_k2_3stages_3ctas": dict(M=64, stage_k=2, stages=3, ctas=3),
+    "M64_k4_1cta": dict(M=64, stage_k=4, stages=2, ctas=1),
+    "M32_chunks": dict(M=32, dft_nt=5, mel_nt=3),
+    "M16_narrow": dict(M=16, dft_nt=1, mel_nt=1, stages=2),
+    "M32_1cta": dict(M=32, ctas=1),
+}
+
+
+@pytest.mark.parametrize("case", ["8000", "hop110", "spectrogram16000"])
+@pytest.mark.parametrize("forced", list(FBANK_PLANS))
+def test_fbank_plans(dev, case, forced):
+    from tpuasr_torch.features import fused as fused_mod
+    cfg, tabs, wav, T = _fbank_inputs(dev, case, seed=3)
+    real = fused_mod.fbank_plan
+
+    def plan(B, T, hop, win, nf, n_out, n_sm=132, paired=True):
+        want = FBANK_PLANS[forced]
+        p = real(B, T, hop, win, nf, n_out, n_sm, paired, M=want["M"])
+        dft_nt = want.get("dft_nt", p.dft_nt)
+        mel_nt = want.get("mel_nt", p.mel_nt)
+        stages = want.get("stages", p.stages)
+        stage_k = want.get("stage_k", p.stage_k)
+        p = dataclasses.replace(
+            p, stage_k=stage_k, stages=stages, dft_nt=dft_nt, mel_nt=mel_nt,
+            dft_chunks=-(-(p.Nd // 8) // dft_nt),
+            mel_chunks=-(-(p.No // 8) // mel_nt),
+            ctas=min(want.get("ctas", n_sm), p.grid[0] * B),
+            smem=fused_mod.fbank_smem(p.M, hop, p.Kp, p.nfp, stage_k,
+                                      8 * max(dft_nt, mel_nt), stages))
+        if p.smem > fused_mod.SMEM_LIMIT:
+            pytest.skip(f"{forced} does not fit {case}")
+        return p
+
+    with mock.patch.object(fused_mod, "fbank_plan", plan):
+        got = fbank_power(wav, tabs, cfg.hop_length, T)
+    _log_close(got, fbank_power_plain(wav, tabs, cfg.hop_length, T))
+
+
+def test_fbank_plan_matches_kernel_smem(dev):
+    from tpuasr_torch.features import fused as fused_mod
+    fn = _build.lib().tpuasr_fbank_smem
+    fn.argtypes = [ctypes.c_int] * 7
+    fn.restype = ctypes.c_longlong
+    for case in FBANK_CASES:
+        cfg = FeatureConfig(**FBANK_CASES[case][0])
+        for B, T in ((1, 1), (8, 499), (128, 998)):
+            p = fused_mod.fbank_plan(B, T, cfg.hop_length, cfg.win_length,
+                                     cfg.n_freqs, cfg.base_dim)
+            assert fn(p.M, cfg.hop_length, p.Kp, p.nfp, p.stage_k,
+                      8 * max(p.dft_nt, p.mel_nt), p.stages) == p.smem
+
+
+def test_fbank_launch_code_checked(dev):
+    """The launcher refuses a plan whose shared memory is not its layout's,
+    a chunk wider than its warps hold, and more CTAs than tiles, before any
+    launch."""
+    from tpuasr_torch.features import fused as fused_mod
+    cfg, tabs, wav, T = _fbank_inputs(dev, "8000")
+    p = fused_mod.fbank_plan(wav.shape[0], T, cfg.hop_length,
+                             cfg.win_length, cfg.n_freqs, cfg.base_dim)
+    for bad in (dict(smem=p.smem + 4), dict(dft_nt=100),
+                dict(ctas=p.grid[0] * p.grid[1] + 1)):
+        with mock.patch.object(fused_mod, "fbank_plan",
+                               lambda *a, **k: dataclasses.replace(p, **bad)):
+            with pytest.raises(RuntimeError, match="fbank_power"):
+                fbank_power(wav, tabs, cfg.hop_length, T)
 
 
 def _gru_case(dev, D, H, dtype):
