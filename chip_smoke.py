@@ -15,8 +15,12 @@ Phases, each fatal on failure:
      cuFFT pipeline's time beside it, and once a tone with noise 90 dB
      below it), K2, K4, K3 (without and with bigram/trigram LM fusion;
      with the backtrack kernel of its packed backpointers, and the
-     search's wall time against its device time) and K10 (the graph row
-     gather) at the shapes of the served model (B=128 utterances of 10 s
+     search's wall time against its device time), K10 (the scan-search
+     kernel: the graph-constrained search's whole frame loop with its row
+     fetch inside, at class_topk 8 and 63, every state field against the
+     plain loop, and its SM cycles a frame by part), K10-rebuild (the
+     prefix rebuild from its backpointers) and K10-gather (the standalone
+     row gather) at the shapes of the served model (B=128 utterances of 10 s
      at 8 kHz, C=64, a 512 x 4 BiGRU, beam K=8; K2/K4 also on ragged
      batches of 1 and 129 rows, with the projection and the recurrence
      of one call timed apart), K2 in float32 at the deepspeech_var train step's
@@ -59,7 +63,9 @@ Phases, each fatal on failure:
      by kernel;
   5. the LM and graph serving arms through Recognizer: the int8 arm with
      bigram fusion, and the graph-constrained search at class_topk 8 and
-     63, with launch counts, agreement with the plain path and x-real-time;
+     63 (one K10 and one K10-rebuild launch a batch), with launch counts,
+     agreement with the plain path, x-real-time, and a graph batch's wall
+     time against its device time;
   6. a few requests through tpuasr_torch.cli.predict on wav files it
      writes: beam, beam with LM fusion, and graph decoding, and one
      `predict capsule1` beam request;
@@ -342,8 +348,10 @@ def lm_graph_kernels(record, lp, blens, lms, g_pack) -> None:
                "tpuasr_torch/csrc/ctc_beam.cu",
                "tpuasr/decode/pallas_beam.py:455", err, ms, pms, bd)
 
-    # K10 on the bench-scale packed table, B*K = 1,024 indices with some
-    # past either end (clamped): exact.
+    # K10's standalone gather (JAX's public gather_rows; no serving path
+    # launches it since the scan-search kernel fetches its rows itself) on
+    # the bench-scale packed table, B*K = 1,024 indices with some past
+    # either end (clamped): exact.
     S, W = g_pack.shape
     idx = torch.randint(0, S, (Bk, BEAM), dtype=torch.int32,
                         generator=torch.Generator().manual_seed(SEED + 2))
@@ -360,7 +368,7 @@ def lm_graph_kernels(record, lp, blens, lms, g_pack) -> None:
     lib = queued_ms(lambda: torch.index_select(g_pack, 0, flat), 100)
     rows = int(torch.unique(flat).numel())
     bd = bound(rows * W * 4 + nbytes(idx, got), 0, "fp32")
-    phase(f"[3 K10] gather_rows table ({S}, {W}) int32 "
+    phase(f"[3 K10-gather] gather_rows table ({S}, {W}) int32 "
           f"({S * W * 4 / 2 ** 20:.1f} MiB), {idx.numel()} indices "
           f"({rows} distinct rows, 4 out of range): equal {exact} (tol: "
           f"exact) kernel {ms * 1e3:.2f} us (L2 warm), {ms_cold * 1e3:.2f} "
@@ -370,9 +378,123 @@ def lm_graph_kernels(record, lp, blens, lms, g_pack) -> None:
           f"{lib * 1e3:.2f} us")
     if not exact:
         fail("gather_rows disagrees with its plain version")
-    record("K10", "gather_rows (int32 graph rows)",
+    record("K10-gather", "gather_rows (int32 graph rows, standalone)",
            "tpuasr_torch/csrc/gather_rows.cu",
            "tpuasr/ops/pallas_gather.py:82", 0.0, ms, pms, bd, lib)
+
+
+def scan_kernels(record, lp, blens, g_pack, start) -> None:
+    """Phase 3 for K10, the scan-search kernel (the scan search's whole
+    frame loop with the graph row fetch inside), and its prefix rebuild, at
+    the served shapes (B=128, T'=499, C=64, K=8) on the bench LG, at
+    class_topk 8 and 63, against the plain versions on the same inputs."""
+    from tpuasr_torch.decode import BeamSearchConfig, beam_init_state
+    from tpuasr_torch.decode import prefix_beam as pbm
+    from tpuasr_torch.ops.gather import gather_rows_plain
+
+    Bk, T, C = lp.shape
+    dev = lp.device
+    L = 256
+    # The rows this run's search needs: the distinct graph states its
+    # beams visit (counted from the plain version's fetches).
+    visited = set()
+
+    def counting_gather(table, idx):
+        visited.update(torch.unique(idx).tolist())
+        return gather_rows_plain(table, idx)
+
+    for P in (NUM_CLASSES - 1, 8):
+        cfg = BeamSearchConfig(beam_width=BEAM, class_topk=P, max_len=L)
+        state = dict(beam_init_state(Bk, cfg, dev),
+                     last2=torch.full((Bk, BEAM), -1, dtype=torch.int32,
+                                      device=dev),
+                     gs=torch.full((Bk, BEAM), start, dtype=torch.int32,
+                                   device=dev),
+                     gc=torch.zeros((Bk, BEAM), device=dev))
+        args = (lp, blens, state, BEAM, P, 0, L, None, 0, 0.0, g_pack, 1.0)
+        frames = max(int(blens.clamp(0, T).sum()), 1)
+        pbm.scan_search.launches = 0
+        got_bp, got = pbm.scan_search(*args)
+        if pbm.scan_search.launches != 1:
+            fail("scan_search did not launch its kernel once")
+        # The reference, with the rows counted (untimed); then the plain
+        # version's time without the counting, after a warm-up call.
+        visited.clear()
+        with mock.patch.object(pbm, "gather_rows_plain", counting_gather):
+            ref_bp, ref = pbm.scan_search_plain(*args)
+        rows = len(visited)
+        pms = cuda_ms(lambda: pbm.scan_search_plain(*args), 1)
+        ints = ("plen", "last", "last2", "h1", "h2", "gs")
+        floats = ("p_b", "p_nb", "lm", "gc")
+        same = {n: torch.equal(got[n], ref[n]) for n in ints}
+        same["backpointers"] = torch.equal(got_bp, ref_bp)
+        errs = {n: (got[n] - ref[n]).abs().max().item() for n in floats}
+        err = max(errs.values())
+        ms = cuda_ms(lambda: pbm.scan_search(*args), 5)
+        clocks = torch.zeros((Bk, len(pbm.CLOCK_PARTS)), dtype=torch.int64,
+                             device=dev)
+        pbm.scan_search(*args, clocks=clocks)
+        per = clocks.sum(0).double().cpu() / frames
+        parts = ", ".join(f"{n} {v:.0f}" for n, v in
+                          zip(pbm.CLOCK_PARTS, per.tolist()))
+        # Over the frames within each length only (the kernel neither reads
+        # nor ranks the rest): bytes, those frames' log-probs, the lengths,
+        # each needed graph row once, the state in and out, and all T
+        # frames' backpointers out; operations, per such frame and beam a
+        # key per class (2) and per extend about 10 for its score plus 2
+        # per beam for the join.
+        state_bytes = 2 * 10 * 4 * Bk * BEAM
+        bd = bound(frames * C * 4 + nbytes(blens, got_bp) + rows * 2 * C * 4
+                   + state_bytes,
+                   frames * BEAM * (2 * C + P * (10 + 2 * BEAM)), "fp32")
+        phase(f"[3 K10] scan_search B={Bk} T={T} C={C} K={BEAM} P={P} on "
+              f"the bench LG ({g_pack.shape[0]} states; {rows} rows "
+              f"visited): equal (tol: exact) "
+              f"{json.dumps(same)}; max_abs_err (tol 1e-4) "
+              f"{json.dumps({n: float(f'{v:.3e}') for n, v in errs.items()})}"
+              f" kernel {ms:.4f} ms ({ms / T * 1e3:.2f} us a frame) plain "
+              f"{pms:.3f} ms bound {bd[0]:.5f} ms ({bd[1]}); no PyTorch call "
+              f"computes it; SM cycles a frame (thread 0): {parts}")
+        if not (all(same.values()) and err <= 1e-4):
+            fail(f"the scan-search kernel disagrees with its plain version "
+                 f"at P={P}")
+        record("K10", "scan_search (the scan search's frame loop, with the "
+               "graph row fetch inside)", "tpuasr_torch/csrc/scan_beam.cu",
+               "tpuasr/ops/pallas_gather.py:82", err, ms, pms, bd)
+
+    # The rebuild of the prefixes from the backpointers, from an empty
+    # prefix and from a resumed one (the first call's prefixes and lengths,
+    # a max_len that cuts rows): prefixes and root lanes exact.
+    base = torch.full((Bk, BEAM, L), -1, dtype=torch.int32, device=dev)
+    rb_same = True
+    for b0, bl, cap in ((base, state["plen"], L),
+                        (pbm.rebuild_prefixes(got_bp, base, state["plen"],
+                                              L)[0][:, :, :40].contiguous(),
+                         got["plen"].clamp(max=40), 40)):
+        pbm.rebuild_prefixes.launches = 0
+        kp = pbm.rebuild_prefixes(got_bp, b0, bl, cap)
+        if pbm.rebuild_prefixes.launches != 1:
+            fail("rebuild_prefixes did not launch its kernel once")
+        pp = pbm.rebuild_prefixes_plain(got_bp, b0, bl, cap)
+        rb_same &= all(torch.equal(a, r) for a, r in zip(kp, pp))
+    rb_ms = queued_ms(lambda: pbm.rebuild_prefixes(got_bp, base,
+                                                   state["plen"], L), 20)
+    rb_pms = cuda_ms(lambda: pbm.rebuild_prefixes_plain(got_bp, base,
+                                                        state["plen"], L), 2)
+    # Bytes: one backpointer a frame for each lane's walk, the base rows
+    # and lengths in, the prefixes and roots out.
+    rb_bd = bound(4 * (Bk * BEAM * T + 2 * Bk * BEAM * L + 3 * Bk * BEAM), 0,
+                  "fp32")
+    phase(f"[3 K10-rebuild] rebuild_prefixes B={Bk} T={T} K={BEAM} "
+          f"max_len={L}: prefixes+roots equal rebuild_prefixes_plain "
+          f"{rb_same} (empty base; resumed base capped at 40) (tol: exact) "
+          f"kernel {rb_ms:.4f} ms plain {rb_pms:.3f} ms bound "
+          f"{rb_bd[0]:.5f} ms ({rb_bd[1]}); no PyTorch call computes it")
+    if not rb_same:
+        fail("the rebuild kernel disagrees with rebuild_prefixes_plain")
+    record("K10-rebuild", "rebuild_prefixes (the scan search's prefix "
+           "rebuild)", "tpuasr_torch/csrc/ctc_beam.cu",
+           "tpuasr/decode/prefix_beam.py:431", 0.0, rb_ms, rb_pms, rb_bd)
 
 
 def lm_graph_slice(kernels, wrappers, model, feat_cfg, wav_d, lens_d, tabs_g,
@@ -405,13 +527,16 @@ def lm_graph_slice(kernels, wrappers, model, feat_cfg, wav_d, lens_d, tabs_g,
         per_arm[arm] = {k: w.launches - before[k] for k, w in wrappers.items()}
     phase(f"[5 lm+graph] launch counts per batch: {json.dumps(per_arm)}")
     none = {k: 0 for k in wrappers}
+    # A graph arm's batch: one scan-search launch for all frames and one
+    # rebuild, no standalone gather.
     want = {arm: dict(none, K1=1, K4=2 * LAYERS,
                       **({"K3": 1, "K3-backtrack": 1} if arm == "int8+bigram"
-                         else {"K10": T_out})) for arm in recs}
+                         else {"K10": 1, "K10-rebuild": 1})) for arm in recs}
     if per_arm != want:
         fail(f"LM/graph launch counts {per_arm} != {want}")
     kernels["K3-LM"]["launches"] = per_arm["int8+bigram"]["K3"]
-    kernels["K10"]["launches"] = sum(c["K10"] for c in per_arm.values())
+    for k in ("K10", "K10-rebuild", "K10-gather"):
+        kernels[k]["launches"] = sum(c[k] for c in per_arm.values())
 
     # The gate is the kernel search on the same log-probs (exact) and the
     # kernel path against the plain AM and search on the same features
@@ -463,17 +588,24 @@ def lm_graph_slice(kernels, wrappers, model, feat_cfg, wav_d, lens_d, tabs_g,
         if not (exact and am_ter <= ter_tol):
             fail(f"{arm}: kernel path disagrees with the plain path")
         rt = cuda_ms(lambda: rec(wav_d, lens_d), 3)
+        # A batch's wall time: host clock around synchronised calls.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            rec(wav_d, lens_d)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / 3 * 1e3
         with plain_path():
             prt = cuda_ms(lambda: rec(wav_d, lens_d), 1)
         phase(f"[5 {arm}] B={B} x {SECONDS:.0f} s ({audio_s:.0f} s of "
               f"audio): kernel path {rt:.2f} ms = "
-              f"{audio_s / (rt / 1e3):.1f}x real time; plain path "
+              f"{audio_s / (rt / 1e3):.1f}x real time, wall {wall:.2f} ms a "
+              f"batch (host clock); plain path "
               f"{prt:.2f} ms = {audio_s / (prt / 1e3):.1f}x real time "
               f"[{card}]")
-        if arm != f"graph P={NUM_CLASSES - 1}":
-            phase(f"[5 {arm}] device time of one batch by kernel "
-                  f"(torch.profiler): "
-                  f"{device_breakdown(lambda: rec(wav_d, lens_d), top=8)}")
+        phase(f"[5 {arm}] device time of one batch by kernel "
+              f"(torch.profiler): "
+              f"{device_breakdown(lambda: rec(wav_d, lens_d), top=8)}")
     # Pruned against full-width graph search (bench.py:243-254).
     a, b = outs["graph P=8"], outs[f"graph P={NUM_CLASSES - 1}"]
     agree = sum(
@@ -2279,9 +2411,11 @@ def main() -> int:
     phase(f"[3 K3] ctc_beam_search B={B} T={T_out} K={BEAM}: wall {wall:.3f}"
           f" ms a call (host clock) against device time {dev_t}")
 
-    # K3 with LM fusion and K10, on the graph built above.
+    # K3 with LM fusion, K10's standalone gather, and K10 (the scan-search
+    # kernel) with its rebuild, on the graph built above.
     lms = {order: unit_lm(order) for order in (2, 3)}
     lm_graph_kernels(record, lp, blens, lms, g_pack)
+    scan_kernels(record, lp, blens, g_pack, tabs_g.start)
 
     # K5 / K5b / K6 / K6b at the config-3 train step's shapes.
     train_kernels(record, gen)
@@ -2349,7 +2483,9 @@ def main() -> int:
                 "K7b": gru_mod.gru_scan_bidir_bwd,
                 "K3": beam_mod.beam_scan,
                 "K3-backtrack": beam_mod.backtrack,
-                "K10": gather_mod.gather_rows,
+                "K10": prefix_beam_mod.scan_search,
+                "K10-rebuild": prefix_beam_mod.rebuild_prefixes,
+                "K10-gather": gather_mod.gather_rows,
                 "K8": routing_mod.routed_caps,
                 "K8b": routing_mod.routed_caps_bwd,
                 "K5": gru_mod.gru_scan_fwd,
@@ -2369,7 +2505,9 @@ def main() -> int:
         (gru_mod, "gru_scan_bidir_fwd", gru_mod.gru_scan_bidir_plain),
         (beam_mod, "beam_scan", beam_mod.beam_scan_plain),
         (beam_mod, "backtrack", beam_mod.backtrack_plain),
-        (prefix_beam_mod, "gather_rows", gather_mod.gather_rows_plain),
+        (prefix_beam_mod, "scan_search", prefix_beam_mod.scan_search_plain),
+        (prefix_beam_mod, "rebuild_prefixes",
+         prefix_beam_mod.rebuild_prefixes_plain),
         (capsnet_mod, "routed_caps", routing_mod.routed_caps_plain),
     )
 
@@ -2612,7 +2750,8 @@ def main() -> int:
          for i, (name, t) in enumerate(clock[1:])}))
 
     order = ("K1", "K1b", "K2", "K2-f32", "K4", "K9", "K9-taps", "K9-slab",
-             "K7", "K7-f32", "K3", "K3-LM", "K3-backtrack", "K10", "K8", "K8b",
+             "K7", "K7-f32", "K3", "K3-LM", "K3-backtrack", "K10",
+             "K10-rebuild", "K10-gather", "K8", "K8b",
              "K5", "K5b", "K7b", "K2b", "K6", "K6b")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {

@@ -26,6 +26,7 @@ from tpuasr_torch.features import FeatureConfig, fbank_power
 from tpuasr_torch.features.fused import fbank_power_plain
 from tpuasr_torch.features.reference import (feature_tables, frames_plain,
                                              num_frames)
+from tpuasr_torch.decode import prefix_beam as pbm
 from tpuasr_torch.decode.prefix_beam import BeamSearchConfig
 from tpuasr_torch.losses import ctc as ctc_mod
 from tpuasr_torch.ops.gather import gather_rows, gather_rows_plain
@@ -489,8 +490,9 @@ def test_k3_lm_search_trigram_eos(dev):
 
 @pytest.mark.parametrize("S,W", [(5000, 128), (37, 12), (10, 7)])
 def test_k10_exact(dev, S, W):
-    """K10 equals the plain gather on int32 tables (W=7: the scalar path),
-    float bits in the table and indices past either end included."""
+    """K10's standalone gather equals the plain gather on int32 tables
+    (W=7: the scalar path), float bits in the table and indices past
+    either end included."""
     g = torch.Generator().manual_seed(8)
     table = torch.randint(-2 ** 31, 2 ** 31 - 1, (S, W), generator=g,
                           dtype=torch.int64).to(torch.int32)
@@ -503,6 +505,239 @@ def test_k10_exact(dev, S, W):
     assert torch.equal(got, gather_rows_plain(table, idx))
     with pytest.raises(ValueError, match="dtype"):
         gather_rows(table.float(), idx)
+
+
+def _scan_graph(C, seed=5, words=12):
+    """A small LG over C classes from the port's own graph functions:
+    words of 1-3 classes composed with a word bigram -> (packed (S, 2C)
+    int32 table, GraphTables)."""
+    from tpuasr_torch.decode import (compile_graph_tables, compose,
+                                     lexicon_to_fst, ngram_to_fst)
+    from tpuasr_torch.lm import train_ngram
+    rng = np.random.default_rng(seed)
+    prons, seen = [], set()
+    while len(prons) < words:
+        p = tuple(int(v) for v in rng.integers(1, C,
+                                               size=int(rng.integers(1, 4))))
+        if p not in seen:
+            seen.add(p)
+            prons.append((f"w{len(prons)}", p))
+    sents = [[f"w{int(v)}" for v in rng.integers(0, words,
+                                                 size=int(rng.integers(2, 5)))]
+             for _ in range(40)]
+    lg = compose(lexicon_to_fst(prons),
+                 ngram_to_fst(train_ngram(sents, order=2),
+                              {w: i + 1 for i, (w, _) in enumerate(prons)}))
+    g = compile_graph_tables(lg, C, prune=10.0, quantum=0.1)
+    pack = torch.cat([torch.as_tensor(g.next_state).to(torch.int32),
+                      torch.as_tensor(g.cost).float().view(torch.int32)], 1)
+    return pack.contiguous(), g
+
+
+def _scan_inputs(dev, B, T, C, K, P, order, graph, seed, ties=False):
+    """Seeded log-probs (ragged lengths: full, 0, 1, the rest random), a
+    fusion table of the order, the bench-like graph and a fresh state."""
+    g = torch.Generator().manual_seed(seed)
+    logits = torch.randn(B, T, C, generator=g) * 2
+    if ties:
+        logits = logits.round().clamp(-1, 1)
+    lp = torch.log_softmax(logits, -1).to(dev).contiguous()
+    lens = torch.randint(0, T + 1, (B,), generator=g).to(torch.int32)
+    lens[:3] = torch.tensor([T, 0, 1])[:B]
+    tab = None
+    if order:
+        tab = torch.log_softmax(torch.randn((C + 1) ** (order - 1), C,
+                                            generator=g), -1)
+        tab = tab.to(dev).contiguous()
+    cfg = BeamSearchConfig(beam_width=K, class_topk=P)
+    state = dict(pbm.beam_init_state(B, cfg, dev),
+                 last2=torch.full((B, K), -1, dtype=torch.int32, device=dev))
+    pack = None
+    if graph:
+        pack, gt = _scan_graph(C, seed)
+        pack = pack.to(dev)
+        state.update(gs=torch.full((B, K), gt.start, dtype=torch.int32,
+                                   device=dev),
+                     gc=torch.zeros((B, K), device=dev))
+    return lp, lens.to(dev), tab, pack, state
+
+
+def _scan_same(got, ref):
+    """Backpointers and every integer field exact, floats within 1e-4."""
+    (gbp, gs_), (rbp, rs) = got, ref
+    assert torch.equal(gbp, rbp)
+    assert set(gs_) == set(rs)
+    for n in rs:
+        if rs[n].dtype.is_floating_point:
+            torch.testing.assert_close(gs_[n], rs[n], rtol=0, atol=1e-4,
+                                       msg=n)
+        else:
+            assert torch.equal(gs_[n], rs[n].to(gs_[n].dtype)), n
+
+
+@pytest.mark.parametrize("graph", [False, True])
+@pytest.mark.parametrize("order", [0, 2, 3])
+@pytest.mark.parametrize("P", [2, "full"])
+@pytest.mark.parametrize("K", [4, 8, 16])
+def test_k10_scan_search_exact(dev, K, P, order, graph):
+    """The scan-search kernel against its plain version on the card: with
+    and without a graph, without LM, with a bigram and a trigram, P = 2 and
+    C - 1, frozen rows (lengths 0, 1 and random) and a max_len that kills
+    extends: backpointers, plen, last, last2, h1, h2, gs exact (dead lanes
+    included), p_b, p_nb, lm, gc within 1e-4; one launch."""
+    C = 12
+    P = C - 1 if P == "full" else P
+    lp, lens, tab, pack, state = _scan_inputs(dev, 6, 30, C, K, P, order,
+                                              graph, K * 10 + P + order)
+    args = (lp, lens, state, K, P, 0, 7, tab, order, 0.6, pack, 0.8)
+    before = pbm.scan_search.launches
+    got = pbm.scan_search(*args)
+    assert pbm.scan_search.launches == before + 1
+    _scan_same(got, pbm.scan_search_plain(*args))
+    assert int(got[1]["plen"].max()) >= 7      # the cap was reached
+
+
+@pytest.mark.parametrize("C,P,K", [(64, 8, 8), (64, 63, 8), (40, 30, 16),
+                                   (33, 9, 5), (100, 99, 8), (300, 7, 8),
+                                   (1024, 1023, 8)])
+def test_k10_scan_search_lane_classes(dev, C, P, K):
+    """Each build of the kernel (2, 8 and 32 classes a lane: C up to 64,
+    256 and 1024) and both sorts of the 2-class build (the top next_pow2(P)
+    by folding where P <= 16, else the whole warp; the extends' top K the
+    same way) with a graph and a bigram, ties in the log-probs."""
+    lp, lens, tab, pack, state = _scan_inputs(dev, 4, 9, C, K, P, 2, True,
+                                              C + P, ties=True)
+    args = (lp, lens, state, K, P, 0, 256, tab, 2, 0.5, pack, 1.0)
+    _scan_same(pbm.scan_search(*args), pbm.scan_search_plain(*args))
+
+
+def test_k10_scan_search_largest_shape(dev):
+    """K=32 (a block of 1024 threads) at C=1024, P=1023 with a graph."""
+    lp, lens, tab, pack, state = _scan_inputs(dev, 3, 5, 1024, 32, 1023, 0,
+                                              True, 11)
+    args = (lp, lens, state, 32, 1023, 0, 8, None, 0, 0.0, pack, 1.0)
+    _scan_same(pbm.scan_search(*args), pbm.scan_search_plain(*args))
+
+
+@pytest.mark.parametrize("graph", [False, True])
+def test_k10_search_resumed_on_the_card(dev, graph):
+    """The whole search (ctc_beam_search_xla) in two chunks with a bigram,
+    the second resumed from the first's state, on the card against the same
+    calls on the CPU (the plain versions): tokens, token_lens,
+    reached_final and every integer state field exact, scores and float
+    state within 1e-4; one scan-search and one rebuild launch a call."""
+    from tpuasr_torch.decode import ctc_beam_search_xla
+    C, K, T = 12, 8, 30
+    g = torch.Generator().manual_seed(4)
+    lp = torch.log_softmax(torch.randn(5, T, C, generator=g) * 2, -1)
+    lens = torch.tensor([T, 0, 1, 17, 29], dtype=torch.int32)
+    bigram = torch.log_softmax(torch.randn(C + 1, C, generator=g), -1)
+    eos = torch.randn(C + 1, generator=g) - 3
+    gt = _scan_graph(C, 9)[1] if graph else None
+    cfg = BeamSearchConfig(beam_width=K, class_topk=3, max_len=20,
+                           lm_weight=0.5, graph_weight=0.8)
+    cut = 12
+    l1 = lens.clamp(max=cut)
+    outs = {}
+    for where in ("cpu", dev):
+        kw = dict(lm_bigram=bigram.to(where), lm_eos=eos.to(where),
+                  graph=gt)
+        s0, r0 = pbm.scan_search.launches, pbm.rebuild_prefixes.launches
+        a = ctc_beam_search_xla(lp[:, :cut].to(where), l1.to(where), cfg,
+                                return_state=True, **kw)
+        b = ctc_beam_search_xla(lp[:, cut:].contiguous().to(where),
+                                (lens - l1).to(where), cfg, n_best=3,
+                                init_state=a["state"], return_state=True,
+                                **kw)
+        launched = (pbm.scan_search.launches - s0,
+                    pbm.rebuild_prefixes.launches - r0)
+        assert launched == ((0, 0) if where == "cpu" else (2, 2))
+        outs[str(where)] = b
+    want, got = outs["cpu"], outs[str(dev)]
+    keys = ("tokens", "token_lens") + (("reached_final",) if graph else ())
+    for k in keys:
+        assert torch.equal(got[k].cpu(), want[k]), k
+    for k in ("scores", "am_scores", "lm_scores"):
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=0, atol=1e-4)
+    for n, v in want["state"].items():
+        if v.dtype.is_floating_point:
+            torch.testing.assert_close(got["state"][n].cpu(), v, rtol=0,
+                                       atol=1e-4, msg=n)
+        else:
+            assert torch.equal(got["state"][n].cpu(), v), n
+
+
+def test_k10_scan_search_raises_past_its_limits(dev):
+    """On a CUDA tensor a shape the kernel does not take raises ValueError
+    naming the limit, before any launch; nothing falls back."""
+    from tpuasr_torch.decode import ctc_beam_search_xla
+    lp = torch.log_softmax(torch.randn(2, 4, 12), -1).to(dev)
+    lens = torch.tensor([4, 3], device=dev)
+    before = pbm.scan_search.launches
+    with pytest.raises(ValueError, match="beam_width"):
+        ctc_beam_search_xla(lp, lens, BeamSearchConfig(beam_width=33))
+    with pytest.raises(ValueError, match="class_topk"):
+        ctc_beam_search_xla(lp, lens, BeamSearchConfig(class_topk=0))
+    wide = torch.log_softmax(torch.randn(1, 2, 1025), -1).to(dev)
+    with pytest.raises(ValueError, match="classes"):
+        ctc_beam_search_xla(wide, torch.tensor([2], device=dev),
+                            BeamSearchConfig(beam_width=4))
+    assert pbm.scan_search.launches == before
+
+
+def test_k10_scan_plan_matches_kernel_smem(dev):
+    """csrc/scan_beam.cu's shared memory a block (tpuasr_scan_beam_smem) at
+    every K it takes: 16-byte aligned and, with the kernel's static clock
+    sums, within the card's 227 KB a block."""
+    fn = _build.lib().tpuasr_scan_beam_smem
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    for K in range(1, pbm.MAX_K + 1):
+        assert fn(K) % 16 == 0
+        assert fn(K) + 8 * len(pbm.CLOCK_PARTS) <= 232448
+
+
+def test_k10_scan_search_clocks(dev):
+    """The clock parts of a frame: as many as the kernel counts, one
+    non-negative count a part for each utterance with frames; the kernel's
+    results do not change."""
+    parts = _build.lib().tpuasr_scan_beam_clock_parts
+    parts.restype = ctypes.c_int
+    assert parts() == len(pbm.CLOCK_PARTS)
+    lp, lens, tab, pack, state = _scan_inputs(dev, 4, 20, 64, 8, 8, 0, True,
+                                              3)
+    args = (lp, lens, state, 8, 8, 0, 256, None, 0, 0.0, pack, 1.0)
+    clocks = torch.zeros((4, len(pbm.CLOCK_PARTS)), dtype=torch.int64,
+                         device=dev)
+    got = pbm.scan_search(*args, clocks=clocks)
+    _scan_same(got, pbm.scan_search(*args))
+    assert bool((clocks >= 0).all()) and int(clocks[0].sum()) > 0
+
+
+@pytest.mark.parametrize("T,B,K,L", [(40, 6, 8, 40), (40, 6, 8, 7),
+                                     (499, 128, 8, 256), (12, 5, 32, 12),
+                                     (1, 1, 1, 1)])
+def test_k10_rebuild_exact(dev, T, B, K, L):
+    """The rebuild (the backtrack kernel with a base) equals
+    rebuild_prefixes_plain on seeded backpointers with frozen rows, base
+    prefixes of random lengths and the max_len cap: prefixes and root
+    lanes exact; one launch."""
+    g = torch.Generator().manual_seed(T + B + K + L)
+    parent = torch.randint(0, K, (T, B, K), generator=g)
+    ch = torch.randint(-1, 30, (T, B, K), generator=g)
+    bp = (parent * 65536 + ch + 1).to(torch.int32)
+    lens = torch.randint(0, T + 1, (B,), generator=g)
+    for b in range(B):
+        bp[lens[b]:, b] = (torch.arange(K) * 65536).to(torch.int32)
+    base_len = torch.randint(0, L + 1, (B, K), generator=g).to(torch.int32)
+    base = torch.randint(0, 30, (B, K, L), generator=g).to(torch.int32)
+    base = torch.where(torch.arange(L) < base_len[:, :, None], base, -1)
+    before = pbm.rebuild_prefixes.launches
+    got = pbm.rebuild_prefixes(bp.to(dev), base.to(dev), base_len.to(dev), L)
+    assert pbm.rebuild_prefixes.launches == before + 1
+    want = pbm.rebuild_prefixes_plain(bp, base, base_len, L)
+    for a, r in zip(got, want):
+        assert torch.equal(a.cpu(), r)
 
 
 def _scan_case(dev, H, B=7, T=37):

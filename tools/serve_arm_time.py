@@ -4,13 +4,17 @@
 
 The int8, bf16, int8 + int8_conv and bf16 + fused_bidir arms of BASELINE
 config 5 (DeepSpeechCTC 512 x 4, 64 classes, beam K=8, random weights from
-seed 0) on a batch of B=128 x 10 s of seeded noise at 8 kHz: ms a batch
-from CUDA events (mean of 5 after a warm-up), each arm in turn, --rounds
-times, so that the spread between rounds shows. --root imports
-tpuasr_torch from another checkout (for example the parent commit,
-unpacked by git archive), so two trees can be timed in turns in one call:
-parent, change, change, parent. Prints the card's name and power limit
-first. Needs one CUDA card and nvcc.
+seed 0) and the int8 arm's two graph arms (the scan search on the bench LG,
+bench.py:183-201, at class_topk 8 and 63: "graph P=8", "graph P=63") on a
+batch of B=128 x 10 s of seeded noise at 8 kHz: ms a batch from CUDA
+events (mean of 5 after a warm-up), and the wall ms a batch (host clock
+around synchronised calls, mean of 3), each arm in turn, --rounds times, so
+that the spread between rounds shows; in the first round also each arm's
+device ms of one batch (torch.profiler, the sum of the kernels' device
+times). --root imports tpuasr_torch from another
+checkout (for example the parent commit, unpacked by git archive), so two
+trees can be timed in turns in one call: parent, change, change, parent.
+Prints the card's name and power limit first. Needs one CUDA card and nvcc.
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from __future__ import annotations
 import argparse
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -75,6 +80,12 @@ def main() -> int:
         model.load_state_dict(cs.fused_bidir_state(state)
                               if flags.get("fused_bidir") else state)
         recs[arm] = Recognizer(model, feat_cfg, bcfg, "cuda")
+    tabs, _ = cs.bench_graph()
+    for P in (8, cs.NUM_CLASSES - 1):
+        recs[f"graph P={P}"] = Recognizer(
+            recs["int8"].model, feat_cfg,
+            BeamSearchConfig(beam_width=cs.BEAM, class_topk=P, max_len=256),
+            "cuda", graph=tabs)
     S = int(cs.SR * cs.SECONDS)
     wav = torch.as_tensor((np.random.default_rng(cs.SEED).standard_normal(
         (cs.B, S)) * 0.1).astype(np.float32), device="cuda")
@@ -84,7 +95,18 @@ def main() -> int:
         row = []
         for arm, rec in recs.items():
             ms = cs.cuda_ms(lambda: rec(wav, lens), 5)
-            row.append(f"{arm} {ms:.2f} ms ({audio_s / (ms / 1e3):.1f}x)")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                rec(wav, lens)
+                torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) / 3 * 1e3
+            dev = ""
+            if r == 0:
+                dev = ", device " + cs.device_breakdown(
+                    lambda: rec(wav, lens), top=3)
+            row.append(f"{arm} {ms:.2f} ms ({audio_s / (ms / 1e3):.1f}x), "
+                       f"wall {wall:.2f} ms{dev}")
         print(f"round {r}: " + "; ".join(row), flush=True)
     return 0
 

@@ -9,7 +9,11 @@
 // max_len cap and writes packed backpointers parent * 65536 + char + 1.
 // The backtrack kernel replaces the reverse lax.scan of the same wrapper
 // (pallas_beam.py:612-629): it walks the backpointers from the final
-// beams and left-compacts the tokens.
+// beams and left-compacts the tokens. With a base (tpuasr_ctc_rebuild) it
+// also rebuilds the scan search's prefixes (csrc/scan_beam.cu's
+// backpointers, the reverse lax.scan of tpuasr/decode/prefix_beam.py:
+// 431-457): every lane is walked to its root lane at frame 0, and its chars
+// go after the root's resumed prefix.
 //
 // LM fusion (lm_order 2 or 3): each beam carries its cumulative LM score
 // lm[k]; an extend by class c ranks by ext + lm_w * (lm[k] + row[c]), a
@@ -536,18 +540,26 @@ ctc_beam_kernel(const float* __restrict__ lp,     // (B, T, C)
 // no token). The chars land in chars (T, B * n); a forward pass then
 // left-compacts the tokens into tokens (B, n, L), capped at L = max_len and
 // padded with -1, and token_lens = min(count, L).
+// With base (B, K, L) and base_len (B, K), the rebuild of every lane (n =
+// K, beam_idx null: entry q starts from lane j): the row starts as the
+// root lane's base prefix, the chars are written from position
+// base_len[root] on (those past L dropped), nothing else is padded, the
+// root lane goes to root[q], and token_lens may be null.
 __global__ void __launch_bounds__(128)
 backtrack_kernel(const int* __restrict__ bp,        // (T, B, K)
-                 const int* __restrict__ beam_idx,  // (B, n)
+                 const int* __restrict__ beam_idx,  // (B, n) or null
+                 const int* __restrict__ base,      // (B, K, L) or null
+                 const int* __restrict__ base_len,  // (B, K) or null
                  int* __restrict__ chars,           // (T, B * n) scratch
                  int* __restrict__ tokens,          // (B, n, L)
-                 int* __restrict__ token_lens,      // (B, n)
+                 int* __restrict__ token_lens,      // (B, n) or null
+                 int* __restrict__ root,            // (B, n) or null
                  int T, int B, int K, int n, int L) {
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   const int Q = B * n;
   if (q >= Q) return;
   const int b = q / n;
-  int cur = beam_idx[q];
+  int cur = beam_idx ? beam_idx[q] : q - b * n;
   int count = 0;
   for (int t = T - 1; t >= 0; --t) {
     const int pk = __ldg(bp + (static_cast<size_t>(t) * B + b) * K + cur);
@@ -558,12 +570,19 @@ backtrack_kernel(const int* __restrict__ bp,        // (T, B, K)
   }
   int* out = tokens + static_cast<size_t>(q) * L;
   int pos = 0;
+  if (base) {
+    const int* src = base + (static_cast<size_t>(b) * K + cur) * L;
+    for (int i = 0; i < L; ++i) out[i] = src[i];
+    pos = base_len[b * K + cur];
+    if (root) root[q] = cur;
+  }
   for (int t = 0; t < T && pos < L; ++t) {
     const int ch = chars[static_cast<size_t>(t) * Q + q];
     if (ch >= 0) out[pos++] = ch;
   }
-  for (; pos < L; ++pos) out[pos] = -1;
-  token_lens[q] = min(count, L);
+  if (!base)
+    for (; pos < L; ++pos) out[pos] = -1;
+  if (token_lens) token_lens[q] = min(count, L);
 }
 
 }  // namespace
@@ -624,7 +643,26 @@ extern "C" int tpuasr_ctc_backtrack(const int* bp, const int* beam_idx,
     return static_cast<int>(cudaErrorInvalidValue);
   const int Q = B * n;
   backtrack_kernel<<<(Q + 127) / 128, 128, 0, stream>>>(
-      bp, beam_idx, chars, tokens, token_lens, T, B, K, n, max_len);
+      bp, beam_idx, nullptr, nullptr, chars, tokens, token_lens, nullptr, T,
+      B, K, n, max_len);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The scan search's prefix rebuild: bp (T, B, K) int32, the resumed
+// prefixes base (B, K, max_len) and their lengths base_len (B, K) int32 ->
+// prefixes (B, K, max_len) and each lane's root lane at frame 0, root (B,
+// K) int32; chars: (T, B * K) int32 scratch.
+extern "C" int tpuasr_ctc_rebuild(const int* bp, const int* base,
+                                  const int* base_len, int* chars,
+                                  int* prefixes, int* root, int T, int B,
+                                  int K, int max_len, cudaStream_t stream) {
+  if (B <= 0) return 0;
+  if (T < 0 || K < 1 || max_len < 1 || !base || !base_len)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int Q = B * K;
+  backtrack_kernel<<<(Q + 127) / 128, 128, 0, stream>>>(
+      bp, nullptr, base, base_len, chars, prefixes, nullptr, root, T, B, K,
+      K, max_len);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,11 +1,12 @@
 // Row gather out[i, :] = table[clamp(idx[i], 0, S - 1), :] for an int32
 // table (S, W).
 //
-// Replaces K10, gather_rows of tpuasr/ops/pallas_gather.py (pallas_call at
-// line 82): the graph-constrained beam search fetches one packed row
-// [next states | cost bits] of its (S, 2C) decoding-graph table per beam
-// and frame. The clamp is the semantics of the default JAX path (XLA's
-// gather clamps out-of-range indices).
+// The counterpart of gather_rows of tpuasr/ops/pallas_gather.py (K10,
+// pallas_call at line 82), the JAX package's public row gather. The
+// graph-constrained beam search no longer launches it: csrc/scan_beam.cu
+// runs the whole frame loop and fetches each beam's packed row [next
+// states | cost bits] itself. The clamp is the semantics of the default JAX
+// path (XLA's gather clamps out-of-range indices).
 //
 // What bounds it on the H100: latency of scattered row reads. Each row is
 // W * 4 = 512 bytes at C = 64 and the rows are independent, so the work is

@@ -24,8 +24,9 @@ from tpuasr_torch.decode.prefix_beam import \
 def get_beam_search(impl: str = "auto"):
     """'auto' and 'pallas': the all-class search, which launches the beam
     kernel (K3) for a CUDA tensor and runs its plain version for a CPU
-    tensor; 'xla': the top-P scan search (decode/prefix_beam.py), torch ops
-    around the K10 row gather."""
+    tensor; 'xla': the top-P scan search (decode/prefix_beam.py), which
+    launches the scan-search kernel (K10, the whole frame loop with the
+    graph row fetch inside) and the prefix rebuild for a CUDA tensor."""
     if impl in ("auto", "pallas"):
         return ctc_beam_search
     if impl == "xla":

@@ -1,11 +1,12 @@
 """Row gather from an int32 table (K10): kernel, plain version, wrapper.
 
-Counterpart of ``tpuasr/ops/pallas_gather.py::gather_rows``. The
-graph-constrained beam search (``decode/prefix_beam.py``) fetches one packed
-row of its (S, 2C) decoding-graph table per beam and frame through
-``gather_rows``: the CUDA kernel of ``csrc/gather_rows.cu`` for a CUDA
-tensor, ``gather_rows_plain`` for a CPU tensor. Both compute
-``table[clamp(idx, 0, S - 1)]``, the semantics of XLA's gather.
+Counterpart of ``tpuasr/ops/pallas_gather.py::gather_rows``, the JAX
+package's public row gather: the CUDA kernel of ``csrc/gather_rows.cu`` for
+a CUDA tensor, ``gather_rows_plain`` for a CPU tensor. Both compute
+``table[clamp(idx, 0, S - 1)]``, the semantics of XLA's gather. The
+graph-constrained beam search no longer calls it: its kernel
+(``csrc/scan_beam.cu``) fetches each beam's row itself, and its plain
+version calls ``gather_rows_plain``.
 """
 
 from __future__ import annotations
