@@ -1,6 +1,7 @@
 """tpuasr_torch CTC losses against the JAX package's Pallas CTC (CPU).
 
-The port's ``ctc_loss`` runs the plain versions of K6/K6b on CPU tensors;
+The port's ``ctc_loss`` runs the plain versions of K6/K6b
+(``ctc_forward_plain``, ``ctc_backward_plain``) on CPU tensors;
 the JAX ``ctc_loss_pallas`` runs its kernels with ``interpret=True``, which
 the JAX package selects itself off a TPU. The same numpy inputs go to
 both, with the edge cases the kernels must handle: ragged input lengths
@@ -14,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
-from tpuasr.losses.ctc_pallas import (ctc_alphas_pallas, ctc_betas_pallas,
-                                      ctc_loss_pallas)
+from tpuasr.losses.ctc_pallas import (_final_ll, ctc_alphas_pallas,
+                                      ctc_betas_pallas, ctc_loss_pallas)
 from tpuasr_torch.losses import ctc_loss, ctc_loss_ref, get_ctc_loss
 from tpuasr_torch.losses import ctc as ctc_mod
 
@@ -27,7 +28,7 @@ pytest_plugins = ["jax_cache_isolation"]
 C, U = 9, 6
 
 
-def _case(seed, B=8, T=40):
+def _case(seed, B=8, T=40, U=U):
     rng = np.random.default_rng(seed)
     lp = np.asarray(jax.nn.log_softmax(
         jnp.asarray(rng.standard_normal((B, T, C)) * 2.0, jnp.float32), -1))
@@ -136,20 +137,80 @@ def test_plain_alphas_and_betas_match_pallas(seed):
                                    atol=1e-6)
 
 
+@pytest.mark.parametrize("seed,T,U_", [(0, 40, U), (1, 40, U), (7, 100, 40)])
+def test_forward_backward_plain_match_pallas(seed, T, U_):
+    """K6's and K6b's plain versions against JAX: the loss against
+    ctc_loss_pallas, the alphas against ctc_alphas_pallas (every reachable
+    entry within rtol 1e-5, unreachable where Pallas is) and ll against
+    its _final_ll, the gradient of sum(w * loss) against jax.grad (atol
+    1e-5). U = 40 gives S = 81: three states a lane in the kernels."""
+    lp, labels, il, ll = _case(seed, T=T, U=U_)
+    w = np.random.default_rng(seed + 20).random(len(il)).astype(np.float32)
+    loss, ll_t, alphas = ctc_mod.ctc_forward_plain(
+        torch.tensor(lp), torch.tensor(labels), torch.tensor(il),
+        torch.tensor(ll))
+    grad = ctc_mod.ctc_backward_plain(
+        torch.tensor(lp), torch.tensor(labels), torch.tensor(il),
+        torch.tensor(ll), alphas, ll_t, torch.tensor(w))
+    a_j, _, _ = ctc_alphas_pallas(jnp.asarray(lp), labels, il, ll)
+    ll_j = np.asarray(_final_ll(a_j, jnp.asarray(il), jnp.asarray(ll)))
+    lj, gj = _jax_loss_and_grad(lp, labels, il, ll, w)
+    np.testing.assert_allclose(loss.numpy(), lj, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ll_t.numpy(), ll_j, rtol=1e-5, atol=1e-5)
+    want = np.asarray(a_j).transpose(1, 0, 2)
+    got = alphas.numpy()[:, :, :want.shape[2]]
+    reach = want > -1e29
+    assert reach.sum() > 100 and (alphas.numpy()[:, :, want.shape[2]:]
+                                  == np.float32(-1e30)).all()
+    np.testing.assert_array_equal(got > -1e29, reach)
+    np.testing.assert_allclose(got[reach], want[reach], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(grad.numpy(), gj, rtol=0, atol=1e-5)
+    assert loss[4] == 0.0 and not grad[4].any()   # infeasible
+    assert not grad[1].any()                      # no frames
+
+
+def test_ctc_loss_past_the_kernels_limit():
+    """ctc_loss on CPU tensors takes labels past the kernels' S = 1024 (U =
+    600: S = 1201), against ctc_loss_pallas and its jax.grad; its alphas
+    are then (B, T, S)."""
+    rng = np.random.default_rng(3)
+    B, T, U_ = 2, 660, 600
+    lp = np.asarray(jax.nn.log_softmax(
+        jnp.asarray(rng.standard_normal((B, T, C)), jnp.float32), -1))
+    # No repeats: each row is feasible in U frames.
+    steps = rng.integers(1, C - 1, (B, U_))
+    labels = (1 + np.cumsum(steps, axis=1) % (C - 1)).astype(np.int32)
+    il = np.array([T, 640], np.int32)
+    ll = np.array([U_, 590], np.int32)
+    w = np.array([0.75, 1.5], np.float32)
+    lj, gj = _jax_loss_and_grad(lp, labels, il, ll, w)
+    lt, gt = _torch_loss_and_grad(ctc_loss, lp, labels, il, ll, w)
+    assert (lt > 0).all() and np.isfinite(lt).all()
+    np.testing.assert_allclose(lt, lj, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(gt, gj, rtol=0, atol=1e-5)
+    _, _, alphas = ctc_mod.ctc_forward_plain(
+        torch.tensor(lp), torch.tensor(labels), torch.tensor(il),
+        torch.tensor(ll))
+    assert alphas.shape == (B, T, 2 * U_ + 1)
+
+
 def test_kernel_wrappers_run_plain_on_cpu():
+    """ctc_forward and ctc_backward take their plain versions for CPU
+    tensors, whatever the index types, and launch nothing."""
     lp, labels, il, ll = _case(6, T=14)
-    ext, allow, valid, lp_ext = ctc_mod.prepare(
-        torch.tensor(lp), torch.tensor(labels), torch.tensor(ll))
-    before = (ctc_mod.ctc_alphas_kernel.launches,
-              ctc_mod.ctc_betas_kernel.launches)
-    a = ctc_mod.ctc_alphas_kernel(lp_ext, allow, valid)
-    b = ctc_mod.ctc_betas_kernel(lp_ext, allow, valid, torch.tensor(il),
-                                 torch.tensor(ll))
-    assert torch.equal(a, ctc_mod.ctc_alphas_plain(lp_ext, allow, valid))
-    assert torch.equal(b, ctc_mod.ctc_betas_plain(
-        lp_ext, allow, valid, torch.tensor(il), torch.tensor(ll)))
-    assert (ctc_mod.ctc_alphas_kernel.launches,
-            ctc_mod.ctc_betas_kernel.launches) == before
+    w = torch.rand(len(il), generator=torch.Generator().manual_seed(6))
+    before = (ctc_mod.ctc_forward.launches, ctc_mod.ctc_backward.launches)
+    for idx in (torch.int32, torch.int64):
+        args = (torch.tensor(lp), torch.tensor(labels, dtype=idx),
+                torch.tensor(il, dtype=idx), torch.tensor(ll, dtype=idx))
+        got = ctc_mod.ctc_forward(*args)
+        want = ctc_mod.ctc_forward_plain(*args)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+        assert torch.equal(ctc_mod.ctc_backward(*args, got[2], got[1], w),
+                           ctc_mod.ctc_backward_plain(*args, *want[2:0:-1],
+                                                      w))
+    assert (ctc_mod.ctc_forward.launches,
+            ctc_mod.ctc_backward.launches) == before
 
 
 def test_get_ctc_loss_names():

@@ -940,29 +940,83 @@ def test_xfused_backward_launches_by_rule(dev, D, H, fused):
 
 def test_ctc_kernels(dev):
     """K6/K6b on the edge cases (no frames, empty label, repeats, an
-    infeasible row, garbage labels): reachable entries within rtol 1e-5,
-    unreachable where the plain version is."""
+    infeasible row, garbage labels, a label equal to the blank, a row
+    longer than T), int32 and int64 indices, S up to 1023 (every lane
+    instance): the loss within rtol 1e-5, reachable alphas within rtol 1e-5
+    and unreachable where the plain version's are, the gradient within
+    1e-4 of its largest magnitude, two calls bit for bit, one launch
+    each."""
     g = torch.Generator().manual_seed(4)
-    B, T, C, U = 8, 50, 9, 6
-    lp = torch.log_softmax(torch.randn(B, T, C, generator=g) * 2, -1)
-    labels = torch.randint(1, C, (B, U), generator=g)
-    il = torch.tensor([T, 0, 44, 12, 6, 31, T, 27])
-    ll = torch.tensor([U, 3, 0, 4, 4, 5, 2, 6])
-    labels[3, :4] = torch.tensor([5, 5, 5, 2])
-    labels[4, :4] = 7
-    labels[6, 2:] = torch.tensor([-3, 99, 0, 40])
-    ext, allow, valid, lp_ext = ctc_mod.prepare(lp.to(dev), labels.to(dev),
-                                                ll.to(dev))
-    il, ll = il.to(dev), ll.to(dev)
-    cases = ((ctc_mod.ctc_alphas_kernel(lp_ext, allow, valid),
-              ctc_mod.ctc_alphas_plain(lp_ext, allow, valid)),
-             (ctc_mod.ctc_betas_kernel(lp_ext, allow, valid, il, ll),
-              ctc_mod.ctc_betas_plain(lp_ext, allow, valid, il, ll)))
-    for got, want in cases:
-        reach = want > -1e29
-        assert torch.equal(got > -1e29, reach)
-        torch.testing.assert_close(got[reach], want[reach], rtol=1e-5,
+    for (B, T, C, U), wide in (((8, 50, 9, 6), False), ((8, 50, 9, 6), True),
+                               ((3, 90, 20, 40), False),
+                               ((2, 300, 30, 70), True),
+                               ((2, 700, 30, 300), False),
+                               ((2, 1100, 64, 511), False)):
+        lp = torch.log_softmax(torch.randn(B, T, C, generator=g) * 2, -1)
+        labels = torch.randint(1, C, (B, U), generator=g)
+        il = torch.randint(min(2 * U + 1, T), T + 1, (B,), generator=g)
+        ll = torch.full((B,), U)
+        if B == 8:
+            il = torch.tensor([T, 0, 44, 12, 6, 31, T + 4, 27])
+            ll = torch.tensor([U, 3, 0, 4, 4, 5, 2, 6])
+            labels[3, :4] = torch.tensor([5, 5, 5, 2])
+            labels[4, :4] = 7
+            labels[5, 1] = 0
+            labels[6, 2:] = torch.tensor([-3, 99, 0, 40])
+        idx = torch.int64 if wide else torch.int32
+        args = (lp.to(dev), labels.to(dev, idx), il.to(dev, idx),
+                ll.to(dev, idx))
+        w = (torch.rand(B, generator=g) + 0.5).to(dev)
+        n6, n6b = ctc_mod.ctc_forward.launches, ctc_mod.ctc_backward.launches
+        got = ctc_mod.ctc_forward(*args)
+        want = ctc_mod.ctc_forward_plain(*args)
+        gk = ctc_mod.ctc_backward(*args, got[2], got[1], w)
+        gp = ctc_mod.ctc_backward_plain(*args, want[2], want[1], w)
+        assert (ctc_mod.ctc_forward.launches - n6,
+                ctc_mod.ctc_backward.launches - n6b) == (1, 1)
+        torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-6)
+        reach = want[2] > -1e29
+        assert torch.equal(got[2] > -1e29, reach)
+        torch.testing.assert_close(got[2][reach], want[2][reach], rtol=1e-5,
                                    atol=1e-6)
+        assert (gk - gp).abs().max() <= 1e-4 * gp.abs().max()
+        again = ctc_mod.ctc_forward(*args)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        assert torch.equal(gk, ctc_mod.ctc_backward(*args, again[2],
+                                                    again[1], w))
+
+
+def test_ctc_backward_class_limit(dev):
+    """K6b at the most classes bwd_max_classes allows (U = 6: one state a
+    lane, U = 40: three) against its plain version, the gradient within
+    1e-4 of its largest magnitude; at one class more the C entry refuses
+    the launch too, so the Python limit is the kernel's."""
+    g = torch.Generator().manual_seed(5)
+    for U in (6, 40):
+        B, T, C = 2, 2 * U + 10, ctc_mod.bwd_max_classes(U)
+        lp = torch.log_softmax(torch.randn(B, T, C, generator=g), -1).to(dev)
+        labels = torch.randint(1, C, (B, U), generator=g).to(dev)
+        il = torch.tensor([T, T - 3], device=dev)
+        ll = torch.tensor([U, U - 2], device=dev)
+        w = torch.tensor([1.0, 0.5], device=dev)
+        _, ll_k, alphas = ctc_mod.ctc_forward(lp, labels, il, ll)
+        gk = ctc_mod.ctc_backward(lp, labels, il, ll, alphas, ll_k, w)
+        gp = ctc_mod.ctc_backward_plain(lp, labels, il, ll, alphas, ll_k, w)
+        assert gp.abs().max() > 0
+        assert (gk - gp).abs().max() <= 1e-4 * gp.abs().max()
+        wide = torch.zeros((B, T, C + 1), device=dev)
+        fn = _build.lib().tpuasr_ctc_bwd
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        code = fn(_build.ptr(wide), _build.ptr(labels), _build.ptr(il),
+                  _build.ptr(ll), _build.ptr(alphas), _build.ptr(ll_k),
+                  _build.ptr(w), _build.ptr(wide), B, T, C + 1, U,
+                  ctc_mod.lane_states(2 * U + 1), 0, 7,
+                  _build.stream_ptr(wide))
+        assert code != 0
+        with pytest.raises(ValueError, match="classes"):
+            ctc_mod.ctc_backward(wide, labels, il, ll, alphas, ll_k, w)
 
 
 def test_k3_exact_capsnet_classes(dev):

@@ -190,7 +190,7 @@ def test_cpu_wrappers_never_build_or_launch(monkeypatch):
     wrappers = (fused_mod.fbank_power, gru_mod.gru_scan_xfused,
                 gru_mod.gru_scan_xfused_q8, beam_mod.beam_scan,
                 gru_mod.gru_scan_fwd, gru_mod.gru_scan_bwd,
-                ctc_mod.ctc_alphas_kernel, ctc_mod.ctc_betas_kernel)
+                ctc_mod.ctc_forward, ctc_mod.ctc_backward)
     before = [w.launches for w in wrappers]
     gen = torch.Generator().manual_seed(0)
     for flags in (INT8_ARM, dict(pallas_gru=True, bf16_gru=True,
