@@ -53,7 +53,13 @@ Phases, each fatal on failure:
      once and the cost of its saving mode (V and s for the backward), two
      calls the same bits; K8b from the saved V and s (the train step's
      route) and standalone from (u, W, dv), the two bit for bit the same,
-     two calls the same bits;
+     two calls the same bits; then BASELINE config 1: K1's MFCC route
+     (FusedFeaturizer(mfcc), made with no device, at B=128 x 10 s and
+     B=1) against the plain Featurizer(mfcc) on the card (the log-mel
+     within 1e-3, the MFCC within sqrt(64) x 1e-3), two calls bit for bit,
+     K1 at B=1 timed beside its plain version, and the plain Featurizer
+     with torch framing (fbank and MFCC) against a float64 numpy/scipy
+     reference of config 1's frames;
   4. the serving slice through Recognizer: the int8 arm (the default), the
      bf16 arm, the int8 arm with conv2 as K9 (int8_conv, bench.py's
      --int8-conv; once with each of K9's three bodies, chosen by
@@ -63,15 +69,22 @@ Phases, each fatal on failure:
      frontend's time with and without K9; then the CapsNet arm (config 4's
      model, 48 classes), greedy and with the beam, at B=8 and B=32 x 5 s
      and on a ragged B=8 batch, with the same checks and its device time
-     by kernel;
+     by kernel; then the ResNet-CTC arm (config 2: the preset's model, 64
+     classes, greedy, and with the beam), at B=128 x 10 s and on a ragged
+     B=128 batch, with launch counts and cuDNN conv calls, agreement with
+     the plain path, x-real-time, wall against device time, device time by
+     kernel, and the conv stack's time against its float32 bound;
   5. the LM and graph serving arms through Recognizer: the int8 arm with
      bigram fusion, and the graph-constrained search at class_topk 8 and
      63 (one K10 and one K10-rebuild launch a batch), with launch counts,
      agreement with the plain path, x-real-time, and a graph batch's wall
      time against its device time;
   6. a few requests through tpuasr_torch.cli.predict on wav files it
-     writes: beam, beam with LM fusion, and graph decoding, and one
-     `predict capsule1` beam request;
+     writes: beam, beam with LM fusion, and graph decoding, one
+     `predict capsule1` beam request and one `predict resnet_ctc`; then
+     tpuasr_torch.cli.test resnet_ctc over a manifest of 8 written wavs
+     with transcripts, greedy and with the beam, its WER against
+     utils.metrics.wer over Recognizer's hypotheses;
   7. the training slice through Trainer.train_step (config 3: the 512 x 4
      DeepSpeechCTC in float32, adamw, B=16 x 5 s, U=24): launch counts per
      step, step 1 against the plain path, the loss after 10 steps on the
@@ -86,7 +99,12 @@ Phases, each fatal on failure:
      with the Pallas GRU and the fused projection) through Trainer at
      config 3's batch: K2 and K2b in every GRU direction, with the same
      checks and timings as phase 7; then the same step with the backward
-     forced to the recompute route (K5b between matmuls).
+     forced to the recompute route (K5b between matmuls);
+ 10. config 2's model trained through Trainer (the ResNet-CTC preset in
+     float32, adamw 5e-4, clip 5, B=16 x 5 s, U=24): K6 and K6b once a
+     step, the checks and timings of phase 7, then once with dither=1.0
+     (two steps from one seed the same bits; the loss not the undithered
+     one).
 
 Weights are random, made from a seed. The line before the last holds
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}. Without
@@ -144,6 +162,16 @@ CAPS_TRAIN_U = 16
 # sums in other orders: dW over all B*T' rows, du over O*D terms; the
 # kernel rebuilds the coupling from u_hat . (v_0 + ... + v_{iters-2})).
 K8B_TOL = 2e-5
+# Config 2 (benchmarks/config2_resnet_infer.py:24-31): ResNet-CTC at its
+# preset (utils/params.py's "resnet_ctc"), 64 classes, 64 mels, greedy,
+# B=128 x 10 s; trained at config 3's batch (B=16 x 5 s, U=24) with the
+# preset's adamw 5e-4, clip 5. RESNET_TOL bounds the arm's log-probs
+# against the plain path, whose only difference is K1's split-TF32 rounding
+# of the power spectrum (its log-mel gate is 1e-3): the model runs float32
+# end to end, with no bf16 or int8 rounding to flip as in the DeepSpeech
+# arms (5e-2). Measured 2.6e-5 at B=128 on an H100 80GB HBM3 at 700 W:
+# 1e-3 leaves 38x.
+RESNET_TOL = 1e-3
 # Published H100 SXM peaks: HBM bytes/s and dense operations/s by type.
 HBM_BPS = 3.35e12
 PEAK = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12, "int8": 1979e12}
@@ -656,7 +684,8 @@ def device_breakdown(fn, top: int = 6) -> str:
     rows.sort(reverse=True)
     parts = [f"{us / 1e3:.3f} ms x{n} {kernel_name(name)}"
              for us, n, name in rows[:top]]
-    return f"total {total / 1e3:.3f} ms; " + "; ".join(parts)
+    return (f"total {total / 1e3:.3f} ms in {sum(r[1] for r in rows)} "
+            "launches; " + "; ".join(parts))
 
 
 def token_error_rate(hyp: dict, ref: dict) -> tuple[float, int]:
@@ -680,6 +709,99 @@ def token_error_rate(hyp: dict, ref: dict) -> tuple[float, int]:
                 row[j] = min(prev[j] + 1, row[j - 1] + 1, sub[j - 1])
         errs += int(row[-1])
     return errs / max(total, 1), same
+
+
+# The token error rate a serving arm may show against its plain path. The
+# random-weight models' posteriors are flat, so ulp differences between the
+# two paths flip near-ties in the search; this only catches a gross fault
+# (a broken path decodes at a TER near 1).
+TER_TOL = 0.2
+
+
+def check_serving_arm(tag, rec, out, wav_d, lens_d, T_out, wrappers,
+                      plain_path, card, tol, am_tol, top=6, timed=True,
+                      plain_timed=True):
+    """A serving arm's counted batch ``out`` (of ``rec`` on wav_d, lens_d)
+    against the plain path (``plain_path``: every kernel's plain version):
+    finite log-probs of shape (B, T_out, C); the features against K1's
+    plain version; the log-probs against the whole plain path within
+    ``tol`` and against the AM alone on the same features within
+    ``am_tol``; out_lens equal; with a beam, the tokens equal to the plain
+    beam's on the same log-probs; the token error rate against the plain
+    path (at most TER_TOL) and against the plain AM decoded on the same
+    features. With ``timed``: the batch's time by CUDA events and by the
+    host clock, the device time by kernel (``top`` rows) and, with
+    ``plain_timed``, the plain path's time."""
+    from tpuasr_torch.decode import beam as beam_mod
+    from tpuasr_torch.decode import greedy_decode
+
+    bcfg = rec.beam_cfg
+    logp, ol = out["log_probs"], out["out_lens"]
+    if not (bool(torch.isfinite(logp).all())
+            and tuple(logp.shape) == (B, T_out, NUM_CLASSES)):
+        fail(f"{tag}: non-finite log-probs or shape {tuple(logp.shape)}")
+    before = sum(w.launches for w in wrappers.values())
+    with torch.inference_mode():
+        feats, flens = rec.featurizer.featurize(wav_d, lens_d)
+    with plain_path(), torch.inference_mode():
+        pout = rec(wav_d, lens_d)
+        pfeats, _ = rec.featurizer.featurize(wav_d, lens_d)
+        am_lp, am_ol = rec.model(feats, flens)
+        if bcfg is None:
+            toks, n = greedy_decode(am_lp, am_ol)
+            am_dec = dict(tokens=toks[:, None], token_lens=n[:, None])
+        else:
+            same = beam_mod.ctc_beam_search(logp, ol, bcfg)
+            # The plain search is deterministic: on the same bits it
+            # decodes the same tokens, so it runs again only where the
+            # AM's log-probs differ.
+            am_dec = (same if torch.equal(am_lp, logp)
+                      else beam_mod.ctc_beam_search(am_lp, ol, bcfg))
+    if sum(w.launches for w in wrappers.values()) != before + 1:
+        fail(f"{tag}: the plain path launched a kernel")
+    err = (logp - pout["log_probs"]).abs().max().item()
+    am_err = (logp - am_lp).abs().max().item()
+    f_err = (feats - pfeats).abs().max().item()
+    lens_ok = torch.equal(ol, pout["out_lens"]) and torch.equal(ol, am_ol)
+    exact = bcfg is None or all(torch.equal(same[k], out[k])
+                                for k in ("tokens", "token_lens"))
+    ter, same_rows = token_error_rate(out, pout)
+    am_ter, am_same = token_error_rate(out, am_dec)
+    phase(f"[{tag}] features max_abs_err vs plain {f_err:.3e}; logp "
+          f"max_abs_err vs the whole plain path {err:.3e} (tol {tol}), vs "
+          f"the AM alone on the same features {am_err:.3e} (tol {am_tol}); "
+          f"out_lens equal {lens_ok}"
+          + (f"; tokens == plain beam on the same logp: {exact}"
+             if bcfg is not None else "")
+          + f"; token error rate vs plain path {ter:.5f} ({same_rows}/{B} "
+          f"identical; tol {TER_TOL}), vs the plain AM decoded on the same "
+          f"features {am_ter:.5f} ({am_same}/{B}); mean tokens/utt "
+          f"{out['token_lens'].float().mean().item():.1f}")
+    if not (err <= tol and am_err <= am_tol and lens_ok and exact
+            and ter <= TER_TOL):
+        fail(f"{tag}: kernel path disagrees with the plain path")
+    if not timed:
+        return
+    audio_s = float(lens_d.sum()) / SR
+    rt = cuda_ms(lambda: rec(wav_d, lens_d), 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        rec(wav_d, lens_d)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 3 * 1e3
+    plain = ""
+    if plain_timed:
+        with plain_path():       # warmed up by the check above
+            prt = cuda_ms(lambda: rec(wav_d, lens_d), 2, warmup=0)
+        plain = (f"; plain path {prt:.3f} ms = "
+                 f"{audio_s / (prt / 1e3):.1f}x real time")
+    phase(f"[{tag}] B={B} x {SECONDS:.0f} s ({audio_s:.0f} s of audio): "
+          f"kernel path {rt:.3f} ms a batch (CUDA events, mean of 5 after a "
+          f"warm-up) = {audio_s / (rt / 1e3):.1f}x real time; wall "
+          f"{wall:.3f} ms a batch (host clock, mean of 3){plain} [{card}]")
+    phase(f"[{tag}] device time of one batch by kernel (torch.profiler): "
+          f"{device_breakdown(lambda: rec(wav_d, lens_d), top=top)}")
 
 
 def train_kernels(record, gen) -> None:
@@ -2160,6 +2282,116 @@ def capsnet_train_slice(kernels, wrappers, card) -> None:
                 check=check)
 
 
+def resnet_train_slice(kernels, wrappers, card) -> None:
+    """Phase 10: config 2's model trained through Trainer on the card at
+    config 3's batch (B=16 x 5 s, U=24): ResNet-CTC at its preset in
+    float32 (cuDNN's conv forward and backward, TF32 off), adamw 5e-4,
+    clip 5; K6 and K6b once a step, the checks and timings of train_phase.
+    Then once with dither=1.0: two first steps from the same seed give the
+    same bits (the dithered features and the loss), and the loss differs
+    from the undithered step's."""
+    from tpuasr_torch.features import FeatureConfig
+    from tpuasr_torch.losses import ctc as ctc_mod
+    from tpuasr_torch.train import TrainConfig, Trainer
+    from tpuasr_torch.utils.params import preset_for
+
+    kwargs, train = preset_for("resnet_ctc")
+    cfg = TrainConfig(model="resnet_ctc", num_classes=NUM_CLASSES,
+                      warmup_steps=1, model_kwargs=kwargs, **train)
+    counted = dict(K6=1, K6b=1)
+    patches = ((ctc_mod, "ctc_forward", ctc_mod.ctc_forward_plain),
+               (ctc_mod, "ctc_backward", ctc_mod.ctc_backward_plain))
+
+    def check(trainer, batch, fresh_state, got, plain_path):
+        dtr = Trainer(cfg, FeatureConfig(dither=1.0), device="cuda")
+        b = dtr._batch(batch)
+        with torch.no_grad():
+            f1 = dtr.featurizer.featurize(b["wav"], b["wav_lens"],
+                                          dtr._step_generator(0, 1))[0]
+            f2 = dtr.featurizer.featurize(b["wav"], b["wav_lens"],
+                                          dtr._step_generator(0, 1))[0]
+        runs = [dtr.train_step(fresh_state(), batch)[1] for _ in range(2)]
+        same = torch.equal(f1, f2) and torch.equal(runs[0]["loss"],
+                                                   runs[1]["loss"])
+        loss = float(runs[0]["loss"])
+        gn = [float(m["grad_norm"]) for m in runs]
+        phase(f"[10 train resnet_ctc] dither 1.0: two first steps from the "
+              f"same seed: dithered features and loss the same bits {same} "
+              f"(loss {loss:.6f}; grad_norm {gn[0]:.6f}, {gn[1]:.6f}); "
+              f"undithered loss {got['loss']:.6f}")
+        if not (same and np.isfinite(loss) and loss != got["loss"]):
+            fail("resnet_ctc train: dither is not reproducible from its "
+                 "seed, or changes nothing")
+
+    train_phase("10 train resnet_ctc", cfg, TRAIN_U, (TRAIN_B,), counted,
+                counted, patches, kernels, wrappers, card, check=check)
+
+
+def cli_test_requests(tmp, model, feat_cfg, dev) -> None:
+    """Phase 6 for config 2's scoring: python -m tpuasr_torch.cli.test
+    resnet_ctc over a manifest of 8 wavs with transcripts written to tmp
+    (with the weights tmp/resnet.npz and units tmp/units.txt of model),
+    greedy and with the beam; its WER must be utils.metrics.wer over
+    Recognizer's hypotheses of the same batches."""
+    from scipy.io import wavfile
+    from tpuasr_torch.cli import test as test_cli
+    from tpuasr_torch.cli.common import out_frames
+    from tpuasr_torch.data import (AudioLoader, LoaderConfig, Utterance,
+                                   write_manifest)
+    from tpuasr_torch.decode import BeamSearchConfig
+    from tpuasr_torch.serve.offline import Recognizer
+    from tpuasr_torch.utils.metrics import wer
+
+    rng = np.random.default_rng(SEED + 12)
+    utts = []
+    for i in range(8):
+        n = int(rng.integers(int(SR * 1.5), int(SR * 4.0)))
+        p = tmp / f"dev{i}.wav"
+        wavfile.write(p, SR, (rng.standard_normal(n) * 3000)
+                      .astype(np.int16))
+        toks = rng.integers(1, NUM_CLASSES, int(rng.integers(3, 12)))
+        utts.append(Utterance(id=f"dev{i}", wav=p.name,
+                              tokens=toks.tolist(),
+                              text=" ".join(UNITS[t] for t in toks),
+                              num_samples=n))
+    write_manifest(tmp / "dev.jsonl", utts)
+    for dec in ("greedy", "beam"):
+        argv = ["resnet_ctc", "--manifest", str(tmp / "dev.jsonl"),
+                "--checkpoint", str(tmp / "resnet.npz"), "--units",
+                str(tmp / "units.txt"), "--batch-size", "4",
+                "--device", "cuda"]
+        if dec == "beam":
+            argv += ["--beam", "--beam-width", str(BEAM)]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = test_cli.main(argv)
+        lines = buf.getvalue().strip().splitlines()
+        secs = time.perf_counter() - t0
+        refs, hyps = [], []
+        loader = AudioLoader(tmp / "dev.jsonl",
+                             LoaderConfig(batch_size=4, shuffle=False))
+        for batch in loader:
+            S_b = batch["wav"].shape[1]
+            cfg = (None if dec == "greedy" else BeamSearchConfig(
+                beam_width=BEAM, max_len=out_frames(
+                    feat_cfg, S_b, model)))
+            out = Recognizer(model, feat_cfg, cfg, dev)(
+                batch["wav"], batch["wav_lens"])
+            for j in np.flatnonzero(batch["real"]):
+                refs.append(batch["tokens"][j][:batch["token_lens"][j]]
+                            .tolist())
+                hyps.append(out["tokens"][j, 0][:int(
+                    out["token_lens"][j, 0])].tolist())
+        want = f"utterances: 8  token-error-rate: {wer(refs, hyps):.4f}"
+        phase(f"[6 cli test.py resnet_ctc {dec}] rc={rc}, "
+              f"{len(lines) - 1} hypotheses, '{lines[-1] if lines else ''}'"
+              f" in {secs:.2f} s (host clock, load included); "
+              f"utils.metrics.wer over Recognizer's hypotheses: '{want}'")
+        if rc != 0 or len(lines) != 9 or lines[-1] != want:
+            fail(f"test.py resnet_ctc {dec}: {lines[-2:]} != {want}")
+
+
 def wide_range_wav(n: int, S: int, sr: int, db: float = 90.0) -> np.ndarray:
     """n utterances of a 1 kHz tone of amplitude 0.5 plus white noise db
     below it (tests/test_torch_fbank_plan.py::wide_range_signal)."""
@@ -2312,6 +2544,241 @@ def fbank_kernels(record, gen, dev) -> None:
                  f"{ep}")
 
 
+def resnet_model(dev):
+    """Config 2's ResNet-CTC at its preset, 64 classes, 64 mels, seeded."""
+    from tpuasr_torch.models import create_model
+    from tpuasr_torch.utils.params import preset_for
+
+    return create_model("resnet_ctc", num_classes=NUM_CLASSES,
+                        in_features=64, **preset_for("resnet_ctc")[0],
+                        generator=torch.Generator().manual_seed(SEED)
+                        ).to(dev)
+
+
+def resnet_slice(kernels, wrappers, card, plain_path) -> None:
+    """Phase 4 for config 2: the ResNet-CTC arm through Recognizer, greedy
+    (config 2's decode) and with the K3 beam (K=8), on B=128 x 10 s of
+    seeded noise and on a ragged B=128 batch (5-10 s). Launch counts and
+    cuDNN conv calls per batch; log-probs against the plain path (K1's
+    plain version, the same model) within RESNET_TOL and against the AM
+    alone on the same features; greedy token error rate against the plain
+    path; x-real-time, wall against device time, device time by kernel;
+    the conv stack's time against its float32 bound, counted from the
+    conv calls' shapes in the counted run."""
+    from tpuasr_torch.decode import BeamSearchConfig
+    from tpuasr_torch.features import FeatureConfig
+    from tpuasr_torch.features.reference import num_frames
+    from tpuasr_torch.precision import full_fp32
+    from tpuasr_torch.serve.offline import Recognizer
+
+    feat_cfg = FeatureConfig()
+    model = resnet_model("cuda")
+    S = int(SR * SECONDS)
+    T_out = -(-num_frames(feat_cfg, S) // 2)
+    bcfg = BeamSearchConfig(beam_width=BEAM, max_len=T_out)
+    recs = {"greedy": Recognizer(model, feat_cfg, None, "cuda"),
+            "beam": Recognizer(model, feat_cfg, bcfg, "cuda")}
+    rng = np.random.default_rng(SEED + 11)
+    wav = (rng.standard_normal((B, S)) * 0.1).astype(np.float32)
+    batches = {"B=128": (torch.as_tensor(wav, device="cuda"),
+                         torch.full((B,), S, dtype=torch.int32,
+                                    device="cuda"))}
+    lens = rng.integers(S // 2, S + 1, size=B).astype(np.int32)
+    lens[0] = S
+    wav = wav.copy()
+    wav[np.arange(S)[None, :] >= lens[:, None]] = 0.0
+    batches["B=128 ragged"] = (torch.as_tensor(wav, device="cuda"),
+                               torch.as_tensor(lens, device="cuda"))
+    arms = {f"{dec} {b}": (dec, b) for b in batches
+            for dec in ("greedy", "beam")}
+
+    # The counted run of the ResNet path: one batch per arm; the cuDNN
+    # convs (F.conv2d calls) counted beside the kernels, with their shapes.
+    conv2d = torch.nn.functional.conv2d
+    convs, flops, calls = {}, {}, []
+
+    def counted_conv2d(x, w, *a, **k):
+        out = conv2d(x, w, *a, **k)
+        convs[arm] += 1
+        flops[arm] += 2 * out.numel() * w[0].numel()
+        if arm == "greedy B=128":
+            calls.append((x, w, a, k))
+        return out
+
+    for w in wrappers.values():
+        w.launches = 0
+    per_arm, outs = {}, {}
+    for arm, (dec, b) in arms.items():
+        before = {k: w.launches for k, w in wrappers.items()}
+        convs[arm] = flops[arm] = 0
+        with mock.patch.object(torch.nn.functional, "conv2d",
+                               counted_conv2d):
+            outs[arm] = recs[dec](*batches[b])
+        torch.cuda.synchronize()
+        per_arm[arm] = {k: w.launches - before[k] for k, w in wrappers.items()}
+    phase(f"[4 resnet] launch counts per batch: {json.dumps(per_arm)}; "
+          f"cuDNN conv calls per batch: {json.dumps(convs)}")
+    none = {k: 0 for k in wrappers}
+    want = {arm: dict(none, K1=1, **({"K3": 1, "K3-backtrack": 1}
+                                     if dec == "beam" else {}))
+            for arm, (dec, _) in arms.items()}
+    n_convs = 1 + sum(1 + 1 + (blk.proj is not None) for blk in (
+        getattr(model, name) for name in model.blocks))
+    if per_arm != want or set(convs.values()) != {n_convs}:
+        fail(f"ResNet launch counts {per_arm} != {want} or conv calls "
+             f"{convs} != {n_convs} each")
+    for k in ("K1", "K3", "K3-backtrack"):
+        kernels[k]["launches"] += sum(c[k] for c in per_arm.values())
+
+    # Log-probs within RESNET_TOL of the whole plain path (K1's plain
+    # version feeds the same model) and within 1e-4 of the AM alone on the
+    # same features: both run the same fp32 convs.
+    for arm, (dec, b) in arms.items():
+        check_serving_arm(f"4 resnet {arm}", recs[dec], outs[arm],
+                          *batches[b], T_out, wrappers, plain_path, card,
+                          tol=RESNET_TOL, am_tol=1e-4, top=10,
+                          timed=b == "B=128", plain_timed=dec == "greedy")
+
+    # The conv stack of the counted greedy batch, alone, against its fp32
+    # bound from the calls' shapes.
+    rec = recs["greedy"]
+    wav_d, lens_d = batches["B=128"]
+
+    def conv_stack():
+        for x, w, a, k in calls:
+            conv2d(x, w, *a, **k)
+
+    with torch.inference_mode():
+        feats, flens = rec.featurizer.featurize(wav_d, lens_d)
+        am_ms = cuda_ms(lambda: rec.model(feats, flens), 5)
+        with full_fp32():
+            conv_ms = cuda_ms(conv_stack, 5)
+        # A yardstick the port does not use: the same convs in cuDNN's
+        # TF32 (parity needs float32).
+        tf32 = torch.backends.cudnn.allow_tf32
+        torch.backends.cudnn.allow_tf32 = True
+        tf32_ms = cuda_ms(conv_stack, 5)
+        torch.backends.cudnn.allow_tf32 = tf32
+    arm = "greedy B=128"
+    bd = flops[arm] / PEAK["fp32"] * 1e3
+    phase(f"[4 resnet {arm}] the AM alone {am_ms:.3f} ms; its {len(calls)} "
+          f"convs (cuDNN, fp32, TF32 off) {conv_ms:.3f} ms for "
+          f"{flops[arm] / 1e12:.3f} TFLOP, fp32 bound {bd:.3f} ms at 67 "
+          f"TFLOP/s: {bd / conv_ms:.3f} of it (the same convs in TF32, not "
+          f"used: {tf32_ms:.3f} ms) [{card}]")
+    del calls
+
+
+def config1_featurizer(dev, card) -> int:
+    """Phase 3 for BASELINE config 1 (benchmarks/config1_featparity.py):
+    K1's MFCC route, FusedFeaturizer(mfcc) made with no device (the card),
+    at B=128 x 10 s and at config 1's single utterance (B=1), against the
+    plain Featurizer(mfcc) on the card: the route's log-mel within K1's
+    1e-3 gate, and the MFCC within sqrt(n_mels) x 1e-3 (each DCT row has
+    unit L2 norm over the 64 log-mel values); two calls the same bits; K1
+    at B=1 timed beside its plain version. Then the plain Featurizer with
+    torch framing, fbank and MFCC, against a float64 numpy/scipy reference
+    of config 1's frames (rDFT, mel, log, scipy.fft.dct ortho). Returns
+    K1's launches in the counted run of config 1's path (the MFCC
+    featurizer at B=128, then at B=1)."""
+    import scipy.fft
+    from tpuasr_torch.features import (FeatureConfig, Featurizer,
+                                       FusedFeaturizer, fbank_power)
+    from tpuasr_torch.features import functional as F
+    from tpuasr_torch.features import fused as fused_mod
+    from tpuasr_torch.features.reference import num_frames
+
+    tol = 1e-3
+    cfg = FeatureConfig(feature_type="mfcc", cmn=False, cvn=False)
+    S = int(SR * SECONDS)
+    T = num_frames(cfg, S)
+    rng = np.random.default_rng(SEED + 7)
+    wav = torch.as_tensor((rng.standard_normal((B, S)) * 0.1)
+                          .astype(np.float32), device=dev)
+    lens = torch.full((B,), S, dtype=torch.int32, device=dev)
+    fused, plain = FusedFeaturizer(cfg), Featurizer(cfg)
+    if fused.device.type != "cuda" or plain.device.type != "cuda":
+        fail("a featurizer made with no device is not on the card")
+
+    # The counted run of config 1's path: B=128, then B=1.
+    fbank_power.launches = 0
+    with torch.inference_mode():
+        got, glen = fused.featurize(wav, lens)
+        got1, _ = fused.featurize(wav[:1], lens[:1])
+    torch.cuda.synchronize()
+    launches = fbank_power.launches
+    if launches != 2:
+        fail(f"config 1: the MFCC featurizer launched K1 {launches} times "
+             "for two calls")
+    with torch.inference_mode():
+        ref, rlen = plain.featurize(wav, lens)
+        ref1, _ = plain.featurize(wav[:1], lens[:1])
+        same = torch.equal(got, fused.featurize(wav, lens)[0])
+        floor = cfg.log_floor
+        lm_k = torch.log(fbank_power(wav, fused.tables, cfg.hop_length, T)
+                         .clamp(min=floor))
+        lm_p = torch.log(fused_mod.fbank_power_plain(
+            wav, fused.tables, cfg.hop_length, T).clamp(min=floor))
+    lm_err = (lm_k - lm_p).abs().max().item()
+    err = max((got - ref).abs().max().item(),
+              (got1 - ref1).abs().max().item())
+    mfcc_tol = tol * cfg.n_mels ** 0.5
+    phase(f"[3 K1 mfcc] config 1's MFCC route B={B} x {SECONDS:g} s (T={T},"
+          f" 13 coefficients): log-mel max_abs_err {lm_err:.3e} (tol {tol}),"
+          f" MFCC max_abs_err vs plain Featurizer {err:.3e} (tol "
+          f"{mfcc_tol:.1e}); frame lengths equal "
+          f"{torch.equal(glen, rlen)}; two calls equal bit for bit {same}; "
+          f"K1 launches in the counted run {launches}")
+    if not (lm_err <= tol and err <= mfcc_tol and same
+            and torch.equal(glen, rlen)):
+        fail("config 1: the MFCC route disagrees with the plain featurizer")
+
+    tabs = fused.tables
+    w1 = wav[:1].contiguous()
+    ms = queued_ms(lambda: fbank_power(w1, tabs, cfg.hop_length, T), 50)
+    pms = queued_ms(lambda: fused_mod.fbank_power_plain(
+        w1, tabs, cfg.hop_length, T), 50)
+    with torch.inference_mode():
+        fz_ms = cuda_ms(lambda: fused(w1), 20)
+        pfz_ms = cuda_ms(lambda: plain(w1), 20)
+    phase(f"[3 K1] config 1 single utterance B=1 x {SECONDS:g} s: kernel "
+          f"{ms:.4f} ms, plain {pms:.4f} ms (device, queued); the whole MFCC"
+          f" featurizer call {fz_ms:.3f} ms, plain {pfz_ms:.3f} ms (CUDA "
+          f"events, mean of 20) [{card}]")
+
+    t = np.arange(S) / SR
+    x1 = (0.3 * np.sin(2 * np.pi * 440.0 * t)
+          + 0.1 * rng.standard_normal(S)).astype(np.float32)
+    devs = {}
+    for ftype in ("fbank", "mfcc"):
+        c = FeatureConfig(feature_type=ftype, frame_style="torch",
+                          cmn=False, cvn=False)
+        with torch.inference_mode():
+            ours = Featurizer(c)(x1)[0].cpu().numpy().astype(np.float64)
+        win = F.window_vector(c.window, c.win_length, c.periodic_window,
+                              dtype=np.float64)
+        off = (c.fft_size - c.win_length) // 2
+        idx = (np.arange(ours.shape[0])[:, None] * c.hop_length + off
+               + np.arange(c.win_length)[None, :])
+        power = np.abs(np.fft.rfft(x1.astype(np.float64)[idx] * win,
+                                   n=c.fft_size, axis=-1)) ** 2
+        mel = power @ F.mel_filterbank(c.fft_size, c.n_mels, c.sample_rate,
+                                       c.fmin, c.fmax, c.htk_mel,
+                                       dtype=np.float64)
+        want = np.log(np.maximum(mel, c.log_floor))
+        if ftype == "mfcc":
+            want = scipy.fft.dct(want, type=2, norm="ortho",
+                                 axis=-1)[:, :c.n_mfcc]
+        devs[ftype] = float(np.abs(ours - want).max())
+    phase(f"[3 config1] torch framing, B=1 x {SECONDS:g} s (440 Hz tone + "
+          f"noise), plain Featurizer on the card against a float64 numpy/"
+          f"scipy reference: max abs deviation fbank {devs['fbank']:.3e}, "
+          f"MFCC {devs['mfcc']:.3e} (tol {tol})")
+    if not max(devs.values()) <= tol:
+        fail(f"config 1: the featurizer deviates from float64 by {devs}")
+    return launches
+
+
 def main() -> int:
     # ---- 1. environment -------------------------------------------------
     clock = [("start", time.perf_counter())]     # (phase, its end)
@@ -2387,6 +2854,7 @@ def main() -> int:
 
     # Kernels against their plain versions.
     fbank_kernels(record, gen, dev)
+    k1_config1 = config1_featurizer(dev, card)
 
     # K2 / K4 at the served layer shapes. ys is bf16: one bf16 ulp is
     # 3.9e-3 near 1, and the kernel sums x@Wx and h@Wh in another order
@@ -2709,63 +3177,12 @@ def main() -> int:
     # rounds at the same places in both, but a one-ulp difference in an
     # fp32 sum can flip a bf16 (or int8) rounding and move a log-prob by
     # ~1e-2 after four layers: tol 5e-2, end to end and for the AM alone on
-    # identical features. Tokens: the kernel path's must equal the plain
-    # beam's on the same log-probs (exact). The token error rate between the
-    # two paths is reported: the random-weight model's posteriors are flat,
-    # so those log-prob differences flip near-ties in the search; ter_tol
-    # only catches a gross fault (a broken path decodes at a TER near 1).
-    slice_tol = 5e-2
-    ter_tol = 0.2
-    def serving_checks(arm, rec):
-        out = outs[arm]
-        logp, ol = out["log_probs"], out["out_lens"]
-        if not bool(torch.isfinite(logp).all()):
-            fail(f"{arm}: non-finite log-probs")
-        if tuple(logp.shape) != (B, T_out, NUM_CLASSES):
-            fail(f"{arm}: log-probs shape {tuple(logp.shape)}")
-        before = sum(w.launches for w in wrappers.values())
-        with torch.inference_mode():
-            feats, flens = rec.featurizer.featurize(wav_d, lens_d)
-        with plain_path(), torch.inference_mode():
-            pout = rec(wav_d, lens_d)
-            same_lp_dec = beam_mod.ctc_beam_search(logp, ol, bcfg)
-            am_lp, _ = rec.model(feats, flens)
-            am_dec = beam_mod.ctc_beam_search(am_lp, ol, bcfg)
-        if sum(w.launches for w in wrappers.values()) != before + 1:
-            fail("the plain path launched a kernel")
-        err = (logp - pout["log_probs"]).abs().max().item()
-        am_err = (logp - am_lp).abs().max().item()
-        exact = (torch.equal(same_lp_dec["tokens"], out["tokens"])
-                 and torch.equal(same_lp_dec["token_lens"],
-                                 out["token_lens"]))
-        ter, same_rows = token_error_rate(out, pout)
-        am_ter, am_same = token_error_rate(out, am_dec)
-        phase(f"[4 slice {arm}] logp max_abs_err vs plain path {err:.3e}, "
-              f"AM alone on the same features {am_err:.3e} (tol "
-              f"{slice_tol}); tokens == plain beam on the same logp: "
-              f"{exact}; token error rate vs plain path {ter:.5f} "
-              f"({same_rows}/{B} identical; tol {ter_tol}), vs plain AM + "
-              f"beam on the same features {am_ter:.5f} ({am_same}/{B}); "
-              f"out_lens equal {torch.equal(ol, pout['out_lens'])}; "
-              f"mean tokens/utt "
-              f"{out['token_lens'].float().mean().item():.1f}")
-        if not (err <= slice_tol and am_err <= slice_tol and exact
-                and ter <= ter_tol and torch.equal(ol, pout["out_lens"])):
-            fail(f"{arm}: kernel path disagrees with the plain path")
-        rt = cuda_ms(lambda: rec(wav_d, lens_d), 5)
-        with plain_path():       # warmed up by the check above
-            prt = cuda_ms(lambda: rec(wav_d, lens_d), 2, warmup=0)
-        phase(f"[4 slice {arm}] B={B} x {SECONDS:.0f} s ({audio_s:.0f} s of "
-              f"audio): kernel path {rt:.2f} ms = "
-              f"{audio_s / (rt / 1e3):.1f}x real time; plain path "
-              f"{prt:.2f} ms = {audio_s / (prt / 1e3):.1f}x real time "
-              f"[{card}]")
-        phase(f"[4 slice {arm}] device time of one batch by kernel "
-              f"(torch.profiler): {device_breakdown(lambda: rec(wav_d, lens_d))}")
-
+    # identical features.
     for arm, rec in recs.items():
         with conv_body(arm):
-            serving_checks(arm, rec)
+            check_serving_arm(f"4 slice {arm}", rec, outs[arm], wav_d,
+                              lens_d, T_out, wrappers, plain_path, card,
+                              tol=5e-2, am_tol=5e-2)
 
     # The conv frontend alone (both convs, their norms and ReLUs) on the
     # same features: cuDNN fp32 against conv1 in cuDNN and conv2 as K9.
@@ -2792,6 +3209,10 @@ def main() -> int:
     # The CapsNet arm (config 4).
     capsnet_slice(kernels, wrappers, card, plain_path)
 
+    # The ResNet-CTC arm (config 2); K1's count takes config 1's path too.
+    resnet_slice(kernels, wrappers, card, plain_path)
+    kernels["K1"]["launches"] += k1_config1
+
     clock.append(("4", time.perf_counter()))
 
     # ---- 5. the LM and graph serving arms --------------------------------
@@ -2803,6 +3224,7 @@ def main() -> int:
     # ---- 6. requests through the CLI --------------------------------------
     from scipy.io import wavfile
     from tpuasr_torch.cli import predict
+    from tpuasr_torch.utils.params import preset_for
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -2833,6 +3255,11 @@ def main() -> int:
                  tmp / "caps.npz",
                  meta=dict(model="capsule1", num_classes=CAPS_CLASSES))
         (tmp / "caps_units.txt").write_text("\n".join(CAPS_UNITS))
+        # Config 2's ResNet-CTC (64 units) for the resnet_ctc requests.
+        rmodel = resnet_model("cpu")
+        save_npz(to_jax_variables(rmodel.state_dict()), tmp / "resnet.npz",
+                 meta=dict(model="resnet_ctc", num_classes=NUM_CLASSES,
+                           model_kwargs=preset_for("resnet_ctc")[0]))
         ds = ["deepspeech_ctc", *paths, "--weights", str(tmp / "w.npz"),
               "--units", str(tmp / "units.txt")]
         requests = {
@@ -2847,6 +3274,9 @@ def main() -> int:
             "capsule1 beam": ["capsule1", *paths, "--weights",
                               str(tmp / "caps.npz"), "--units",
                               str(tmp / "caps_units.txt"), "--beam"],
+            "resnet_ctc greedy": ["resnet_ctc", *paths, "--weights",
+                                  str(tmp / "resnet.npz"), "--units",
+                                  str(tmp / "units.txt")],
         }
         for name, argv in requests.items():
             buf = io.StringIO()
@@ -2870,6 +3300,8 @@ def main() -> int:
                 phase(f"    {Path(ln.split(chr(9))[0]).name}: "
                       f"{len(words)} {'words' if unit == 'w' else 'tokens'}")
 
+        cli_test_requests(tmp, rmodel, feat_cfg, dev)
+
     clock.append(("6", time.perf_counter()))
 
     # ---- 7. the training slice through Trainer.train_step ---------------------
@@ -2883,6 +3315,10 @@ def main() -> int:
     # ---- 9. the deepspeech_var train step, with K2b -----------------------
     var_train_slice(kernels, wrappers, card)
     clock.append(("9", time.perf_counter()))
+
+    # ---- 10. the ResNet-CTC train step (config 2's model) -----------------
+    resnet_train_slice(kernels, wrappers, card)
+    clock.append(("10", time.perf_counter()))
     phase("[time] seconds by phase (host clock): " + json.dumps(
         {name: round(t - clock[i][1], 1)
          for i, (name, t) in enumerate(clock[1:])}))

@@ -420,7 +420,7 @@ def test_packed_mel_and_window():
 
 
 def test_featurizer_packs_once_and_cpu_takes_the_plain_version():
-    fz = FusedFeaturizer(FeatureConfig())
+    fz = FusedFeaturizer(FeatureConfig(), device="cpu")
     assert set(fz.tables) == {"window", "cos", "sin", "proj", "packed"}
     assert fz.tables["packed"]["dft"].shape == (25, 256, 4, 4)
     wav = torch.randn(2, 4000, generator=torch.Generator().manual_seed(1))

@@ -30,7 +30,7 @@ def _both(cfg_kwargs, wav, lens, fused):
     jcls, tcls = ((JFusedFeaturizer, FusedFeaturizer) if fused
                   else (JFeaturizer, Featurizer))
     fj, lj = jcls(JFeatureConfig(**cfg_kwargs))(wav, lens)
-    ft, lt = tcls(FeatureConfig(**cfg_kwargs))(wav, lens)
+    ft, lt = tcls(FeatureConfig(**cfg_kwargs), device="cpu")(wav, lens)
     return (np.asarray(fj), np.asarray(lj)), (ft.numpy(), lt.numpy())
 
 
@@ -64,6 +64,8 @@ def test_constants_loaded_by_path_are_identical():
     for n_out, n_in in ((13, 64), (20, 80), (64, 64)):
         same(tfunctional.dct_matrix(n_out, n_in),
              jfunctional.dct_matrix(n_out, n_in))
+    for n, q in ((13, 22.0), (20, 22.0), (13, 9.5)):
+        same(tfunctional.lifter_vector(n, q), jfunctional.lifter_vector(n, q))
 
 
 def test_config_defaults_match():
@@ -134,19 +136,36 @@ def test_fused_equals_plain_featurizer():
                        .astype(np.float32))
     lens = torch.tensor([5000, 3100], dtype=torch.int32)
     cfg = FeatureConfig()
-    fa, la = Featurizer(cfg)(wav, lens)
-    fb, lb = FusedFeaturizer(cfg)(wav, lens)
+    fa, la = Featurizer(cfg, device="cpu")(wav, lens)
+    fb, lb = FusedFeaturizer(cfg, device="cpu")(wav, lens)
     assert torch.equal(la, lb)
     torch.testing.assert_close(fa, fb, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("kw", [dict(feature_type="mfcc"),
-                                dict(center=True), dict(splice_left=1)])
+                                dict(center=True), dict(splice_left=1),
+                                dict(frame_style="torch")])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        FusedFeaturizer(FeatureConfig(**kw))
+    """The fused path refuses what its kernel does not frame (torch framing,
+    ``center``) and splicing, which JAX's fused path drops
+    (test_torch_features_modes.py). MFCC, once refused, runs there: the
+    kernel's log-mel, then the DCT, equal to the plain Featurizer's."""
+    cfg = FeatureConfig(**kw)
+    if cfg.feature_type == "mfcc":
+        rng = np.random.default_rng(4)
+        wav = torch.tensor((rng.standard_normal((2, 5000)) * 0.3)
+                           .astype(np.float32))
+        lens = torch.tensor([5000, 3100], dtype=torch.int32)
+        fa, la = Featurizer(cfg, device="cpu")(wav, lens)
+        fb, lb = FusedFeaturizer(cfg, device="cpu")(wav, lens)
+        assert fb.shape == (2, 61, 13) and torch.equal(la, lb)
+        torch.testing.assert_close(fa, fb, rtol=0, atol=0)
+        return
+    with pytest.raises(ValueError):
+        FusedFeaturizer(cfg, device="cpu")
 
 
 def test_too_short_signal_raises():
     with pytest.raises(ValueError, match="too short"):
-        FusedFeaturizer(FeatureConfig())(np.zeros(100, np.float32))
+        FusedFeaturizer(FeatureConfig(), device="cpu")(
+            np.zeros(100, np.float32))

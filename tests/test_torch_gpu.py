@@ -1667,3 +1667,61 @@ def test_fused_bidir_training_step_on_cuda(dev, hidden):
     for name, a, b in grads:
         err = (a - b).abs().max().item()
         assert err <= 1e-4 * top, f"{name}: {err:.3e} > 1e-4 * {top:.3e}"
+
+
+def test_featurizer_defaults_to_the_card(dev):
+    from tpuasr_torch.features import Featurizer, FusedFeaturizer
+    for cls in (Featurizer, FusedFeaturizer):
+        fz = cls(FeatureConfig())
+        assert fz.device.type == "cuda"
+        feats, flens = fz(torch.randn(2, 4000))
+        assert feats.device.type == "cuda" and flens.device.type == "cuda"
+
+
+@pytest.mark.parametrize("lifter", [0.0, 22.0])
+def test_k1_mfcc_route(dev, lifter):
+    """FusedFeaturizer(mfcc): K1's log-mel within its 1e-3 gate of the plain
+    Featurizer's, then the DCT: each coefficient is a row of unit L2 norm
+    over 64 log-mel values, so within sqrt(64) x 1e-3 (times the lifter's
+    largest factor); one K1 launch a call; two calls the same bits."""
+    from tpuasr_torch.features import Featurizer, FusedFeaturizer
+    from tpuasr_torch.features import functional as F
+    cfg = FeatureConfig(feature_type="mfcc", lifter=lifter, cmn=False,
+                        cvn=False)
+    wav = torch.randn(3, 12017, generator=torch.Generator().manual_seed(0))
+    lens = torch.tensor([12017, 9000, 4000], dtype=torch.int32)
+    fused, plain = FusedFeaturizer(cfg, dev), Featurizer(cfg, dev)
+    before = fbank_power.launches
+    a, la = fused(wav, lens)
+    assert fbank_power.launches == before + 1
+    b, lb = plain(wav, lens)
+    assert torch.equal(la, lb) and a.shape == (3, 148, 13)
+    scale = float(F.lifter_vector(13, lifter).max()) if lifter else 1.0
+    assert (a - b).abs().max().item() <= 8e-3 * scale
+    assert torch.equal(a, fused(wav, lens)[0])
+
+
+@pytest.mark.parametrize("train", [False, True])
+def test_resnet_on_the_card_matches_the_cpu(dev, train):
+    """The ResNet-CTC forward (cuDNN convs in float32, TF32 off) against
+    the same weights on the CPU: log-probs within 1e-4, out_lens exact; in
+    training with dropout 0 and every updated statistic within 1e-5."""
+    kw = dict(num_classes=12, stem_channels=8, stage_channels=(8, 16, 16),
+              blocks_per_stage=2, dropout=0.0, in_features=13)
+    g = torch.Generator().manual_seed(0)
+    cpu = create_model("resnet_ctc", **kw, generator=g)
+    card = create_model("resnet_ctc", **kw)
+    card.load_state_dict(cpu.state_dict())
+    card.to(dev)
+    feats = torch.randn(3, 41, 13, generator=g)
+    lens = torch.tensor([41, 30, 7])
+    cpu.train(train)
+    card.train(train)
+    with torch.no_grad():
+        lp_c, ol_c = cpu(feats, lens)
+        lp_g, ol_g = card(feats.to(dev), lens.to(dev))
+    assert torch.equal(ol_g.cpu(), ol_c)
+    torch.testing.assert_close(lp_g.cpu(), lp_c, rtol=0, atol=1e-4)
+    for (name, a), b in zip(card.state_dict().items(),
+                            cpu.state_dict().values()):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5, msg=name)

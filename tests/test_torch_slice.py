@@ -157,7 +157,10 @@ def test_package_imports_without_the_jax_package(tmp_path):
             "mods = [m.name for m in pkgutil.walk_packages("
             "tpuasr_torch.__path__, 'tpuasr_torch.')]\n"
             "assert {'tpuasr_torch.models.capsnet', "
-            "'tpuasr_torch.ops.routing'} <= set(mods), mods\n"
+            "'tpuasr_torch.ops.routing', 'tpuasr_torch.models.resnet_ctc', "
+            "'tpuasr_torch.data.loader', 'tpuasr_torch.cli.test', "
+            "'tpuasr_torch.utils.metrics', 'tpuasr_torch.utils.device'} "
+            "<= set(mods), mods\n"
             "for m in mods: importlib.import_module(m)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'flax', 'optax', 'tpuasr')]\n"
@@ -177,6 +180,17 @@ def test_cuda_recognizer_raises_without_cuda():
     model = create_model("deepspeech_ctc", **BASE, in_features=64)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Recognizer(model, FeatureConfig(), BeamSearchConfig(), "cuda")
+
+
+@pytest.mark.parametrize("cls", ["Featurizer", "FusedFeaturizer"])
+def test_featurizer_defaults_to_the_card(cls):
+    """A featurizer made with no device runs on the card; where CUDA is
+    absent that is a RuntimeError, never a quiet move to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the rule is for hosts without it")
+    import tpuasr_torch.features as features
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        getattr(features, cls)(FeatureConfig())
 
 
 def test_cpu_wrappers_never_build_or_launch(monkeypatch):

@@ -13,6 +13,15 @@ CapsNet (BASELINE config 4), served through the same ``Recognizer``:
       capsules, squash -> dynamic routing (CUDA kernel K8, u_hat never
       stored) -> capsule lengths -> log-softmax -> greedy or beam
 
+ResNet-CTC (BASELINE config 2), served the same way and trained:
+
+    wav batch -> FusedFeaturizer -> ResNetCTC: stem conv + BN, 4 stages
+      of residual 3x3 conv blocks (cuDNN, float32) -> head ->
+      log-softmax -> greedy or beam
+
+The featurizer takes fbank, MFCC or spectrogram features with kaldi or
+torch framing, ``center``, splicing and dither (BASELINE config 1).
+
 Training (``train.Trainer.train_step``), in float32:
 
     wav batch -> Featurizer -> DeepSpeechCTC in training mode (batch

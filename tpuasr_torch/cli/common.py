@@ -1,16 +1,145 @@
-"""Shared CLI plumbing: units and wav loading, LM and WFST loading, fusion
-tables, the beam-search dispatch with its loud fallback, and the decoding
-graph for ``--graph-decode``.
+"""Shared CLI plumbing: the flags predict and test share, the feature
+config and the model from an ``.npz`` export, units, LM and WFST loading,
+fusion tables, the beam-search dispatch with its loud fallback, and the
+decoding graph for ``--graph-decode``.
 
-Counterpart of the decode half of ``tpuasr/cli/common.py``.
+Counterpart of ``tpuasr/cli/common.py``.
 """
 
 from __future__ import annotations
 
+import argparse
 import sys
 from pathlib import Path
 
-import numpy as np
+from tpuasr_torch.data.manifest import load_wav
+from tpuasr_torch.features import FeatureConfig, num_frames
+from tpuasr_torch.models import MODEL_REGISTRY
+
+__all__ = ["add_decode_flags", "add_model_flags", "build_decode_graph",
+           "feature_config", "fusion_tables", "load_fst", "load_lm",
+           "load_model", "load_units", "load_wav", "lm_symbols",
+           "make_word_decoder", "out_frames", "run_beam_search",
+           "tokens_to_text"]
+
+
+def add_model_flags(p: argparse.ArgumentParser) -> None:
+    """The model name, vocabulary, feature and device flags."""
+    p.add_argument("model", choices=sorted(MODEL_REGISTRY))
+    p.add_argument("--units", default=None,
+                   help="units file, one token per line (line 0 = <blank>)")
+    p.add_argument("--words", default=None,
+                   help="words.txt symbol table (enables word output)")
+    p.add_argument("--lexicon", default=None,
+                   help="lexicon file 'WORD unit unit ...'; with --words, "
+                        "decoded units are segmented into words")
+    p.add_argument("--sample-rate", type=int, default=8000)
+    p.add_argument("--n-mels", type=int, default=64)
+    p.add_argument("--feature-type", default="fbank",
+                   choices=["fbank", "mfcc", "spectrogram"])
+    p.add_argument("--no-cmvn", action="store_true")
+    p.add_argument("--int8", action="store_true",
+                   help="int8 input projections in the GRU kernel")
+    p.add_argument("--device", default="cuda",
+                   help="cuda (the default; an error without a CUDA device) "
+                        "or cpu")
+
+
+def add_decode_flags(p: argparse.ArgumentParser) -> None:
+    """The beam, LM, WFST and graph-decoding flags."""
+    p.add_argument("--beam", action="store_true",
+                   help="CTC prefix beam search instead of greedy")
+    p.add_argument("--beam-width", type=int, default=16)
+    p.add_argument("--class-topk", type=int, default=8,
+                   help="classes per step of the scan search (--beam-impl "
+                        "xla); the kernel search takes all classes")
+    p.add_argument("--beam-impl", default="auto",
+                   choices=["auto", "xla", "pallas"],
+                   help="auto/pallas: the all-class beam kernel; xla: the "
+                        "top-P scan search")
+    g = p.add_argument_group("language model and WFST")
+    g.add_argument("--lm", default=None,
+                   help="ARPA n-gram LM over the unit symbols (or, with "
+                        "--graph-decode and a lexicon, over words)")
+    g.add_argument("--lm-weight", type=float, default=1.0,
+                   help="LM weight (shallow fusion or rescoring)")
+    g.add_argument("--lm-fusion", action="store_true",
+                   help="apply the LM inside the beam search (shallow "
+                        "fusion); without it the n-best is rescored")
+    g.add_argument("--lm-fusion-order", type=int, default=2, choices=[2, 3],
+                   help="fusion context: 2 = bigram table, 3 = trigram "
+                        "table (grows as C^3)")
+    g.add_argument("--fst", default=None,
+                   help="OpenFst WFST (binary or text), ilabels = unit ids: "
+                        "n-best rescoring with --beam, the graph with "
+                        "--graph-decode")
+    g.add_argument("--fst-weight", type=float, default=1.0,
+                   help="weight on the FST log-prob (minus tropical cost)")
+    g.add_argument("--fst-isyms", default=None,
+                   help="input symbol table for string-labeled FST text")
+    g.add_argument("--fst-osyms", default=None,
+                   help="output symbol table (words.txt) for FST outputs")
+    gg = p.add_argument_group("graph-constrained decoding")
+    gg.add_argument("--graph-decode", action="store_true",
+                    help="decode under a decoding graph compiled to dense "
+                         "tables (--fst, or L from --lexicon/--words/--units "
+                         "composed with a word-level --lm); words by replay "
+                         "through the graph. Replaces --beam")
+    gg.add_argument("--graph-weight", type=float, default=1.0,
+                    help="weight on graph costs against acoustics")
+    gg.add_argument("--graph-topk", type=int, default=8,
+                    help="classes per step, chosen per beam among the "
+                         "classes the graph allows")
+    gg.add_argument("--graph-prune", type=float, default=10.0,
+                    help="pruned-determinization beam in cost units "
+                         "(<= 0: exact determinization)")
+    gg.add_argument("--graph-quantum", type=float, default=0.1,
+                    help="residual grid of pruned determinization")
+    gg.add_argument("--graph-max-states", type=int, default=400_000,
+                    help="abort graph compilation past this many states")
+
+
+def feature_config(args) -> FeatureConfig:
+    no_cmvn = getattr(args, "no_cmvn", False)
+    return FeatureConfig(sample_rate=args.sample_rate, n_mels=args.n_mels,
+                         feature_type=args.feature_type,
+                         cmn=not no_cmvn, cvn=not no_cmvn)
+
+
+def load_model(path, args, units: list[str]):
+    """(model, FeatureConfig, num_classes) from a ``convert.save_npz``
+    export; its metadata (model, num_classes, model_kwargs, feature) wins
+    over the flags. ``--int8`` asks a DeepSpeech model for its int8 GRU
+    kernel and exits for a model without a GRU."""
+    from tpuasr_torch.convert import from_jax_variables, load_npz
+    from tpuasr_torch.models import create_model
+
+    tree = load_npz(path)
+    meta = tree.get("meta", {})
+    num_classes = meta.get("num_classes") or len(units)
+    if not num_classes:
+        raise SystemExit("weights carry no num_classes; pass --units")
+    feat_cfg = (FeatureConfig(**meta["feature"]) if meta.get("feature")
+                else feature_config(args))
+    model_kwargs = dict(meta.get("model_kwargs", {}))
+    name = meta.get("model", args.model)
+    if args.int8:
+        cls = MODEL_REGISTRY.get(name)
+        if cls is not None and not cls.supports_int8:
+            raise SystemExit(f"--int8 quantizes the GRU input projections; "
+                             f"{name} has no GRU (serve it without --int8)")
+        model_kwargs.update(pallas_gru=True, fused_proj=True, int8_proj=True)
+    model = create_model(name, num_classes=num_classes,
+                         in_features=feat_cfg.feat_dim, **model_kwargs)
+    model.load_state_dict(from_jax_variables(tree))
+    return model, feat_cfg, num_classes
+
+
+def out_frames(feat_cfg: FeatureConfig, n_samples: int, model) -> int:
+    """The model's output frames for a padded batch of ``n_samples``: the
+    feature frames over its time stride (2 for every model here)."""
+    T = num_frames(feat_cfg, n_samples)
+    return max(1, -(-T // getattr(model, "time_stride", 2)))
 
 
 def load_units(path: str | None) -> list[str]:
@@ -22,24 +151,6 @@ def tokens_to_text(tokens, units: list[str]) -> str:
         return " ".join(str(int(t)) for t in tokens)
     return " ".join(units[int(t)] if 0 <= int(t) < len(units) else "<unk>"
                     for t in tokens)
-
-
-def load_wav(path: str) -> tuple[np.ndarray, int]:
-    """wav file -> (float32 samples in [-1, 1], sample rate), mono."""
-    from scipy.io import wavfile
-
-    sr, data = wavfile.read(path)
-    if data.dtype == np.int16:
-        data = data.astype(np.float32) / 32768.0
-    elif data.dtype == np.int32:
-        data = data.astype(np.float32) / 2147483648.0
-    elif data.dtype == np.uint8:
-        data = (data.astype(np.float32) - 128.0) / 128.0
-    else:
-        data = data.astype(np.float32)
-    if data.ndim > 1:
-        data = data.mean(axis=1)
-    return data, sr
 
 
 def lm_symbols(units: list[str], num_classes: int) -> list[str]:

@@ -9,7 +9,9 @@ n-best rescoring (``--fst`` with ``--beam``), word output through a lexicon
 (``--lexicon``/``--words``), and graph-constrained decoding
 (``--graph-decode``, from ``--fst`` or built from the lexicon and a word
 LM). ``--int8`` serves DeepSpeech's int8 GRU kernel; ``capsule1`` (CapsNet,
-routed by the K8 kernel) has no GRU and refuses it. Weights come from
+routed by the K8 kernel) and ``resnet_ctc`` have no GRU and refuse it.
+``--feature-type`` picks fbank, MFCC or the spectrogram when the weights'
+metadata carries no feature config. Weights come from
 ``tpuasr_torch.convert.save_npz`` output; its metadata (num_classes,
 model_kwargs, feature config) is used when present.
 """
@@ -20,116 +22,26 @@ import argparse
 
 import numpy as np
 
-from tpuasr_torch.cli.common import (build_decode_graph, fusion_tables,
+from tpuasr_torch.cli.common import (add_decode_flags, add_model_flags,
+                                     build_decode_graph, fusion_tables,
                                      lm_symbols, load_fst, load_lm,
-                                     load_units, load_wav, make_word_decoder,
+                                     load_model, load_units, load_wav,
+                                     make_word_decoder, out_frames,
                                      tokens_to_text)
-from tpuasr_torch.convert import from_jax_variables, load_npz
 from tpuasr_torch.decode import BeamSearchConfig
-from tpuasr_torch.features import FeatureConfig
-from tpuasr_torch.models import MODEL_REGISTRY, create_model
-from tpuasr_torch.serve.offline import Recognizer, resolve_device
+from tpuasr_torch.serve.offline import Recognizer
+from tpuasr_torch.utils.device import resolve_device
 
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m tpuasr_torch.cli.predict")
-    p.add_argument("model", choices=sorted(MODEL_REGISTRY))
+    add_model_flags(p)
     p.add_argument("wavs", nargs="+", help="wav files to transcribe")
     p.add_argument("--weights", required=True,
                    help=".npz written by tpuasr_torch.convert.save_npz")
-    p.add_argument("--units", default=None,
-                   help="units file, one token per line (line 0 = <blank>)")
-    p.add_argument("--words", default=None,
-                   help="words.txt symbol table (enables word output)")
-    p.add_argument("--lexicon", default=None,
-                   help="lexicon file 'WORD unit unit ...'; with --words, "
-                        "decoded units are segmented into words")
-    p.add_argument("--beam", action="store_true",
-                   help="CTC prefix beam search instead of greedy")
-    p.add_argument("--beam-width", type=int, default=16)
-    p.add_argument("--class-topk", type=int, default=8,
-                   help="classes per step of the scan search (--beam-impl "
-                        "xla); the kernel search takes all classes")
-    p.add_argument("--beam-impl", default="auto",
-                   choices=["auto", "xla", "pallas"],
-                   help="auto/pallas: the all-class beam kernel; xla: the "
-                        "top-P scan search")
     p.add_argument("--nbest", type=int, default=1)
-    p.add_argument("--int8", action="store_true",
-                   help="int8 input projections in the GRU kernel")
-    p.add_argument("--sample-rate", type=int, default=8000)
-    p.add_argument("--n-mels", type=int, default=64)
-    p.add_argument("--no-cmvn", action="store_true")
-    p.add_argument("--device", default="cuda",
-                   help="cuda (the default; an error without a CUDA device) "
-                        "or cpu")
-    g = p.add_argument_group("language model and WFST")
-    g.add_argument("--lm", default=None,
-                   help="ARPA n-gram LM over the unit symbols (or, with "
-                        "--graph-decode and a lexicon, over words)")
-    g.add_argument("--lm-weight", type=float, default=1.0,
-                   help="LM weight (shallow fusion or rescoring)")
-    g.add_argument("--lm-fusion", action="store_true",
-                   help="apply the LM inside the beam search (shallow "
-                        "fusion); without it the n-best is rescored")
-    g.add_argument("--lm-fusion-order", type=int, default=2, choices=[2, 3],
-                   help="fusion context: 2 = bigram table, 3 = trigram "
-                        "table (grows as C^3)")
-    g.add_argument("--fst", default=None,
-                   help="OpenFst WFST (binary or text), ilabels = unit ids: "
-                        "n-best rescoring with --beam, the graph with "
-                        "--graph-decode")
-    g.add_argument("--fst-weight", type=float, default=1.0,
-                   help="weight on the FST log-prob (minus tropical cost)")
-    g.add_argument("--fst-isyms", default=None,
-                   help="input symbol table for string-labeled FST text")
-    g.add_argument("--fst-osyms", default=None,
-                   help="output symbol table (words.txt) for FST outputs")
-    gg = p.add_argument_group("graph-constrained decoding")
-    gg.add_argument("--graph-decode", action="store_true",
-                    help="decode under a decoding graph compiled to dense "
-                         "tables (--fst, or L from --lexicon/--words/--units "
-                         "composed with a word-level --lm); words by replay "
-                         "through the graph. Replaces --beam")
-    gg.add_argument("--graph-weight", type=float, default=1.0,
-                    help="weight on graph costs against acoustics")
-    gg.add_argument("--graph-topk", type=int, default=8,
-                    help="classes per step, chosen per beam among the "
-                         "classes the graph allows")
-    gg.add_argument("--graph-prune", type=float, default=10.0,
-                    help="pruned-determinization beam in cost units "
-                         "(<= 0: exact determinization)")
-    gg.add_argument("--graph-quantum", type=float, default=0.1,
-                    help="residual grid of pruned determinization")
-    gg.add_argument("--graph-max-states", type=int, default=400_000,
-                    help="abort graph compilation past this many states")
+    add_decode_flags(p)
     return p
-
-
-def _load_model(args, units):
-    tree = load_npz(args.weights)
-    meta = tree.get("meta", {})
-    num_classes = meta.get("num_classes") or len(units)
-    if not num_classes:
-        raise SystemExit("weights carry no num_classes; pass --units")
-    if meta.get("feature"):
-        feat_cfg = FeatureConfig(**meta["feature"])
-    else:
-        feat_cfg = FeatureConfig(sample_rate=args.sample_rate,
-                                 n_mels=args.n_mels, cmn=not args.no_cmvn,
-                                 cvn=not args.no_cmvn)
-    model_kwargs = dict(meta.get("model_kwargs", {}))
-    name = meta.get("model", args.model)
-    if args.int8:
-        cls = MODEL_REGISTRY.get(name)
-        if cls is not None and not cls.supports_int8:
-            raise SystemExit(f"--int8 quantizes the GRU input projections; "
-                             f"{name} has no GRU (serve it without --int8)")
-        model_kwargs.update(pallas_gru=True, fused_proj=True, int8_proj=True)
-    model = create_model(name, num_classes=num_classes,
-                         in_features=feat_cfg.base_dim, **model_kwargs)
-    model.load_state_dict(from_jax_variables(tree))
-    return model, feat_cfg, num_classes
 
 
 def main(argv=None) -> int:
@@ -145,7 +57,7 @@ def main(argv=None) -> int:
     if args.fst and not (args.beam or args.graph_decode):
         raise SystemExit("--fst requires --beam for rescoring or "
                          "--graph-decode")
-    model, feat_cfg, num_classes = _load_model(args, units)
+    model, feat_cfg, num_classes = load_model(args.weights, args, units)
 
     wavs = []
     for path in args.wavs:
@@ -158,8 +70,7 @@ def main(argv=None) -> int:
     batch = np.zeros((len(wavs), int(lens.max())), np.float32)
     for i, w in enumerate(wavs):
         batch[i, :len(w)] = w
-    T_out = max(1, -(-(1 + (batch.shape[1] - feat_cfg.win_length)
-                       // feat_cfg.hop_length) // 2))
+    T_out = out_frames(feat_cfg, batch.shape[1], model)
 
     n_best = max(1, args.nbest) if (args.beam or args.graph_decode) else 1
     if args.graph_decode:

@@ -14,12 +14,14 @@ becomes ``rnn0.fwd_wx`` by the same rule. Two layouts change:
 Every other leaf keeps its name and layout: a conv ``bias``, batch-norm
 ``scale``/``bias`` and ``mean``/``var``, the GRU ``wx``/``wh``/``b``,
 CapsNet's ``W_route`` (N_in, Din, O*D) and its 0-d ``logit_scale``.
+ResNet-CTC's blocks nest one level deeper (``params/stage1_block0/proj/
+kernel`` becomes ``stage1_block0.proj.weight``) under the same rules.
 
 The training step starts from a JAX ``init_state`` the same way
 (``Trainer.init_state({"params": ..., "batch_stats": ...})``) and gives its
 state back as a Flax tree through ``to_jax_variables``
-(``TrainState.variables()``). To export a JAX checkpoint, DeepSpeech or
-CapsNet (in a process that has JAX):
+(``TrainState.variables()``). To export a JAX checkpoint, DeepSpeech,
+CapsNet or ResNet-CTC (in a process that has JAX):
 
     import jax, numpy as np
     from tpuasr.train.checkpoints import load_for_inference

@@ -2,10 +2,11 @@
 
 The port's own copy of the numpy functions of ``tpuasr/features/functional.py``
 (``next_pow2``, ``window_vector``, ``rdft_matrices``, ``hz_to_mel``,
-``mel_to_hz``, ``mel_filterbank``, ``dct_matrix``), line for line, so the
-constants are byte-identical between the two packages (a test holds them
-to it) while this package loads nothing of the JAX one. They are computed
-once on the host and moved to the device as the featurizer's tables.
+``mel_to_hz``, ``mel_filterbank``, ``dct_matrix``, ``lifter_vector``),
+line for line, so the constants are byte-identical between the two
+packages (a test holds them to it) while this package loads nothing of the
+JAX one. They are computed once on the host and moved to the device as the
+featurizer's tables.
 """
 
 from __future__ import annotations
@@ -140,5 +141,11 @@ def dct_matrix(n_out: int, n_in: int, dtype=np.float32) -> np.ndarray:
     return d.astype(dtype)
 
 
+def lifter_vector(n_ceps: int, q: float = 22.0, dtype=np.float32) -> np.ndarray:
+    """Standard cepstral liftering coefficients (HTK-style)."""
+    n = np.arange(n_ceps, dtype=np.float64)
+    return (1.0 + (q / 2.0) * np.sin(np.pi * n / q)).astype(dtype)
+
+
 __all__ = ["next_pow2", "window_vector", "rdft_matrices", "mel_filterbank",
-           "dct_matrix", "hz_to_mel", "mel_to_hz"]
+           "dct_matrix", "lifter_vector", "hz_to_mel", "mel_to_hz"]

@@ -13,8 +13,8 @@ lies about as far from a float64 rDFT as the plain float32 matmuls);
 Tiles of 64 frames run on ``wgmma`` (two warpgroups, A
 from registers); 32 or 16, where 64 frames' layout passes 227 KB of shared
 memory, on ``mma.sync``. ``pack_tables`` lays the tables out for both once
-and ``fbank_plan`` sizes the tiles. Log, CMVN and the mask stay plain torch
-outside the kernel, as in JAX (pallas_fused.py:257-295).
+and ``fbank_plan`` sizes the tiles. Log, MFCC's DCT, CMVN and the mask
+stay plain torch outside the kernel, as in JAX (pallas_fused.py:257-295).
 """
 
 from __future__ import annotations
@@ -342,10 +342,22 @@ fbank_power.launches = 0
 class FusedFeaturizer(Featurizer):
     """Featurizer whose framing, window, rDFT, power and mel projection run
     in one kernel on CUDA (plain torch on CPU); same interface and output
-    as ``reference.Featurizer``. The kernel's packed tables are built once,
-    here."""
+    as ``reference.Featurizer``. MFCC is the kernel's log-mel, then the DCT
+    and lifter as a matmul outside it, where JAX also has them
+    (pallas_fused.py:272-276); dither as in the plain path. The kernel
+    frames the kaldi way only, so torch framing and ``center`` raise, as
+    in JAX (pallas_fused.py:170-172). Splicing raises too: JAX's fused path
+    skips it and returns ``base_dim``-wide features where ``feat_dim`` says
+    otherwise. The kernel's packed tables are built once, here."""
 
-    def __init__(self, cfg, device="cpu"):
+    def __init__(self, cfg, device="cuda"):
+        if cfg.center or cfg.frame_style != "kaldi":
+            raise ValueError("FusedFeaturizer supports the kaldi framing "
+                             "path (center=False); use Featurizer otherwise")
+        if cfg.splice_left or cfg.splice_right:
+            raise ValueError("FusedFeaturizer does not splice frames (the "
+                             "JAX fused path drops the splice context); use "
+                             "Featurizer")
         super().__init__(cfg, device)
         self.tables["packed"] = pack_tables(self.tables)
 

@@ -1,10 +1,17 @@
-"""Plain PyTorch featurizer: wav -> frames -> power spectrum -> log-mel -> CMVN.
+"""Plain PyTorch featurizer: wav -> frames -> power spectrum -> log-mel /
+MFCC -> CMVN -> splicing.
 
-Counterpart of ``tpuasr/features/reference.py``. It covers the kaldi framing
-path (``center=False``, ``frame_style="kaldi"``) for fbank and spectrogram
-features, with pre-emphasis and masked per-utterance CMVN. MFCC,
-``center=True``, torch-style framing and splicing raise
-``NotImplementedError``; dither is a training-time option and is not applied.
+Counterpart of ``tpuasr/features/reference.py`` with every option of its
+``FeatureConfig``: kaldi framing (frame t covers [t*hop, t*hop + win)) and
+torch framing (the window centred in the n_fft span), ``center=True`` (the
+padded batch buffer reflect-padded by n_fft // 2, as JAX pads it, not each
+utterance), fbank, MFCC (the DCT-II of the log-mel, times the lifter when
+``lifter > 0``) and spectrogram features, pre-emphasis, masked
+per-utterance CMVN, edge-replicated splicing after CMVN, and dither:
+``featurize(wav, lengths, generator)`` adds ``dither * randn`` drawn from
+``generator`` only when ``dither > 0`` and a generator is given, as JAX
+adds it only when given a key. The featurizers run on the card unless the
+caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -14,9 +21,11 @@ from functools import cached_property
 
 import numpy as np
 import torch
+import torch.nn.functional as TF
 
 from tpuasr_torch.features import functional as F
 from tpuasr_torch.precision import full_fp32
+from tpuasr_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,9 +81,22 @@ class FeatureConfig:
             return self.n_freqs
         raise ValueError(f"unknown feature_type {self.feature_type!r}")
 
+    @property
+    def feat_dim(self) -> int:
+        return self.base_dim * (1 + self.splice_left + self.splice_right)
+
 
 def _frame_span(cfg: FeatureConfig) -> int:
     return cfg.fft_size if cfg.frame_style == "torch" else cfg.win_length
+
+
+def frame_offset(cfg: FeatureConfig) -> int:
+    """Where a frame's window starts in its span: centred in the n_fft span
+    under torch framing (tpuasr/features/reference.py:164-167), at the
+    span's start under kaldi framing."""
+    if cfg.frame_style == "torch":
+        return (cfg.fft_size - cfg.win_length) // 2
+    return 0
 
 
 def num_frames(cfg: FeatureConfig, n_samples):
@@ -89,29 +111,45 @@ def num_frames(cfg: FeatureConfig, n_samples):
 
 
 def check_supported(cfg: FeatureConfig) -> None:
-    if cfg.center or cfg.frame_style != "kaldi":
-        raise NotImplementedError(
-            "tpuasr_torch featurizes the kaldi framing path only "
-            "(center=False, frame_style='kaldi')")
-    if cfg.feature_type not in ("fbank", "spectrogram"):
-        raise NotImplementedError(
-            f"feature_type {cfg.feature_type!r} is not ported yet")
-    if cfg.splice_left or cfg.splice_right:
-        raise NotImplementedError("frame splicing is not ported yet")
+    """Refuse values that name nothing (the JAX package reads any
+    frame_style other than "torch" as kaldi; the port names both)."""
+    if cfg.frame_style not in ("kaldi", "torch"):
+        raise ValueError(f"unknown frame_style {cfg.frame_style!r}")
+    if cfg.feature_type not in ("fbank", "mfcc", "spectrogram"):
+        raise ValueError(f"unknown feature_type {cfg.feature_type!r}")
+    if cfg.splice_left < 0 or cfg.splice_right < 0:
+        raise ValueError("splice context must be >= 0")
 
 
 def feature_tables(cfg: FeatureConfig, device) -> dict:
-    """Window (win,), cos/sin (win, n_freqs), projection (n_freqs, out) f32."""
+    """Window (win,), cos/sin (win, n_freqs), projection (n_freqs, out) f32;
+    for MFCC also the DCT (n_mels, n_mfcc) and, when lifter > 0, the
+    lifter (n_mfcc,)."""
     window = F.window_vector(cfg.window, cfg.win_length, cfg.periodic_window)
     cos_m, sin_m = F.rdft_matrices(cfg.fft_size, cfg.win_length)
-    if cfg.feature_type == "fbank":
+    if cfg.feature_type in ("fbank", "mfcc"):
         proj = F.mel_filterbank(cfg.fft_size, cfg.n_mels, cfg.sample_rate,
                                 cfg.fmin, cfg.fmax, cfg.htk_mel)
     else:
         proj = np.eye(cfg.n_freqs, dtype=np.float32)
+    tables = [("window", window), ("cos", cos_m), ("sin", sin_m),
+              ("proj", proj)]
+    if cfg.feature_type == "mfcc":
+        tables.append(("dct", F.dct_matrix(cfg.n_mfcc, cfg.n_mels)))
+        if cfg.lifter > 0:
+            tables.append(("lifter", F.lifter_vector(cfg.n_mfcc, cfg.lifter)))
     return {name: torch.as_tensor(np.ascontiguousarray(a), device=device)
-            for name, a in (("window", window), ("cos", cos_m),
-                            ("sin", sin_m), ("proj", proj))}
+            for name, a in tables}
+
+
+def add_dither(cfg: FeatureConfig, wav: torch.Tensor,
+               generator: torch.Generator | None) -> torch.Tensor:
+    """wav + dither * N(0, 1) noise from ``generator`` (on wav's device);
+    unchanged when dither is 0 or no generator is given."""
+    if cfg.dither <= 0.0 or generator is None:
+        return wav
+    noise = torch.randn(wav.shape, generator=generator, device=wav.device)
+    return wav + cfg.dither * noise
 
 
 def preemphasize(wav: torch.Tensor, coeff: float) -> torch.Tensor:
@@ -121,10 +159,42 @@ def preemphasize(wav: torch.Tensor, coeff: float) -> torch.Tensor:
     return wav - coeff * prev
 
 
-def finish_features(cfg: FeatureConfig, mel_power: torch.Tensor,
-                    lengths: torch.Tensor):
-    """log floor, masked CMVN and padding zeroing (reference.py:186-253)."""
-    feat = torch.log(torch.clamp(mel_power, min=cfg.log_floor))
+def center_pad(cfg: FeatureConfig, wav: torch.Tensor) -> torch.Tensor:
+    """With ``center``, the (B, S) buffer reflect-padded by n_fft // 2 on
+    both sides (tpuasr/features/reference.py:152-154): a short row
+    reflects the buffer's zeros past its end, not its own samples."""
+    if not cfg.center:
+        return wav
+    pad = cfg.fft_size // 2
+    if wav.shape[1] <= pad:
+        raise ValueError(f"center=True reflects {pad} samples; the signal "
+                         f"has {wav.shape[1]}")
+    return TF.pad(wav[:, None], (pad, pad), mode="reflect")[:, 0]
+
+
+def splice(cfg: FeatureConfig, feat: torch.Tensor) -> torch.Tensor:
+    """(B, T, F) -> (B, T, F * (1 + left + right)): frames t - left ..
+    t + right side by side, edge-replicated
+    (tpuasr/features/reference.py:224-234)."""
+    if cfg.splice_left == 0 and cfg.splice_right == 0:
+        return feat
+    T = feat.shape[1]
+    t = torch.arange(T, device=feat.device)
+    return torch.cat([feat[:, torch.clamp(t + off, 0, T - 1)]
+                      for off in range(-cfg.splice_left,
+                                       cfg.splice_right + 1)], dim=-1)
+
+
+def finish_features(cfg: FeatureConfig, power: torch.Tensor,
+                    lengths: torch.Tensor, tables: dict):
+    """log floor, the DCT and lifter (MFCC), masked CMVN, splicing and
+    padding zeroing (reference.py:185-253)."""
+    feat = torch.log(torch.clamp(power, min=cfg.log_floor))
+    if cfg.feature_type == "mfcc":
+        with full_fp32():
+            feat = feat @ tables["dct"]
+        if "lifter" in tables:
+            feat = feat * tables["lifter"]
     T = feat.shape[1]
     flen = torch.clamp(num_frames(cfg, lengths.to(torch.int64)),
                        max=T).to(torch.int32)
@@ -142,7 +212,7 @@ def finish_features(cfg: FeatureConfig, mel_power: torch.Tensor,
         else:
             var = ((feat - mean) ** 2 * m).sum(dim=1, keepdim=True) / denom
             feat = feat * torch.rsqrt(var + 1e-8)
-    return feat * mask[:, :, None], flen
+    return splice(cfg, feat) * mask[:, :, None], flen
 
 
 def frames_plain(wav: torch.Tensor, hop: int, win: int, T: int):
@@ -177,29 +247,38 @@ class Featurizer:
     """Plain batched featurizer.
 
     __call__(wav (B, S) float32, lengths (B,) int32)
-        -> feats (B, T, F) float32, frame_lengths (B,) int32
-    T is fixed by S; frames past a row's length are zeroed.
+        -> feats (B, T, feat_dim) float32, frame_lengths (B,) int32
+    T is fixed by S; frames past a row's length are zeroed. The device
+    defaults to the card; a CUDA device that is absent is a RuntimeError.
     """
 
-    def __init__(self, cfg: FeatureConfig, device="cpu"):
+    def __init__(self, cfg: FeatureConfig, device="cuda"):
         check_supported(cfg)
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.tables = feature_tables(cfg, self.device)
 
     def power_spectrum(self, wav: torch.Tensor, T: int) -> torch.Tensor:
-        """(B, S) -> (B, T, out) projected power spectrum."""
-        frames = frames_plain(wav, self.cfg.hop_length, self.cfg.win_length, T)
+        """(B, S') framed buffer -> (B, T, out) projected power spectrum."""
+        c = self.cfg
+        frames = frames_plain(wav[:, frame_offset(c):], c.hop_length,
+                              c.win_length, T)
         return mel_power_plain(frames, self.tables)
 
-    def featurize(self, wav: torch.Tensor, lengths: torch.Tensor):
+    def featurize(self, wav: torch.Tensor, lengths: torch.Tensor,
+                  generator: torch.Generator | None = None):
+        """(B, S) wav, (B,) lengths -> (feats, frame lengths); with
+        ``generator`` (on wav's device) and dither > 0, the dithered
+        features of a training step."""
         c = self.cfg
-        wav = preemphasize(wav, c.preemphasis).contiguous()
         T = num_frames(c, wav.shape[1])
         if T <= 0:
             raise ValueError(f"signal too short: {wav.shape[1]} samples < "
                              f"frame span {_frame_span(c)}")
-        return finish_features(c, self.power_spectrum(wav, T), lengths)
+        wav = preemphasize(add_dither(c, wav, generator), c.preemphasis)
+        wav = center_pad(c, wav).contiguous()
+        return finish_features(c, self.power_spectrum(wav, T), lengths,
+                               self.tables)
 
     def __call__(self, wav, lengths=None):
         wav, lengths, squeeze = as_batch(wav, lengths, self.device)

@@ -7,8 +7,10 @@ Common contract, as in ``tpuasr.models``:
 
 from tpuasr_torch.models.capsnet import CapsNetCTC
 from tpuasr_torch.models.deepspeech_ctc import DeepSpeechCTC
+from tpuasr_torch.models.resnet_ctc import ResNetCTC
 
 MODEL_REGISTRY = {
+    "resnet_ctc": ResNetCTC,
     "deepspeech_ctc": DeepSpeechCTC,
     "deepspeech_var": DeepSpeechCTC,   # variant: configured via kwargs
     "capsule1": CapsNetCTC,
@@ -22,4 +24,5 @@ def create_model(name: str, num_classes: int, **kwargs):
     return MODEL_REGISTRY[name](num_classes=num_classes, **kwargs)
 
 
-__all__ = ["CapsNetCTC", "DeepSpeechCTC", "MODEL_REGISTRY", "create_model"]
+__all__ = ["CapsNetCTC", "DeepSpeechCTC", "MODEL_REGISTRY", "ResNetCTC",
+           "create_model"]

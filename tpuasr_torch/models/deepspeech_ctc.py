@@ -36,8 +36,8 @@ import torch.nn.functional as F
 
 from tpuasr_torch.models.layers import (BatchNorm, BiGRU, FrontConv,
                                         MaskedBatchNorm, _lecun_normal_,
-                                        conv_out_length, frontend_dim,
-                                        sequence_mask)
+                                        conv_out_length, flax_dropout,
+                                        frontend_dim, sequence_mask)
 from tpuasr_torch.precision import full_fp32
 
 
@@ -120,13 +120,6 @@ class DeepSpeechCTC(nn.Module):
         with full_fp32():
             return self._forward(feats, feat_lens, generator)
 
-    def _dropout(self, x, generator):
-        """flax ``nn.Dropout``: keep with 1 - p, scale kept values by
-        1 / (1 - p)."""
-        keep = 1.0 - self.dropout
-        u = torch.rand(x.shape, generator=generator, device=x.device)
-        return torch.where(u < keep, x / keep, torch.zeros((), device=x.device))
-
     def conv_frontend(self, feats, feat_lens):
         """The two conv + norm + ReLU layers: feats (B, T, F), feat_lens
         -> (x (T', B, F'*C) f32 time-major, mask_t (T', B, 1) f32,
@@ -156,7 +149,7 @@ class DeepSpeechCTC(nn.Module):
             x = getattr(self, f"rnn{i}_bn")(x, mask_t)
             x = getattr(self, f"rnn{i}")(x, mask_t)
             if self.training and self.dropout > 0:
-                x = self._dropout(x, generator)
+                x = flax_dropout(x, self.dropout, generator)
         x = self.head_bn(x, mask_t)
         logp = F.log_softmax(self.head(x.to(torch.float32)), dim=-1)
         logp = torch.where(mask_t > 0, logp, 0.0)

@@ -50,6 +50,15 @@ def _same_pad(n: int, k: int, s: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def flax_dropout(x: torch.Tensor, rate: float, generator) -> torch.Tensor:
+    """flax ``nn.Dropout`` in training: keep with 1 - rate, scale kept
+    values by 1 / (1 - rate); the mask from ``generator`` (on x's
+    device)."""
+    keep = 1.0 - rate
+    u = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(u < keep, x / keep, torch.zeros((), device=x.device))
+
+
 def _lecun_normal_(w: torch.Tensor, fan_in: int, generator) -> torch.Tensor:
     # flax's lecun_normal: truncated normal at +-2 sigma, variance 1/fan_in,
     # sigma corrected for the truncation.

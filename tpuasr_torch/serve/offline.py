@@ -17,14 +17,9 @@ from tpuasr_torch.decode import (BeamSearchConfig, GraphTables,
                                  ctc_beam_search_xla, greedy_decode)
 from tpuasr_torch.features import FeatureConfig, FusedFeaturizer
 from tpuasr_torch.features.reference import as_batch
+from tpuasr_torch.utils.device import resolve_device
 
-
-def resolve_device(device) -> torch.device:
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device} requested but CUDA is not "
-                           "available")
-    return device
+__all__ = ["Recognizer", "resolve_device"]
 
 
 class Recognizer:

@@ -13,10 +13,13 @@ A batch is a dict of ``wav`` (B, S) f32, ``wav_lens`` (B,), ``tokens``
 (B, U) int, ``token_lens`` (B,) and ``real`` (B,) (0 for padding rows), as
 the JAX loaders give it; numpy arrays or tensors.
 
+With ``FeatureConfig.dither > 0`` the step featurizes with dither noise
+drawn from a stream of its own, a function of (seed, step) apart from the
+dropout stream, as JAX folds 1 into the step's key (loop.py:219-224).
+
 Not ported (they raise ``NotImplementedError``): ``fit()`` with its loaders,
 checkpoints and logging, SpecAugment, gradient accumulation, objectives
-other than "ctc", the device-resident corpus, Grain, bf16 compute and
-dither.
+other than "ctc", the device-resident corpus, Grain and bf16 compute.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from tpuasr_torch.features import FeatureConfig, Featurizer, FusedFeaturizer
 from tpuasr_torch.losses import get_ctc_loss
 from tpuasr_torch.models import create_model
 from tpuasr_torch.precision import full_fp32
-from tpuasr_torch.serve.offline import resolve_device
+from tpuasr_torch.utils.device import resolve_device
 from tpuasr_torch.train.optim import OptState, Optimizer, global_norm
 
 
@@ -77,14 +80,13 @@ class TrainConfig:
     min_lr_frac: float = 0.05
 
 
-def _unsupported(cfg: TrainConfig, feat_cfg: FeatureConfig) -> list[str]:
+def _unsupported(cfg: TrainConfig) -> list[str]:
     bad = {"objective != 'ctc'": cfg.objective != "ctc",
            "spec_augment": cfg.spec_augment,
            "accum_steps > 1": cfg.accum_steps > 1,
            "device_corpus=True": cfg.device_corpus is True,
            "use_grain": cfg.use_grain,
-           "bf16_compute": cfg.bf16_compute,
-           "dither": feat_cfg.dither > 0.0}
+           "bf16_compute": cfg.bf16_compute}
     return [name for name, on in bad.items() if on]
 
 
@@ -110,7 +112,7 @@ class Trainer:
                  device="cuda"):
         self.cfg = cfg
         self.feat_cfg = feat_cfg or FeatureConfig()
-        bad = _unsupported(cfg, self.feat_cfg)
+        bad = _unsupported(cfg)
         if bad:
             raise NotImplementedError(
                 f"tpuasr_torch's Trainer does not port {', '.join(bad)}")
@@ -134,7 +136,7 @@ class Trainer:
         ``init_state`` gives."""
         cfg = self.cfg
         model = create_model(cfg.model, num_classes=cfg.num_classes,
-                             in_features=self.feat_cfg.base_dim,
+                             in_features=self.feat_cfg.feat_dim,
                              generator=torch.Generator().manual_seed(cfg.seed),
                              **cfg.model_kwargs)
         if variables is not None:
@@ -158,21 +160,30 @@ class Trainer:
         out["wav"] = out["wav"].to(torch.float32).contiguous()
         return out
 
-    def _dropout_generator(self, step: int) -> torch.Generator:
-        """The dropout stream of one step: a function of (seed, step), as
-        JAX folds the step into its key (loop.py:332)."""
+    def _step_generator(self, step: int, stream: int) -> torch.Generator:
+        """A random stream of one step, a function of (seed, step, stream),
+        as JAX folds the step into its key (loop.py:332): stream 0 draws
+        dropout, stream 1 dither (JAX's fold_in(key, 1), loop.py:221).
+        Stream 0 keeps the dropout seed it had before dither was ported;
+        stream 1 sits 2**40 above every stream-0 seed of a real run."""
         g = torch.Generator(self.device)
-        g.manual_seed((self.cfg.seed + 1) * 1_000_003 + step)
+        g.manual_seed((self.cfg.seed + 1) * 1_000_003 + step
+                      + stream * (1 << 40))
         return g
 
-    def _loss_fn(self, model, batch: dict, train: bool, generator=None):
+    def _loss_fn(self, model, batch: dict, train: bool, step: int = 0):
         """-> (loss, log_probs, out_lens); loss = the mean CTC NLL over the
-        real rows (loop.py:217-283, objective "ctc")."""
+        real rows (loop.py:217-283, objective "ctc"). In training the
+        featurizer dithers and the model drops out, each from its stream
+        of ``step``."""
+        dither = (self._step_generator(step, 1)
+                  if train and self.feat_cfg.dither > 0 else None)
         with torch.no_grad():
-            feats, flens = self.featurizer.featurize(batch["wav"],
-                                                     batch["wav_lens"])
+            feats, flens = self.featurizer.featurize(
+                batch["wav"], batch["wav_lens"], generator=dither)
         model.train(train)
-        logp, out_lens = model(feats, flens, generator=generator)
+        logp, out_lens = model(feats, flens, generator=(
+            self._step_generator(step, 0) if train else None))
         losses = self._ctc(logp.to(torch.float32), batch["tokens"], out_lens,
                            batch["token_lens"])
         w = batch["real"].to(torch.float32)
@@ -190,8 +201,7 @@ class Trainer:
         # TF32 off for the backward too: cuDNN's conv gradients would
         # otherwise run in TF32 (torch.backends.cudnn.allow_tf32 is True).
         with full_fp32():
-            loss, _, _ = self._loss_fn(model, batch, True,
-                                       self._dropout_generator(state.step))
+            loss, _, _ = self._loss_fn(model, batch, True, state.step)
             loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
