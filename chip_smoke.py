@@ -104,7 +104,22 @@ Phases, each fatal on failure:
      float32, adamw 5e-4, clip 5, B=16 x 5 s, U=24): K6 and K6b once a
      step, the checks and timings of phase 7, then once with dither=1.0
      (two steps from one seed the same bits; the loss not the undithered
-     one).
+     one);
+ 11. the training loop: ``python -m tpuasr_torch.cli.batch_train
+     deepspeech_ctc --preset`` run in this process on a synthetic corpus of
+     64 utterances (8 of them the dev set), at config 3's width and batch
+     with the fused featurizer, SpecAugment, accumulation over 2
+     micro-batches and the device-resident corpus, 2 epochs: K1, K5, K5b,
+     K6 and K6b launched; the store on the card; the logged losses finite
+     and falling; train and dev rows in metrics.csv; the checkpoints that
+     keep=5 leaves, each optimizer state in optax's layout; a second
+     straight run against the first (the leaves that differ, named); with
+     ``torch.backends.cudnn.deterministic`` set, a run of one epoch resumed
+     for the second against a straight run, bit for bit;
+     ``tpuasr_torch.cli.test --checkpoint`` against ``Trainer.evaluate``'s
+     greedy tokens; and, on 56 utterances of 5-15 s (config 3's lengths),
+     the epoch loop's ms a step, utterances a second and the device's idle
+     share, from the device corpus, and streamed with prefetch 2 and 0.
 
 Weights are random, made from a seed. The line before the last holds
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}. Without
@@ -114,10 +129,12 @@ a CUDA device, or if any phase fails, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import csv
 import dataclasses
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2327,6 +2344,320 @@ def resnet_train_slice(kernels, wrappers, card) -> None:
                 counted, patches, kernels, wrappers, card, check=check)
 
 
+# Phase 11: optax's state dict of chain(clip_by_global_norm, adamw) in
+# MultiSteps (accum_steps 2), as flax's to_state_dict gives it in optax
+# 0.2.6 (tuples as "0", "1", ... maps, namedtuples as maps of their fields,
+# empty states as {}). "params" stands for a tree of the parameters' keys
+# and shapes; None for an int32 0-d count.
+ADAMW_ACCUM_LAYOUT = {
+    "mini_step": None, "gradient_step": None,
+    "inner_opt_state": {"0": {}, "1": {
+        "0": {"count": None, "mu": "params", "nu": "params"},
+        "1": {}, "2": {"count": None}}},
+    "acc_grads": "params", "skip_state": {}}
+# Phase 11's corpus: 64 synthetic utterances at 8 kHz, the last 8 the dev
+# set; the vocabulary is the corpus's (8 units with the blank).
+LOOP_UTTS, LOOP_DEV, LOOP_VOCAB = 64, 8, 8
+
+
+def layout_errors(tree, layout, params, where="opt_state") -> list:
+    """Where ``tree`` departs from ``layout`` (ADAMW_ACCUM_LAYOUT's form)."""
+    def shapes(t):
+        if isinstance(t, dict):
+            return {k: shapes(v) for k, v in t.items()}
+        return tuple(np.shape(t))
+
+    if layout is None:
+        ok = (isinstance(tree, np.ndarray) and tree.shape == ()
+              and tree.dtype == np.int32)
+        return [] if ok else [f"{where}: not an int32 count"]
+    if layout == "params":
+        return [] if shapes(tree) == shapes(params) else [
+            f"{where}: not the parameters' tree"]
+    if not isinstance(tree, dict) or list(tree) != list(layout):
+        keys = list(tree) if isinstance(tree, dict) else type(tree).__name__
+        return [f"{where}: keys {keys} != {list(layout)}"]
+    return [e for k in layout
+            for e in layout_errors(tree[k], layout[k], params,
+                                   f"{where}/{k}")]
+
+
+def leaf_diffs(a, b, where="") -> dict:
+    """{path: max |a - b|} of the leaves of two checkpoint trees that are
+    not bit for bit equal."""
+    if isinstance(a, dict):
+        out = {}
+        for k in a:
+            out.update(leaf_diffs(a[k], b[k], f"{where}/{k}"))
+        return out
+    a, b = np.asarray(a), np.asarray(b)
+    if a.tobytes() == b.tobytes():
+        return {}
+    return {where: float(np.max(np.abs(a.astype(np.float64)
+                                       - b.astype(np.float64))))}
+
+
+def device_busy_ms(prof) -> float:
+    """The union of the device's busy intervals (kernels, copies, fills)
+    in a torch.profiler session, in ms."""
+    from torch.autograd import DeviceType
+
+    spans = sorted(
+        (e.time_range.start, e.time_range.end) for e in prof.events()
+        if e.device_type == DeviceType.CUDA
+        and e.time_range.end > e.time_range.start
+        and "Loading" not in e.name and "Buffer Request" not in e.name)
+    busy, end = 0.0, -np.inf
+    for s0, s1 in spans:
+        if s1 <= end:
+            continue
+        busy += s1 - max(s0, end)
+        end = s1
+    return busy / 1e3
+
+
+def train_loop_slice(kernels, wrappers, card) -> None:
+    """Phase 11: the training loop on the card through ``python -m
+    tpuasr_torch.cli.batch_train`` (in this process): config 3's model at
+    full width (the deepspeech_ctc preset: 512 x 4 BiGRU, float32, adamw
+    3e-4, clip 5) at batch 16, with the fused featurizer, SpecAugment,
+    accumulation over 2 micro-batches and the device-resident corpus, on a
+    synthetic corpus; its checkpoints, two straight runs against each
+    other, a resumed run against a straight one (bit for bit, with cuDNN's
+    deterministic algorithms), ``test --checkpoint`` against
+    ``Trainer.evaluate``, and the epoch loop's time at config 3's lengths
+    with and without the prefetch thread."""
+    from tpuasr_torch.cli import batch_train
+    from tpuasr_torch.cli import test as cli_test
+    from tpuasr_torch.data import (AudioLoader, LoaderConfig,
+                                   make_synthetic_corpus, read_manifest,
+                                   write_manifest)
+    from tpuasr_torch.features import FeatureConfig
+    from tpuasr_torch.train import TrainConfig, Trainer
+    from tpuasr_torch.train.checkpoints import (latest_checkpoint,
+                                                restore_checkpoint)
+    from tpuasr_torch.utils.msgpack import unpackb
+    from tpuasr_torch.utils.params import preset_for
+
+    tmp = Path(tempfile.mkdtemp(prefix="tpuasr_loop_"))
+    corpus = make_synthetic_corpus(tmp / "c", num_utts=LOOP_UTTS,
+                                   vocab_size=LOOP_VOCAB, seed=SEED)
+    utts = read_manifest(corpus.manifest)
+    write_manifest(tmp / "train.jsonl", utts[:-LOOP_DEV])
+    write_manifest(tmp / "dev.jsonl", utts[-LOOP_DEV:])
+    units = str(corpus.root / "units.txt")
+    steps = len(AudioLoader(tmp / "train.jsonl",
+                            LoaderConfig(batch_size=TRAIN_B)).batch_plan(0))
+    every = 1
+    common = ["deepspeech_ctc", "--train-manifest", str(tmp / "train.jsonl"),
+              "--dev-manifest", str(tmp / "dev.jsonl"), "--units", units,
+              "--preset", "--fused-featurizer", "--spec-augment",
+              "--accum-steps", "2", "--batch-size", str(TRAIN_B),
+              "--log-every", "1", "--warmup-steps", "2",
+              "--ckpt-every-steps", str(every), "--device", "cuda"]
+
+    def train(name, *extra):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = batch_train.main([*common, "--log-dir", str(tmp / name),
+                                   *extra])
+        torch.cuda.synchronize()
+        if rc != 0:
+            fail(f"[11] batch_train {name} rc={rc}")
+        return time.perf_counter() - t0
+
+    # The counted run of the loop: 2 epochs; the device corpus is caught
+    # where the Trainer builds it.
+    built = []
+    orig = Trainer._device_corpus_for
+
+    def spy(self, loader):
+        dc = orig(self, loader)
+        built.append(dc)
+        return dc
+
+    for w in wrappers.values():
+        w.launches = 0
+    with mock.patch.object(Trainer, "_device_corpus_for", spy):
+        secs = train("a", "--num-epochs", "2")
+    counts = {k: w.launches for k, w in wrappers.items()}
+    phase(f"[11 loop] batch_train deepspeech_ctc --preset: 2 epochs of "
+          f"{steps} steps (B={TRAIN_B}, {LOOP_UTTS - LOOP_DEV} utterances) "
+          f"in {secs:.2f} s (host clock, set-up and dev evaluation "
+          f"included); launch counts {json.dumps(counts)}")
+    for key in ("K1", "K5", "K5b", "K6", "K6b"):
+        if counts[key] == 0:
+            fail(f"[11] kernel {key} was not launched by the training loop")
+    for key, n in counts.items():
+        entry = {"K2": "K2-f32"}.get(key, key)
+        kernels[entry]["launches"] += n
+    dc = built[0] if built else None
+    if dc is None or not all(t.is_cuda for st in dc._stores.values()
+                             for t in st.values()):
+        fail("[11] the corpus store is not on the device")
+    phase(f"[11 loop] device-resident corpus: {len(dc._stores)} buckets, "
+          f"{dc.nbytes / 2**20:.2f} MiB on {dc.device}")
+
+    with open(tmp / "a" / "metrics.csv") as f:
+        rows = [(int(st), n, float(v))
+                for st, n, v in list(csv.reader(f))[1:]]
+    losses = [v for _, n, v in rows if n == "train/loss"]
+    names = {n for _, n, _ in rows}
+    dev_rows = [(st, n, round(v, 4)) for st, n, v in rows
+                if n.startswith("dev")]
+    phase(f"[11 loop] train/loss by step: "
+          f"{', '.join(f'{v:.3f}' for v in losses)}; dev rows {dev_rows}")
+    if not (len(losses) == 2 * steps and all(np.isfinite(losses))
+            and losses[-1] < losses[0]):
+        fail("[11] the logged losses are not all finite or did not fall")
+    if not {"train/loss", "dev/loss", "dev/ter"} <= names:
+        fail(f"[11] metrics.csv lacks train or dev rows: {names}")
+    saved = sorted({s for s in range(1, 2 * steps + 1) if s % every == 0}
+                   | {2 * steps})[-5:]
+    got = sorted(p.name for p in (tmp / "a" / "ckpt").iterdir())
+    want = sorted(f"ckpt_{s:08d}.{x}" for s in saved for x in ("json",
+                                                               "msgpack"))
+    if got != want:
+        fail(f"[11] checkpoints {got} != {want} (keep=5)")
+    errs = []
+    for p in sorted((tmp / "a" / "ckpt").glob("*.msgpack")):
+        tree = unpackb(p.read_bytes())
+        errs += layout_errors(tree["opt_state"], ADAMW_ACCUM_LAYOUT,
+                              tree["params"], p.name)
+    if errs:
+        fail(f"[11] optimizer state not in optax's layout: {errs[:5]}")
+    phase(f"[11 loop] {len(saved)} checkpoints kept (steps "
+          f"{', '.join(map(str, saved))}), each opt_state in optax's "
+          "MultiSteps(chain(clip, adamw)) layout")
+
+    # Determinism, then resume. A second straight run shows whether the
+    # card's step repeats: cuDNN's default conv weight-gradient backward
+    # sums in an order that can change from run to run. Resume is then
+    # gated bit for bit with torch.backends.cudnn.deterministic set (the
+    # caller's switch; the port leaves cuDNN's choice alone): a straight
+    # run, a run of one epoch, and that run's final checkpoint (epoch 1,
+    # the middle of the straight run) resumed for the second epoch. JAX's
+    # resume restarts the saved epoch from its first batch, so only a
+    # checkpoint written at an epoch's end (the final one, whose meta names
+    # the next epoch) continues the straight run batch for batch.
+    def final(name):
+        return unpackb(latest_checkpoint(tmp / name / "ckpt").read_bytes())
+
+    train("a2", "--num-epochs", "2")
+    d_twice = leaf_diffs(final("a"), final("a2"))
+    top = sorted(d_twice.items(), key=lambda kv: -kv[1])[:8]
+    phase(f"[11 determinism] two straight runs (cuDNN's default "
+          f"algorithms): {len(d_twice)} leaves differ; largest {top}"
+          + (" (the op: cuDNN's conv weight-gradient backward, "
+             "tools/train_determinism.py)" if d_twice else ""))
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        train("s", "--num-epochs", "2")
+        train("b", "--num-epochs", "1")
+        train("c", "--num-epochs", "2", "--continue-from",
+              str(tmp / "b" / "ckpt"))
+    finally:
+        torch.backends.cudnn.deterministic = prev
+    fs, fc = final("s"), final("c")
+    if not (int(fs["step"]) == int(fc["step"]) == 2 * steps):
+        fail(f"[11] final steps {int(fs['step'])} {int(fc['step'])}")
+    d_resume = leaf_diffs(fs, fc)
+    phase(f"[11 resume] step {int(fc['step'])}, cudnn.deterministic: the "
+          f"resumed run against the straight run: {len(d_resume)} leaves "
+          f"differ (max {max(d_resume.values(), default=0.0):.3e}); gate: "
+          "bit for bit")
+    if d_resume:
+        fail(f"[11] resume: {sorted(d_resume.items())[:8]}")
+
+    # test --checkpoint against Trainer.evaluate on the same manifest.
+    kwargs, overrides = preset_for("deepspeech_ctc")
+    cfg = TrainConfig(model="deepspeech_ctc", num_classes=LOOP_VOCAB,
+                      model_kwargs=kwargs, fused_featurizer=True,
+                      spec_augment=True, accum_steps=2, **overrides)
+    feat = FeatureConfig()
+    tr = Trainer(cfg, feat, device="cuda")
+    tree, _ = restore_checkpoint(tmp / "a" / "ckpt")
+    state = tr.load_state_tree(tr.init_state(), tree)
+    ev = tr.evaluate(state, AudioLoader(
+        tmp / "dev.jsonl", LoaderConfig(batch_size=TRAIN_B, shuffle=False)))
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli_test.main(["deepspeech_ctc", "--manifest",
+                            str(tmp / "dev.jsonl"), "--checkpoint",
+                            str(tmp / "a" / "ckpt"), "--units", units,
+                            "--device", "cuda", "--batch-size",
+                            str(TRAIN_B)])
+    lines = out.getvalue().strip().splitlines()
+    names_u = Path(units).read_text().splitlines()
+    want_h = {k: " ".join(names_u[t] for t in v)
+              for k, v in ev["hyps"].items()}
+    got_h = dict(ln.split("\t") for ln in lines[:-1])
+    phase(f"[11 test --checkpoint] rc={rc}: {lines[-1]}; Trainer.evaluate "
+          f"ter {ev['ter']:.4f}, loss {ev['loss']:.4f}; hypotheses equal: "
+          f"{got_h == want_h}")
+    if rc != 0 or got_h != want_h or len(got_h) != LOOP_DEV:
+        fail(f"[11] test --checkpoint {got_h} != evaluate {want_h}")
+
+    # The epoch loop's time at config 3's lengths: 56 utterances of 5-15 s
+    # (tones of 1 s), read anew every epoch (cache_bytes=0, as a corpus
+    # larger than the loader's cache is), from the device corpus, and
+    # streamed with the prefetch thread and without it, in turns (each turn
+    # a warm-up epoch, then 2 timed epochs), then one profiled epoch each.
+    from torch.profiler import ProfilerActivity, profile
+    long = make_synthetic_corpus(tmp / "long", num_utts=LOOP_UTTS - LOOP_DEV,
+                                 vocab_size=LOOP_VOCAB, min_tokens=5,
+                                 max_tokens=15, tone_ms=1000.0,
+                                 seed=SEED + 1)
+    loader = AudioLoader(long.manifest, LoaderConfig(batch_size=TRAIN_B,
+                                                     cache_bytes=0))
+    long_s = sum(u.num_samples for u in read_manifest(long.manifest)) / SR
+    state = tr.init_state()
+    modes = {"device corpus": ("auto", 2),
+             "streaming, prefetch 2": (False, 2),
+             "streaming, prefetch 0": (False, 0)}
+    next_epoch = 0
+
+    def epochs(label, count):
+        nonlocal state, next_epoch
+        tr.cfg.device_corpus, tr.cfg.prefetch = modes[label]
+        n = k = 0
+        for _ in range(count):
+            for n_real, batch in tr._epoch_batches(loader, next_epoch):
+                state, _ = tr.train_step(state, batch)
+                n, k = n + n_real, k + 1
+            next_epoch += 1
+        torch.cuda.synchronize()
+        return n, k
+
+    turns = {label: [] for label in modes}
+    for label in [*modes, *reversed(modes)]:
+        epochs(label, 1)
+        t0 = time.perf_counter()
+        n, k = epochs(label, 2)
+        turns[label].append((time.perf_counter() - t0, n, k))
+    for label in modes:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, k = epochs(label, 1)
+            wall_p = time.perf_counter() - t0
+        busy = device_busy_ms(prof) / k
+        steps_ms = [w * 1e3 / k_ for w, _, k_ in turns[label]]
+        rate = ", ".join(f"{n_ / w:.1f}" for w, n_, _ in turns[label])
+        phase(f"[11 loop time] {label}, {LOOP_UTTS - LOOP_DEV} utterances "
+              f"of 5-15 s ({long_s:.1f} s of audio): ms a step "
+              f"{', '.join(f'{v:.2f}' for v in steps_ms)} (two turns of 2 "
+              f"epochs, {turns[label][0][2]} steps, host clock), {rate} "
+              f"utt/s; one epoch under torch.profiler: wall "
+              f"{wall_p * 1e3 / k:.2f} ms a step, device busy {busy:.2f} "
+              f"ms a step, idle {100 * (1 - busy * k / (wall_p * 1e3)):.1f}%"
+              f" of that wall, {100 * (1 - busy / np.mean(steps_ms)):.1f}% "
+              f"of the turns' mean [{card}]")
+    shutil.rmtree(tmp, ignore_errors=True)
+
+
 def cli_test_requests(tmp, model, feat_cfg, dev) -> None:
     """Phase 6 for config 2's scoring: python -m tpuasr_torch.cli.test
     resnet_ctc over a manifest of 8 wavs with transcripts written to tmp
@@ -3319,6 +3650,10 @@ def main() -> int:
     # ---- 10. the ResNet-CTC train step (config 2's model) -----------------
     resnet_train_slice(kernels, wrappers, card)
     clock.append(("10", time.perf_counter()))
+
+    # ---- 11. the training loop: batch_train, checkpoints, resume ----------
+    train_loop_slice(kernels, wrappers, card)
+    clock.append(("11", time.perf_counter()))
     phase("[time] seconds by phase (host clock): " + json.dumps(
         {name: round(t - clock[i][1], 1)
          for i, (name, t) in enumerate(clock[1:])}))

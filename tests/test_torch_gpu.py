@@ -1725,3 +1725,56 @@ def test_resnet_on_the_card_matches_the_cpu(dev, train):
     for (name, a), b in zip(card.state_dict().items(),
                             cpu.state_dict().values()):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5, msg=name)
+
+
+def test_fit_device_corpus_on_the_card_matches_the_cpu(dev, tmp_path):
+    """The batches fit takes from the device-resident corpus on the card
+    (two epochs, three buckets, repeat-padded batches) equal the CPU's
+    bit for bit, and stream equally from the loader with prefetch 2."""
+    from tpuasr_torch.data import (AudioLoader, LoaderConfig,
+                                   make_synthetic_corpus)
+    from tpuasr_torch.train import TrainConfig, Trainer
+
+    corpus = make_synthetic_corpus(tmp_path, num_utts=21, vocab_size=6,
+                                   seed=4)
+    cfg = LoaderConfig(batch_size=8, max_label_len=8, max_buckets=3)
+    tc = TrainConfig(model_kwargs=dict(rnn_hidden=16, rnn_layers=1,
+                                       conv_channels=4), num_classes=6)
+    card = Trainer(tc, FeatureConfig(), device=dev)
+    cpu = Trainer(tc, FeatureConfig(), device="cpu")
+    streamed = Trainer(dataclasses.replace(tc, device_corpus=False),
+                       FeatureConfig(), device=dev)
+    loaders = [AudioLoader(corpus.manifest, cfg) for _ in range(3)]
+    for epoch in (0, 1):
+        runs = [list(t._epoch_batches(ld, epoch))
+                for t, ld in zip((card, cpu, streamed), loaders)]
+        assert card._dc[1] is not None and cpu._dc[1] is not None
+        assert len(runs[0]) == len(runs[1]) == len(runs[2]) > 2
+        for (na, a), (nb, b), (nc, c) in zip(*runs):
+            assert na == nb == nc and a["wav"].is_cuda
+            for k in b:
+                assert torch.equal(a[k].cpu(), b[k]), k
+                assert torch.equal(c[k].cpu().to(b[k].dtype), b[k]), k
+
+
+def test_native_wav_reader_on_this_machine(tmp_path):
+    """The native reader builds with this machine's compiler and reads
+    PCM16, float32 and stereo bit for bit as scipy does."""
+    from scipy.io import wavfile
+
+    from tpuasr_torch.data import load_wav
+    from tpuasr_torch.data import native_wav
+
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-0.9, 0.9, size=4001).astype(np.float32)
+    files = {"pcm16": (x * 32767).astype(np.int16), "float32": x,
+             "stereo": (np.stack([x, -x], 1) * 32767).astype(np.int16)}
+    paths = []
+    for name, data in files.items():
+        paths.append(str(tmp_path / f"{name}.wav"))
+        wavfile.write(paths[-1], 8000, data)
+    out, lens, srs = native_wav.load_wav_batch(paths, 5000)
+    for j, p in enumerate(paths):
+        ref, sr = load_wav(p)
+        assert srs[j] == sr and lens[j] == len(ref)
+        np.testing.assert_array_equal(out[j, :lens[j]], ref)

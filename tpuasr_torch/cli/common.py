@@ -1,5 +1,6 @@
-"""Shared CLI plumbing: the flags predict and test share, the feature
-config and the model from an ``.npz`` export, units, LM and WFST loading,
+"""Shared CLI plumbing: the flags the CLIs share, the feature config and
+the model from a checkpoint (JAX's msgpack format, the port's or JAX's) or
+an ``.npz`` export, units, LM and WFST loading,
 fusion tables, the beam-search dispatch with its loud fallback, and the
 decoding graph for ``--graph-decode``.
 
@@ -18,13 +19,14 @@ from tpuasr_torch.models import MODEL_REGISTRY
 
 __all__ = ["add_decode_flags", "add_model_flags", "build_decode_graph",
            "feature_config", "fusion_tables", "load_fst", "load_lm",
-           "load_model", "load_units", "load_wav", "lm_symbols",
-           "make_word_decoder", "out_frames", "run_beam_search",
+           "load_model", "load_units", "load_wav", "load_weights",
+           "lm_symbols", "make_word_decoder", "out_frames", "run_beam_search",
            "tokens_to_text"]
 
 
-def add_model_flags(p: argparse.ArgumentParser) -> None:
-    """The model name, vocabulary, feature and device flags."""
+def add_model_flags(p: argparse.ArgumentParser, serving: bool = True) -> None:
+    """The model name, vocabulary, feature and device flags (and, for the
+    serving CLIs, ``--int8``)."""
     p.add_argument("model", choices=sorted(MODEL_REGISTRY))
     p.add_argument("--units", default=None,
                    help="units file, one token per line (line 0 = <blank>)")
@@ -38,8 +40,9 @@ def add_model_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--feature-type", default="fbank",
                    choices=["fbank", "mfcc", "spectrogram"])
     p.add_argument("--no-cmvn", action="store_true")
-    p.add_argument("--int8", action="store_true",
-                   help="int8 input projections in the GRU kernel")
+    if serving:
+        p.add_argument("--int8", action="store_true",
+                       help="int8 input projections in the GRU kernel")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; an error without a CUDA device) "
                         "or cpu")
@@ -106,16 +109,34 @@ def feature_config(args) -> FeatureConfig:
                          cmn=not no_cmvn, cvn=not no_cmvn)
 
 
+def load_weights(path) -> tuple[dict, dict]:
+    """(Flax variable tree, meta) from a checkpoint that training wrote
+    (``ckpt_*.msgpack``, or a directory: its newest; the port's or JAX's,
+    read by ``train.checkpoints.load_for_inference``) or from a
+    ``convert.save_npz`` export."""
+    from pathlib import Path
+
+    from tpuasr_torch.convert import load_npz
+    from tpuasr_torch.train.checkpoints import load_for_inference
+
+    if Path(path).is_dir() or str(path).endswith(".msgpack"):
+        try:
+            return load_for_inference(path)
+        except FileNotFoundError as e:
+            raise SystemExit(f"checkpoint not found: {e}") from e
+    tree = load_npz(path)
+    return tree, tree.pop("meta", {})
+
+
 def load_model(path, args, units: list[str]):
-    """(model, FeatureConfig, num_classes) from a ``convert.save_npz``
-    export; its metadata (model, num_classes, model_kwargs, feature) wins
-    over the flags. ``--int8`` asks a DeepSpeech model for its int8 GRU
+    """(model, FeatureConfig, num_classes) from ``load_weights(path)``; the
+    metadata (model, num_classes, model_kwargs, feature) wins over the
+    flags, as in JAX. ``--int8`` asks a DeepSpeech model for its int8 GRU
     kernel and exits for a model without a GRU."""
-    from tpuasr_torch.convert import from_jax_variables, load_npz
+    from tpuasr_torch.convert import from_jax_variables
     from tpuasr_torch.models import create_model
 
-    tree = load_npz(path)
-    meta = tree.get("meta", {})
+    tree, meta = load_weights(path)
     num_classes = meta.get("num_classes") or len(units)
     if not num_classes:
         raise SystemExit("weights carry no num_classes; pass --units")

@@ -11,9 +11,11 @@ n-best rescoring (``--fst`` with ``--beam``), word output through a lexicon
 LM). ``--int8`` serves DeepSpeech's int8 GRU kernel; ``capsule1`` (CapsNet,
 routed by the K8 kernel) and ``resnet_ctc`` have no GRU and refuse it.
 ``--feature-type`` picks fbank, MFCC or the spectrogram when the weights'
-metadata carries no feature config. Weights come from
-``tpuasr_torch.convert.save_npz`` output; its metadata (num_classes,
-model_kwargs, feature config) is used when present.
+metadata carries no feature config. ``--weights`` (or ``--checkpoint``,
+``--continue-from``) is a checkpoint that training wrote, JAX's or the
+port's (``ckpt_*.msgpack``, or a checkpoint directory: its newest), or a
+``tpuasr_torch.convert.save_npz`` export; the metadata beside it
+(model, num_classes, model_kwargs, feature config) wins over the flags.
 """
 
 from __future__ import annotations
@@ -37,8 +39,11 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="python -m tpuasr_torch.cli.predict")
     add_model_flags(p)
     p.add_argument("wavs", nargs="+", help="wav files to transcribe")
-    p.add_argument("--weights", required=True,
-                   help=".npz written by tpuasr_torch.convert.save_npz")
+    p.add_argument("--weights", "--checkpoint", "--continue-from",
+                   dest="weights", required=True,
+                   help="a checkpoint file or directory (JAX's msgpack "
+                        "format, written by either package's training) or an "
+                        ".npz written by tpuasr_torch.convert.save_npz")
     p.add_argument("--nbest", type=int, default=1)
     add_decode_flags(p)
     return p

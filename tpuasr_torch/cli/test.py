@@ -11,7 +11,9 @@ with ``--graph-decode`` the word error rate and the count of utterances
 whose best path reached a final state. Decoding: greedy; the beam search
 (``--beam``, ``--beam-impl``) with shallow LM fusion (``--lm-fusion``) or
 n-best rescoring by an ARPA LM (``--lm``) or a WFST (``--fst``); or the
-graph-constrained search (``--graph-decode``). ``--checkpoint`` is the port's ``.npz`` export
+graph-constrained search (``--graph-decode``). ``--checkpoint`` is a
+checkpoint that training wrote, JAX's or the port's (``ckpt_*.msgpack``,
+or a checkpoint directory: its newest), or the port's ``.npz`` export
 (``tpuasr_torch.convert.save_npz``), as predict's ``--weights``.
 
 The JAX command's host-only outputs are not ported and exit with a
@@ -55,7 +57,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="JSON-lines manifest with tokens (and text)")
     p.add_argument("--checkpoint", "--continue-from", dest="checkpoint",
                    required=True,
-                   help=".npz written by tpuasr_torch.convert.save_npz")
+                   help="a checkpoint file or directory (JAX's msgpack "
+                        "format) or an .npz from tpuasr_torch.convert")
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--max-label-len", type=int, default=64)
     add_decode_flags(p)

@@ -85,6 +85,14 @@ def to_jax_variables(state_dict) -> dict:
     return tree
 
 
+def sorted_tree(tree):
+    """``tree`` with every map's keys in sorted order, as JAX's tree
+    functions rebuild dicts (and so as flax writes a parameter tree)."""
+    if isinstance(tree, Mapping):
+        return {k: sorted_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
 def save_npz(tree, path, meta: dict | None = None) -> None:
     """Write a variable tree as .npz with flattened 'params/rnn0/fwd/wx'
     keys; ``meta`` (e.g. num_classes, model_kwargs, feature) rides along as

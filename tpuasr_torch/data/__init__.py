@@ -1,10 +1,15 @@
-"""Host-side data: JSON-lines manifests, length buckets and the bucketed
-batch loader, copies of ``tpuasr/data/{manifest,bucketing,loader}.py``."""
+"""Host-side data: JSON-lines manifests, length buckets, the bucketed
+batch loader and the synthetic tone corpus, copies of
+``tpuasr/data/{manifest,bucketing,loader,synthetic}.py``; the native wav
+reader (``native_wav.py``) and the device-resident corpus
+(``device_corpus.py``)."""
 
 from tpuasr_torch.data.bucketing import BucketSpec, make_buckets
 from tpuasr_torch.data.loader import AudioLoader, LoaderConfig
 from tpuasr_torch.data.manifest import (Utterance, load_wav, read_manifest,
                                         write_manifest)
+from tpuasr_torch.data.synthetic import SyntheticCorpus, make_synthetic_corpus
 
-__all__ = ["AudioLoader", "BucketSpec", "LoaderConfig", "Utterance",
-           "load_wav", "make_buckets", "read_manifest", "write_manifest"]
+__all__ = ["AudioLoader", "BucketSpec", "LoaderConfig", "SyntheticCorpus",
+           "Utterance", "load_wav", "make_buckets", "make_synthetic_corpus",
+           "read_manifest", "write_manifest"]

@@ -2,15 +2,14 @@
 
 Fixed bucket shapes, wav decode on the host, featurization on the device
 afterwards, a deterministic (seeded, resumable by epoch) batch plan, and an
-LRU cache of decoded waveforms under a byte budget. Every wav is read by
-``manifest.load_wav`` (scipy). JAX reads a batch's uncached wavs through
-its native multithreaded reader (``native/wav_batch.cc``) when that
-library is built, and through the same scipy path otherwise; the two are
-bit-identical, so ``native_io`` is accepted here and changes nothing until
-the port builds the native reader (ROADMAP Queue 1 item 5). Per-frame
-labels (``frame_label_cfg``, ``unlabeled_frames``) and waveform
-augmentation (``augment``) are not ported: they raise
-``NotImplementedError``.
+LRU cache of decoded waveforms under a byte budget. With ``native_io`` (the
+default) a batch's uncached wavs are decoded in one call by the native
+multithreaded reader (``data/native_wav.py``, ``native/wav_batch.cc``),
+bit for bit what ``manifest.load_wav`` (scipy) gives; JAX falls back to
+scipy when its library is not built, the port raises instead.
+``native_io=False`` reads every wav by scipy. Per-frame labels
+(``frame_label_cfg``, ``unlabeled_frames``) and waveform augmentation
+(``augment``) are not ported: they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -49,7 +48,7 @@ def _unsupported(cfg: LoaderConfig) -> list[str]:
     bad = {"frame_label_cfg (frame-wise objectives, ROADMAP Queue 1 item 12)":
            cfg.frame_label_cfg is not None,
            "unlabeled_frames (ROADMAP Queue 1 item 12)": cfg.unlabeled_frames,
-           "augment (the training loop, ROADMAP Queue 1 item 5)":
+           "augment (host waveform augmentation, ROADMAP Queue 1 item 5)":
            cfg.augment}
     return [name for name, on in bad.items() if on]
 
@@ -151,9 +150,26 @@ class AudioLoader:
             self._cache_put(u.id, data)
         return data
 
+    def _prefetch(self, utts: list[Utterance]) -> None:
+        """Decode a batch's uncached wavs with the native reader in one
+        call (JAX's rule: only when two or more are uncached)."""
+        if not self.cfg.native_io:
+            return
+        todo = [u for u in utts if self._cache_get(u.id) is None]
+        if len(todo) < 2:
+            return
+        from tpuasr_torch.data.native_wav import load_wav_batch
+        out, lens, srs = load_wav_batch([u.wav for u in todo],
+                                        max(u.num_samples for u in todo))
+        for j, u in enumerate(todo):
+            if srs[j] != u.sample_rate:
+                raise ValueError(f"{u.id}: sr {srs[j]} != {u.sample_rate}")
+            self._cache_put(u.id, out[j, :lens[j]].copy())
+
     def make_batch(self, idxs: list[int]) -> dict:
         self._scratch = {}
         utts = [self.utts[i] for i in idxs]
+        self._prefetch(utts)
         bucket = max(self.buckets.bucket_of(u.num_samples) for u in utts)
         if bucket < 0:
             bucket = len(self.buckets.boundaries) - 1
