@@ -113,13 +113,31 @@ Phases, each fatal on failure:
      K6 and K6b launched; the store on the card; the logged losses finite
      and falling; train and dev rows in metrics.csv; the checkpoints that
      keep=5 leaves, each optimizer state in optax's layout; a second
-     straight run against the first (the leaves that differ, named); with
-     ``torch.backends.cudnn.deterministic`` set, a run of one epoch resumed
-     for the second against a straight run, bit for bit;
+     straight run against the first, and a run of one epoch resumed for
+     the second against the first, each bit for bit with
+     ``torch.backends.cudnn.deterministic`` unset (the convs' backward
+     takes cuDNN's deterministic algorithms itself);
      ``tpuasr_torch.cli.test --checkpoint`` against ``Trainer.evaluate``'s
      greedy tokens; and, on 56 utterances of 5-15 s (config 3's lengths),
      the epoch loop's ms a step, utterances a second and the device's idle
-     share, from the device corpus, and streamed with prefetch 2 and 0.
+     share, from the device corpus, and streamed with prefetch 2 and 0;
+ 12. streaming, config 6 (benchmarks/config6_streaming.py): the 512 x 4
+     unidirectional explicit-pad DeepSpeechCTC, 64 classes, 8 kHz, 64
+     mels, no CMVN. K5 from a carried state h0 (T'=5, B=64 and T'=249,
+     B=16) against its plain version and a chunked run against one run,
+     timed with its bound; one 10 s utterance through StreamingRecognizer
+     in 100 ms chunks, greedy and with the beam, its tokens equal to the
+     offline greedy decode and the one-shot scan search on the card, its
+     log-probs within STREAM_TOL of the offline model's; 64 sessions
+     through BatchedStreamingRecognizer (JAX's measure(): 2 warm-up ticks,
+     30 timed), greedy and beam: the tick's median and p95, the real-time
+     margin and the streams a card holds, launches a tick (K1, K5, K10,
+     K10-rebuild, cuDNN conv calls), one tick's kernels against their
+     plain versions on its own inputs from the carried state (K1, K5 from
+     each layer's h0, the log-probs against the plain path's tick, K10 and
+     its rebuild from the resumed beam), the device's idle share and time
+     by kernel, every slot against a solo stream; one ``python -m
+     tpuasr_torch.cli.stream --beam --timestamps`` request.
 
 Weights are random, made from a seed. The line before the last holds
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}. Without
@@ -677,13 +695,14 @@ def kernel_name(key: str) -> str:
 def device_rows(prof) -> list:
     """The rows of a torch.profiler session's sums by name that are device
     work (kernels, copies, fills). Host-side ranges (aten ops, autograd
-    nodes such as _GRUScanBackward) also carry the device time of the
-    kernels they launched, and CUPTI's own module loading and buffer
-    requests show up as rows with device time: both are left out, so that
-    each kernel counts once."""
+    nodes such as _GRUScanBackward, a schedule's ProfilerStep spans) also
+    carry the device time of the kernels they launched, and CUPTI's own
+    module loading and buffer requests show up as rows with device time:
+    all are left out, so that each kernel counts once."""
     return [e for e in prof.key_averages()
             if e.self_device_time_total > 0
-            and not e.key.startswith(("aten::", "_", "autograd::"))
+            and not e.key.startswith(("aten::", "_", "autograd::",
+                                      "ProfilerStep"))
             and "Loading" not in e.key and "Buffer Request" not in e.key]
 
 
@@ -810,7 +829,7 @@ def check_serving_arm(tag, rec, out, wav_d, lens_d, T_out, wrappers,
     plain = ""
     if plain_timed:
         with plain_path():       # warmed up by the check above
-            prt = cuda_ms(lambda: rec(wav_d, lens_d), 2, warmup=0)
+            prt = cuda_ms(lambda: rec(wav_d, lens_d), 1, warmup=0)
         plain = (f"; plain path {prt:.3f} ms = "
                  f"{audio_s / (prt / 1e3):.1f}x real time")
     phase(f"[{tag}] B={B} x {SECONDS:.0f} s ({audio_s:.0f} s of audio): "
@@ -2399,14 +2418,16 @@ def leaf_diffs(a, b, where="") -> dict:
 
 def device_busy_ms(prof) -> float:
     """The union of the device's busy intervals (kernels, copies, fills)
-    in a torch.profiler session, in ms."""
+    in a torch.profiler session, in ms (a schedule's ProfilerStep spans,
+    which cover a step's idle gaps, left out)."""
     from torch.autograd import DeviceType
 
     spans = sorted(
         (e.time_range.start, e.time_range.end) for e in prof.events()
         if e.device_type == DeviceType.CUDA
         and e.time_range.end > e.time_range.start
-        and "Loading" not in e.name and "Buffer Request" not in e.name)
+        and "Loading" not in e.name and "Buffer Request" not in e.name
+        and not e.name.startswith("ProfilerStep"))
     busy, end = 0.0, -np.inf
     for s0, s1 in spans:
         if s1 <= end:
@@ -2423,8 +2444,8 @@ def train_loop_slice(kernels, wrappers, card) -> None:
     3e-4, clip 5) at batch 16, with the fused featurizer, SpecAugment,
     accumulation over 2 micro-batches and the device-resident corpus, on a
     synthetic corpus; its checkpoints, two straight runs against each
-    other, a resumed run against a straight one (bit for bit, with cuDNN's
-    deterministic algorithms), ``test --checkpoint`` against
+    other and a resumed run against a straight one (bit for bit, cuDNN's
+    switch unset), ``test --checkpoint`` against
     ``Trainer.evaluate``, and the epoch loop's time at config 3's lengths
     with and without the prefetch thread."""
     from tpuasr_torch.cli import batch_train
@@ -2531,41 +2552,37 @@ def train_loop_slice(kernels, wrappers, card) -> None:
           f"{', '.join(map(str, saved))}), each opt_state in optax's "
           "MultiSteps(chain(clip, adamw)) layout")
 
-    # Determinism, then resume. A second straight run shows whether the
-    # card's step repeats: cuDNN's default conv weight-gradient backward
-    # sums in an order that can change from run to run. Resume is then
-    # gated bit for bit with torch.backends.cudnn.deterministic set (the
-    # caller's switch; the port leaves cuDNN's choice alone): a straight
-    # run, a run of one epoch, and that run's final checkpoint (epoch 1,
-    # the middle of the straight run) resumed for the second epoch. JAX's
+    # Determinism, then resume, both bit for bit with cuDNN's switch left
+    # as the caller has it (unset): the convs' backward takes cuDNN's
+    # deterministic algorithms itself (models/layers.py::_Conv2d). A
+    # second straight run against the first; then a run of one epoch, and
+    # that run's final checkpoint (epoch 1, the middle of the straight run)
+    # resumed for the second epoch, against the first straight run. JAX's
     # resume restarts the saved epoch from its first batch, so only a
     # checkpoint written at an epoch's end (the final one, whose meta names
     # the next epoch) continues the straight run batch for batch.
     def final(name):
         return unpackb(latest_checkpoint(tmp / name / "ckpt").read_bytes())
 
+    if torch.backends.cudnn.deterministic:
+        fail("[11] torch.backends.cudnn.deterministic is set: the gate is "
+             "for the step as callers run it")
     train("a2", "--num-epochs", "2")
     d_twice = leaf_diffs(final("a"), final("a2"))
     top = sorted(d_twice.items(), key=lambda kv: -kv[1])[:8]
-    phase(f"[11 determinism] two straight runs (cuDNN's default "
-          f"algorithms): {len(d_twice)} leaves differ; largest {top}"
-          + (" (the op: cuDNN's conv weight-gradient backward, "
-             "tools/train_determinism.py)" if d_twice else ""))
-    prev = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        train("s", "--num-epochs", "2")
-        train("b", "--num-epochs", "1")
-        train("c", "--num-epochs", "2", "--continue-from",
-              str(tmp / "b" / "ckpt"))
-    finally:
-        torch.backends.cudnn.deterministic = prev
-    fs, fc = final("s"), final("c")
+    phase(f"[11 determinism] two straight runs, cudnn.deterministic unset: "
+          f"{len(d_twice)} leaves differ (largest {top}); gate: bit for bit")
+    if d_twice:
+        fail(f"[11] two straight runs differ: {top}")
+    train("b", "--num-epochs", "1")
+    train("c", "--num-epochs", "2", "--continue-from",
+          str(tmp / "b" / "ckpt"))
+    fs, fc = final("a"), final("c")
     if not (int(fs["step"]) == int(fc["step"]) == 2 * steps):
         fail(f"[11] final steps {int(fs['step'])} {int(fc['step'])}")
     d_resume = leaf_diffs(fs, fc)
-    phase(f"[11 resume] step {int(fc['step'])}, cudnn.deterministic: the "
-          f"resumed run against the straight run: {len(d_resume)} leaves "
+    phase(f"[11 resume] step {int(fc['step'])}, cudnn.deterministic unset: "
+          f"the resumed run against the straight run: {len(d_resume)} leaves "
           f"differ (max {max(d_resume.values(), default=0.0):.3e}); gate: "
           "bit for bit")
     if d_resume:
@@ -3110,6 +3127,399 @@ def config1_featurizer(dev, card) -> int:
     return launches
 
 
+# Phase 12, config 6 (benchmarks/config6_streaming.py:26-42): 64 lockstep
+# sessions of 100 ms chunks on the 512 x 4 unidirectional explicit-pad
+# DeepSpeechCTC, 64 classes, 8 kHz, 64 mels, no CMVN; greedy and the beam
+# (beam_width 8, class_topk 8); 2 warm-up ticks, then 30 timed. The solo
+# stream is one utterance of STREAM_SECONDS. The seeded head is scaled by
+# STREAM_HEAD_SCALE: at the init scale the top two log-probs of a frame lie
+# close enough that the chunked and the whole-utterance computations,
+# float32 sums in other orders, could flip a near tie. STREAM_TOL bounds
+# the stream's log-probs against the offline model's on the same audio
+# (both run K1, cuDNN's fp32 convs at other lengths, the GRU projection as
+# a matmul against K2's f32 tiles): tighter than phase 4's 5e-2, as
+# nothing here rounds to bf16 or int8. K5_H0_TOL bounds K5 from h0 against
+# its plain version (the f32 GRU kernels' 1e-4).
+STREAM_N = 64
+STREAM_CHUNK = SR * 100 // 1000
+STREAM_TICKS = 30
+STREAM_WARMUP = 2
+STREAM_SECONDS = 10.0
+STREAM_HEAD_SCALE = 8.0
+STREAM_TOL = 1e-3
+K5_H0_TOL = 1e-4
+
+
+def k5_from_h0(record, gru_mod, gen, card) -> None:
+    """K5 (gru_scan_fwd) from a carried state h0 at the streaming tick's
+    T'=5, B=64, H=512 and at T'=249, B=16: against gru_scan_plain from the
+    same h0, and a run over two chunks (the second from the first's last
+    state) against one run over the concatenated steps; the tick's shape
+    timed with its bound, beside the plain version and cuDNN's GRU."""
+    dev = torch.device("cuda")
+    H = HIDDEN
+    for Tn, Bn in ((5, STREAM_N), (249, TRAIN_B)):
+        xp = torch.randn(2 * Tn, Bn, 3 * H, generator=gen).to(dev)
+        wh = (torch.randn(H, 3 * H, generator=gen) / H ** 0.5).to(dev)
+        h0 = (torch.randn(Bn, H, generator=gen) * 0.5).to(dev)
+        mask = torch.ones(2 * Tn, Bn, 1, device=dev)
+        whole = gru_mod.gru_scan_fwd(xp, wh, mask, h0=h0)
+        want = gru_mod.gru_scan_plain(xp, wh, mask, h0=h0)
+        first = gru_mod.gru_scan_fwd(xp[:Tn], wh, mask[:Tn], h0=h0)
+        second = gru_mod.gru_scan_fwd(xp[Tn:], wh, mask[Tn:],
+                                      h0=first[-1])
+        chunked = torch.cat([first, second])
+        err = (whole - want).abs().max().item()
+        err_c = (chunked - whole).abs().max().item()
+        timing = ""
+        if Tn == 5:
+            args = (xp[:Tn], wh, mask[:Tn])
+            ms = queued_ms(lambda: gru_mod.gru_scan_fwd(*args, h0=h0), 50)
+            pms = cuda_ms(lambda: gru_mod.gru_scan_plain(*args, h0=h0), 3)
+            bd = bound(nbytes(*args, h0, whole[:Tn]),
+                       2 * Tn * Bn * H * 3 * H, "fp32")
+            lib = library_gru_ms(Tn, Bn, H, H, torch.float32, False, 20)
+            timing = (f"; kernel {ms:.4f} ms a call (queued) plain "
+                      f"{pms:.3f} ms bound {bd[0]:.5f} ms ({bd[1]}) "
+                      f"torch.nn.GRU f32 {lib:.4f} ms (with its input "
+                      f"projection) [{card}]")
+        phase(f"[12 K5 h0] gru_scan_fwd from h0 T={2 * Tn} B={Bn} H={H}: "
+              f"max_abs_err {err:.3e} (tol {K5_H0_TOL}); two chunks of "
+              f"{Tn} (the second from the first's last state) against one "
+              f"run: max_abs_err {err_c:.3e} (tol {K5_H0_TOL}), bit for bit "
+              f"{torch.equal(chunked, whole)}{timing}")
+        if not (err <= K5_H0_TOL and err_c <= K5_H0_TOL):
+            fail(f"K5 from h0 disagrees at T={Tn} B={Bn}")
+        record("K5", "gru_scan_fwd", "tpuasr_torch/csrc/gru_bidir.cu",
+               "tpuasr/ops/pallas_gru.py:163", max(err, err_c))
+
+
+def stream_model(dev):
+    """Config 6's model: the unidirectional explicit-pad DeepSpeechCTC at
+    full width, seeded, its head scaled by STREAM_HEAD_SCALE."""
+    from tpuasr_torch.models import create_model
+
+    model = create_model("deepspeech_ctc", num_classes=NUM_CLASSES,
+                         rnn_hidden=HIDDEN, rnn_layers=LAYERS,
+                         bidirectional=False, explicit_pad=True,
+                         in_features=64,
+                         generator=torch.Generator().manual_seed(SEED + 6))
+    with torch.no_grad():
+        model.head.weight.mul_(STREAM_HEAD_SCALE)
+    return model.to(dev)
+
+
+def stream_tick_check(rec, tick, plain_path, record, dec) -> None:
+    """One tick of the 64 slots from their carried state (queues, GRU
+    states, beams after the timed ticks), its kernels held against their
+    plain versions on the inputs the tick gives them: K1 on the tick's
+    samples (log-mel within the fbank gate, 1e-3), K5 on each layer's xp
+    from its carried h0 (K5_H0_TOL), the tick's log-probs against the same
+    tick run by the plain path (plain_path, every kernel's plain version)
+    from a copy of the state (STREAM_TOL; greedy tokens exact), and in beam
+    mode K10 and K10-rebuild against scan_search_plain and
+    rebuild_prefixes_plain from the tick's resumed beam state on the
+    kernels' log-probs (phase 3's gates: tokens and the integer state,
+    prefixes included, exact; scores within 1e-4)."""
+    import copy
+
+    from tpuasr_torch.decode import prefix_beam as pbm
+    from tpuasr_torch.features import fused as fused_mod
+    from tpuasr_torch.ops import gru as gru_mod
+    from tpuasr_torch.serve import streaming as streaming_mod
+
+    s = rec._s
+    memo = {id(m): m for m in s.model.modules()}
+    memo[id(s.feat)] = s.feat
+    twin = copy.deepcopy(rec, memo)
+    seen = {k: [] for k in ("K1", "K5", "beam", "logp", "plain")}
+
+    def spy(key, fn):
+        def call(*a, **k):
+            out = fn(*a, **k)
+            seen[key].append((a, k, out))
+            return out
+        return call
+
+    with mock.patch.object(s.feat, "power_spectrum",
+                           spy("K1", s.feat.power_spectrum)), \
+            mock.patch.object(streaming_mod, "gru_scan_fwd",
+                              spy("K5", streaming_mod.gru_scan_fwd)), \
+            mock.patch.object(streaming_mod, "ctc_beam_search",
+                              spy("beam", streaming_mod.ctc_beam_search)), \
+            mock.patch.object(s, "advance", spy("logp", s.advance)):
+        toks = rec.feed(tick)
+    with plain_path(), mock.patch.object(twin._s, "advance",
+                                         spy("plain", twin._s.advance)):
+        plain_toks = twin.feed(tick)
+    (wav, T), _, power = seen["K1"][0]
+    floor = rec.cfg.log_floor
+    ref = fused_mod.fbank_power_plain(wav, s.feat.tables, rec.cfg.hop_length,
+                                      T)
+    e1 = (torch.log(power.clamp(min=floor))
+          - torch.log(ref.clamp(min=floor))).abs().max().item()
+    e5 = max((ys - gru_mod.gru_scan_plain(*a, **k)).abs().max().item()
+             for a, k, ys in seen["K5"])
+    lp, plp = seen["logp"][0][2], seen["plain"][0][2]
+    e_lp = (lp - plp).abs().max().item()
+    ok = (e1 <= 1e-3 and e5 <= K5_H0_TOL and e_lp <= STREAM_TOL
+          and len(seen["K5"]) == LAYERS)
+    what = (f"K1 on wav {tuple(wav.shape)} -> T={T}: log-mel max_abs_err "
+            f"{e1:.3e} (tol 1e-3); K5 on {len(seen['K5'])} layers' xp "
+            f"{tuple(seen['K5'][0][0][0].shape)} from their carried h0: "
+            f"max_abs_err {e5:.3e} (tol {K5_H0_TOL}); log-probs "
+            f"{tuple(lp.shape)} against the plain path's tick from a copy "
+            f"of the state: max_abs_err {e_lp:.3e} (tol {STREAM_TOL})")
+    record("K1", "fbank_power", "tpuasr_torch/csrc/fbank.cu",
+           "tpuasr/features/pallas_fused.py:109", e1)
+    record("K5", "gru_scan_fwd", "tpuasr_torch/csrc/gru_bidir.cu",
+           "tpuasr/ops/pallas_gru.py:163", e5)
+    if dec == "greedy":
+        same = toks == plain_toks
+        what += f"; greedy tokens equal the plain path's: {same}"
+        ok &= same
+    else:
+        (lp_in, lens, cfg), kw, got = seen["beam"][0]
+        with plain_path():
+            want = pbm.ctc_beam_search(lp_in, lens, cfg, **kw)
+        pairs = {n: (got["state"][n], want["state"][n])
+                 for n in got["state"]}
+        pairs.update((n, (got[n], want[n])) for n in ("tokens", "token_lens"))
+        same = {n: torch.equal(a, b) for n, (a, b) in pairs.items()
+                if not a.is_floating_point()}
+        e10 = max((a - b).abs().max().item() for a, b in pairs.values()
+                  if a.is_floating_point())
+        what += (f"; K10 + K10-rebuild (B={lp_in.shape[0]} T'="
+                 f"{lp_in.shape[1]} K={cfg.beam_width} P={cfg.class_topk}) "
+                 f"from the resumed beam state against the plain search on "
+                 f"the same log-probs: equal (tol: exact) "
+                 f"{json.dumps(same)}; scores max_abs_err {e10:.3e} (tol "
+                 f"1e-4)")
+        ok &= all(same.values()) and e10 <= 1e-4
+        record("K10", "scan_search (the scan search's frame loop, with the "
+               "graph row fetch inside)", "tpuasr_torch/csrc/scan_beam.cu",
+               "tpuasr/ops/pallas_gather.py:82", e10)
+    phase(f"[12 tick {dec}] one tick of {STREAM_N} slots against the "
+          f"plain versions: {what}")
+    if not ok:
+        fail(f"[12] a {dec} tick's kernels disagree with their plain "
+             f"versions")
+
+
+def streaming_slice(record, kernels, wrappers, card, plain_path) -> None:
+    """Phase 12: config 6 on the card. K5 from h0; one utterance through
+    StreamingRecognizer in 100 ms chunks, greedy and with the beam, against
+    the offline model and the one-shot scan search on the same audio; 64
+    sessions through BatchedStreamingRecognizer (2 warm-up ticks, then 30
+    timed: the tick's median and p95, the real-time margin, device time by
+    kernel, the device's idle share, launches a tick), every slot against
+    a solo recognizer; one ``python -m tpuasr_torch.cli.stream --beam
+    --timestamps`` request."""
+    from scipy.io import wavfile
+    from tpuasr_torch.cli import stream as stream_cli
+    from tpuasr_torch.convert import to_jax_variables
+    from tpuasr_torch.decode import (BeamSearchConfig, ctc_beam_search_xla,
+                                     greedy_decode)
+    from tpuasr_torch.features import FeatureConfig, FusedFeaturizer
+    from tpuasr_torch.ops import gru as gru_mod
+    from tpuasr_torch.serve import (BatchedStreamingRecognizer,
+                                    StreamingRecognizer)
+    from tpuasr_torch.train.checkpoints import save_checkpoint
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 12)
+    k5_from_h0(record, gru_mod, gen, card)
+
+    feat_cfg = FeatureConfig(sample_rate=SR, n_mels=64, cmn=False, cvn=False)
+    model = stream_model(dev)
+    bcfg = BeamSearchConfig(beam_width=BEAM, class_topk=8)
+    rng = np.random.default_rng(SEED)
+    # benchmarks/config6_streaming.py:46-47: a seeded normal x 0.1.
+    audio = (rng.standard_normal((STREAM_N, STREAM_CHUNK * (
+        STREAM_WARMUP + STREAM_TICKS + 6))) * 0.1).astype(np.float32)
+    utt = (rng.standard_normal(int(SR * STREAM_SECONDS)) * 0.1).astype(
+        np.float32)
+    counted = ("K1", "K5", "K10", "K10-rebuild")
+    conv2d = torch.nn.functional.conv2d
+    convs = [0]
+
+    def counted_conv2d(*a, **k):
+        convs[0] += 1
+        return conv2d(*a, **k)
+
+    # The offline model and the one-shot scan search on the utterance.
+    with torch.inference_mode():
+        fz = FusedFeaturizer(feat_cfg, dev)
+        wav_d = torch.as_tensor(utt[None], device=dev)
+        feats, flens = fz.featurize(wav_d, torch.tensor([len(utt)],
+                                                        device=dev))
+        logp, out_lens = model(feats, flens)
+        toks, tlens = greedy_decode(logp, out_lens)
+        off_greedy = toks[0, :int(tlens[0])].tolist()
+        ref = ctc_beam_search_xla(logp, out_lens, bcfg)
+        off_beam = ref["tokens"][0, 0, :int(ref["token_lens"][0, 0])].tolist()
+    T_off = int(out_lens[0])
+
+    # Solo: the utterance in 100 ms chunks, greedy and with the beam.
+    for dec in ("greedy", "beam"):
+        rec = StreamingRecognizer(model, feat_cfg, decode=dec,
+                                  beam_cfg=bcfg if dec == "beam" else None,
+                                  keep_logp=True, device=dev)
+        t0 = time.perf_counter()
+        for s in range(0, len(utt), STREAM_CHUNK):
+            rec.feed(utt[s:s + STREAM_CHUNK])
+        rec.flush()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        hist = np.concatenate(rec.logp_history)
+        err = (float(np.abs(hist - logp[0, :T_off].cpu().numpy()).max())
+               if hist.shape == (T_off, NUM_CLASSES) else float("inf"))
+        want = off_greedy if dec == "greedy" else off_beam
+        what = ("greedy decode" if dec == "greedy"
+                else "one-shot scan search")
+        phase(f"[12 solo {dec}] {STREAM_SECONDS:.0f} s in "
+              f"{len(utt) // STREAM_CHUNK} chunks of 100 ms in {secs:.2f} s "
+              f"(host clock): {len(rec.tokens)} tokens, equal to the "
+              f"offline {what} ({len(want)} tokens): {rec.tokens == want}; "
+              f"log-probs {hist.shape} against the offline model's "
+              f"max_abs_err {err:.3e} (tol {STREAM_TOL})")
+        if rec.tokens != want or not err <= STREAM_TOL:
+            fail(f"[12] solo {dec} stream disagrees with the offline path")
+
+    # Batched: JAX's measure() (config6_streaming.py:53-70), then one tick
+    # more under torch.profiler, then every slot against a solo stream.
+    def chunk_of(i, t):
+        return audio[i, t * STREAM_CHUNK:(t + 1) * STREAM_CHUNK]
+
+    for dec in ("greedy", "beam"):
+        rec = BatchedStreamingRecognizer(
+            model, feat_cfg, STREAM_N, decode=dec,
+            beam_cfg=bcfg if dec == "beam" else None, device=dev)
+        for t in range(STREAM_WARMUP):
+            rec.feed({i: chunk_of(i, t) for i in range(STREAM_N)})
+        lat = []
+        for w in wrappers.values():
+            w.launches = 0
+        convs[0] = 0
+        with mock.patch.object(torch.nn.functional, "conv2d", counted_conv2d):
+            for t in range(STREAM_WARMUP, STREAM_WARMUP + STREAM_TICKS):
+                tick = {i: chunk_of(i, t) for i in range(STREAM_N)}
+                t0 = time.perf_counter()
+                rec.feed(tick)
+                lat.append(time.perf_counter() - t0)
+        counts = {k: wrappers[k].launches for k in counted}
+        for k in counted:
+            kernels[k]["launches"] += counts[k]
+        want = {"K1": 1, "K5": LAYERS,
+                "K10": int(dec == "beam"), "K10-rebuild": int(dec == "beam")}
+        per = {k: counts[k] / STREAM_TICKS for k in counted}
+        lat = np.array(lat) * 1e3
+        med, p95 = float(np.median(lat)), float(np.quantile(lat, 0.95))
+        margin = 100.0 / med
+        phase(f"[12 batched {dec}] {STREAM_N} streams x 100 ms chunks, "
+              f"{STREAM_TICKS} ticks after {STREAM_WARMUP}: tick median "
+              f"{med:.3f} ms, p95 {p95:.3f} ms (host clock around feed, "
+              f"which syncs once); real-time margin {margin:.1f}x, "
+              f"{int(STREAM_N * margin)} streams a card at real time; "
+              f"launches a tick {json.dumps(per)}, cuDNN conv calls a tick "
+              f"{convs[0] / STREAM_TICKS} [{card}]")
+        if per != {k: float(v) for k, v in want.items()} or \
+                convs[0] != 2 * STREAM_TICKS:
+            fail(f"[12] {dec} launches a tick {per} != {want}, or cuDNN "
+                 f"convs {convs[0]} != {2 * STREAM_TICKS}")
+        # One tick fed outside the profiler (held against the plain
+        # versions), one as the profiler's warm-up step (it drops a
+        # session's first device records), then 4 kept.
+        ticks = range(STREAM_WARMUP + STREAM_TICKS,
+                      STREAM_WARMUP + STREAM_TICKS + 6)
+        kept = len(ticks) - 2
+        stream_tick_check(rec, {i: chunk_of(i, ticks[0])
+                                for i in range(STREAM_N)},
+                          plain_path, record, dec)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=kept,
+                                       repeat=1)) as prof:
+            for j, t in enumerate(ticks[1:]):
+                if j == 1:
+                    t0 = time.perf_counter()
+                rec.feed({i: chunk_of(i, t) for i in range(STREAM_N)})
+                torch.cuda.synchronize()
+                prof.step()
+            wall = (time.perf_counter() - t0) * 1e3 / kept
+        busy = device_busy_ms(prof) / kept
+        rows = sorted(((e.self_device_time_total, e.count, e.key)
+                       for e in device_rows(prof)), reverse=True)
+        parts = "; ".join(f"{us / 1e3 / kept:.3f} ms x{n / kept:g} "
+                          f"{kernel_name(name)}" for us, n, name in rows[:10])
+        phase(f"[12 batched {dec}] {kept} ticks under torch.profiler (after "
+              f"a warm-up step): wall {wall:.3f} ms a tick, device busy "
+              f"{busy:.3f} ms, idle {100 * (1 - busy / wall):.1f}% of that "
+              f"wall, {100 * (1 - busy / med):.1f}% of the untraced tick "
+              f"median [{card}]")
+        phase(f"[12 batched {dec}] device time of a tick by kernel (the "
+              f"mean of {kept}): total "
+              f"{sum(r[0] for r in rows) / 1e3 / kept:.3f} ms in "
+              f"{sum(r[1] for r in rows) / kept:g} launches; {parts}")
+        n_fed = ticks[-1] + 1
+        # Every slot against a solo stream fed the same chunks: the running
+        # hypotheses, then the flushed ones.
+        bad = []
+        running = [list(x) for x in rec.tokens]
+        finals = [rec.flush(i) for i in range(STREAM_N)]
+        finals = finals if dec == "beam" else [list(x) for x in rec.tokens]
+        solo = StreamingRecognizer(model, feat_cfg, decode=dec,
+                                   beam_cfg=bcfg if dec == "beam" else None,
+                                   device=dev)
+        for i in range(STREAM_N):
+            solo.reset()
+            for t in range(n_fed):
+                solo.feed(chunk_of(i, t))
+            r = list(solo.tokens)
+            solo.flush()
+            if r != running[i] or list(solo.tokens) != finals[i]:
+                bad.append(i)
+        phase(f"[12 batched {dec}] every slot's tokens (running after "
+              f"{n_fed} ticks, then flushed) equal a solo stream's on the "
+              f"same audio: {not bad} (slots apart: {bad}; "
+              f"{sum(map(len, finals))} tokens in all)")
+        if bad:
+            fail(f"[12] batched {dec} slots {bad} differ from solo streams")
+
+    # One request through the CLI, in this process.
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        wavfile.write(tmp / "s.wav", SR,
+                      np.clip(utt * 32768, -32768, 32767).astype(np.int16))
+        state = to_jax_variables({k: v.cpu()
+                                  for k, v in model.state_dict().items()})
+        save_checkpoint(tmp / "ckpt", dict(step=np.int32(0), **state), 0,
+                        meta=dict(model="deepspeech_ctc",
+                                  num_classes=NUM_CLASSES,
+                                  model_kwargs=dict(
+                                      rnn_hidden=HIDDEN, rnn_layers=LAYERS,
+                                      bidirectional=False,
+                                      explicit_pad=True),
+                                  feature=dataclasses.asdict(feat_cfg)))
+        (tmp / "units.txt").write_text("\n".join(UNITS))
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = stream_cli.main([str(tmp / "s.wav"), "--checkpoint",
+                                  str(tmp / "ckpt"), "--units",
+                                  str(tmp / "units.txt"), "--chunk-ms",
+                                  "100", "--beam", "--timestamps",
+                                  "--device", "cuda"])
+        lines = buf.getvalue().strip().splitlines()
+    phase(f"[12 cli stream --beam --timestamps] rc={rc}, {len(lines)} "
+          f"lines in {time.perf_counter() - t0:.2f} s (host clock, load "
+          f"included); last: {lines[-2][:80]!r} / {lines[-1][:80]!r}")
+    if rc != 0 or not lines[-2].startswith("# transcript: p") or \
+            not lines[-1].startswith("# align: p"):
+        fail(f"[12] cli stream output: {lines[-3:]}")
+
+
 def main() -> int:
     # ---- 1. environment -------------------------------------------------
     clock = [("start", time.perf_counter())]     # (phase, its end)
@@ -3145,6 +3555,7 @@ def main() -> int:
     from tpuasr_torch.ops import gru as gru_mod
     from tpuasr_torch.ops import routing as routing_mod
     from tpuasr_torch.ops.quant import quantize_per_channel
+    from tpuasr_torch.serve import streaming as streaming_mod
     from tpuasr_torch.serve.offline import Recognizer
 
     # ---- 2. build ---------------------------------------------------------
@@ -3440,6 +3851,7 @@ def main() -> int:
          lambda *a: conv_mod.reference_q8_conv_taps(
              *a, mode=conv_mod.resolve_mode(None))),
         (gru_mod, "gru_scan_bidir_fwd", gru_mod.gru_scan_bidir_plain),
+        (streaming_mod, "gru_scan_fwd", gru_mod.gru_scan_plain),
         (beam_mod, "beam_scan", beam_mod.beam_scan_plain),
         (beam_mod, "backtrack", beam_mod.backtrack_plain),
         (prefix_beam_mod, "scan_search", prefix_beam_mod.scan_search_plain),
@@ -3511,9 +3923,12 @@ def main() -> int:
     # identical features.
     for arm, rec in recs.items():
         with conv_body(arm):
+            # K9's other bodies share the int8 + int8_conv arm's plain
+            # path: checked against it, its time not taken again.
             check_serving_arm(f"4 slice {arm}", rec, outs[arm], wav_d,
                               lens_d, T_out, wrappers, plain_path, card,
-                              tol=5e-2, am_tol=5e-2)
+                              tol=5e-2, am_tol=5e-2,
+                              plain_timed="/" not in arm)
 
     # The conv frontend alone (both convs, their norms and ReLUs) on the
     # same features: cuDNN fp32 against conv1 in cuDNN and conv2 as K9.
@@ -3654,9 +4069,14 @@ def main() -> int:
     # ---- 11. the training loop: batch_train, checkpoints, resume ----------
     train_loop_slice(kernels, wrappers, card)
     clock.append(("11", time.perf_counter()))
+
+    # ---- 12. streaming (config 6) ------------------------------------------
+    streaming_slice(record, kernels, wrappers, card, plain_path)
+    clock.append(("12", time.perf_counter()))
     phase("[time] seconds by phase (host clock): " + json.dumps(
         {name: round(t - clock[i][1], 1)
-         for i, (name, t) in enumerate(clock[1:])}))
+         for i, (name, t) in enumerate(clock[1:])})
+        + f"; {clock[-1][1] - clock[0][1]:.1f} s in all")
 
     order = ("K1", "K1b", "K2", "K2-f32", "K4", "K9", "K9-taps", "K9-slab",
              "K7", "K7-f32", "K3", "K3-LM", "K3-backtrack", "K10",

@@ -817,6 +817,31 @@ def test_k5_one_direction(dev, H, B, reverse):
 
 
 @pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("H,B", [(40, 7), (512, 64), (640, 16), (1056, 3)])
+def test_k5_from_h0(dev, H, B, reverse):
+    """K5 from a carried state h0 (streaming) against gru_scan_plain from
+    the same h0 within 1e-5 on ragged rows (a row of length 0 keeps h0 at
+    every step); a run over two chunks, the second from the first's last
+    state, equals one run bit for bit."""
+    xp, wh, mask, _ = _scan_case(dev, H, B, T=9)
+    g = torch.Generator().manual_seed(5)
+    h0 = (torch.randn(B, H, generator=g) * 0.5).to(dev)
+    with full_fp32():
+        got = gru_scan_fwd(xp, wh, mask, reverse, h0=h0)
+        want = gru_scan_plain(xp, wh, mask, reverse, h0=h0)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+        if B > 3:
+            assert torch.equal(got[:, 3], h0[3].expand(9, H))
+        if reverse:
+            b = gru_scan_fwd(xp[4:], wh, mask[4:], True, h0=h0)
+            a = gru_scan_fwd(xp[:4], wh, mask[:4], True, h0=b[0])
+        else:
+            a = gru_scan_fwd(xp[:4], wh, mask[:4], h0=h0)
+            b = gru_scan_fwd(xp[4:], wh, mask[4:], h0=a[-1])
+        assert torch.equal(torch.cat([a, b]), got)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("H,B", [(512, 16), (384, 64)])
 def test_k5_trained_length(dev, H, B, reverse):
     """K5 at the trained length (T=249) within 1e-4, chip_smoke's gate

@@ -1,6 +1,6 @@
 """Find which operations of the float32 train step differ from run to run.
 
-    python3 tools/train_determinism.py [--time] [--out FILE]
+    python3 tools/train_determinism.py [--out FILE]
 
 Config 3's model (the deepspeech_ctc preset: 512 x 4 BiGRU, float32,
 TF32 off) with the fused featurizer, on two seeded batches of B=16
@@ -10,17 +10,17 @@ same training forward and backward runs twice from the same weights, and
 the loss and every parameter's gradient are compared bit for bit (the
 parameters that differ and their largest |difference| are printed):
 
-  default          the port as it runs (cuDNN picks its algorithms);
+  default          the port as it runs (cuDNN picks its forward
+                   algorithms; the convs' backward takes its
+                   deterministic ones, models/layers.py::_Conv2d);
   cudnn.deterministic
                    torch.backends.cudnn.deterministic = True.
 
 Then one step under torch.use_deterministic_algorithms(True,
 warn_only=True), which names the operations PyTorch knows to be
-nondeterministic. --time times ``Trainer.train_step`` with each setting in
-turns (default, deterministic, deterministic, default; the mean of 10
-steps after 2 warm-up steps, CUDA events) at both batches and at config
-3's B=64. Prints the card's name and power limit first; --out writes the
-results as JSON. Needs one CUDA card and nvcc.
+nondeterministic. Prints the card's name and power limit first; --out
+writes the results as JSON. Needs one CUDA card and nvcc. The step's cost
+against another checkout is ``tools/train_step_time.py``'s.
 """
 
 from __future__ import annotations
@@ -42,35 +42,17 @@ SR = 8000
 B = 16
 
 
-def make_batch(seconds: float, U: int, C: int, seed: int,
-               n: int = B) -> dict:
+def make_batch(seconds: float, U: int, C: int, seed: int) -> dict:
     rng = np.random.default_rng(seed)
     S = int(SR * seconds)
-    lens = np.linspace(S // 2, S, n).astype(np.int32)
-    wav = (rng.standard_normal((n, S)) * 0.2).astype(np.float32)
+    lens = np.linspace(S // 2, S, B).astype(np.int32)
+    wav = (rng.standard_normal((B, S)) * 0.2).astype(np.float32)
     for i, m in enumerate(lens):
         wav[i, m:] = 0.0
     return dict(wav=wav, wav_lens=lens,
-                tokens=rng.integers(1, C, (n, U)).astype(np.int32),
-                token_lens=np.full((n,), U, np.int32),
-                real=np.ones((n,), bool))
-
-
-def step_ms(trainer, batch, steps: int = 10) -> float:
-    """Mean ms of ``steps`` train steps after 2 warm-up steps (CUDA
-    events), from a fresh state."""
-    state = trainer.init_state()
-    for _ in range(2):
-        state, _ = trainer.train_step(state, batch)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(steps):
-        state, _ = trainer.train_step(state, batch)
-    end.record()
-    torch.cuda.synchronize()
-    return round(start.elapsed_time(end) / steps, 3)
+                tokens=rng.integers(1, C, (B, U)).astype(np.int32),
+                token_lens=np.full((B,), U, np.int32),
+                real=np.ones((B,), bool))
 
 
 def gradients(trainer, state, batch):
@@ -100,7 +82,6 @@ def compare(trainer, state, batch) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--time", action="store_true")
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -140,20 +121,6 @@ def main() -> int:
         results[f"{name}, flagged"] = named
         print(f"{name}: operations PyTorch flags as nondeterministic: "
               f"{named}", flush=True)
-    if args.time:
-        batches["config 3 (5 s, U=24, B=64)"] = make_batch(5.0, 24, C, 2,
-                                                          n=64)
-        for name, batch in batches.items():
-            ms = {"default": [], "cudnn.deterministic": []}
-            for setting in ("default", "cudnn.deterministic",
-                            "cudnn.deterministic", "default"):
-                torch.backends.cudnn.deterministic = setting != "default"
-                ms[setting].append(step_ms(trainer, batch))
-            torch.backends.cudnn.deterministic = False
-            results[f"{name}, step ms"] = ms
-            print(f"{name}: train step ms, default {ms['default']}, "
-                  f"cudnn.deterministic {ms['cudnn.deterministic']} "
-                  f"[{card}]", flush=True)
     if args.out:
         Path(args.out).write_text(json.dumps(results, indent=1))
     return 0

@@ -17,7 +17,8 @@ from tpuasr_torch.data.manifest import load_wav
 from tpuasr_torch.features import FeatureConfig, num_frames
 from tpuasr_torch.models import MODEL_REGISTRY
 
-__all__ = ["add_decode_flags", "add_model_flags", "build_decode_graph",
+__all__ = ["add_decode_flags", "add_lm_flags", "add_model_flags",
+           "build_decode_graph",
            "feature_config", "fusion_tables", "load_fst", "load_lm",
            "load_model", "load_units", "load_wav", "load_weights",
            "lm_symbols", "make_word_decoder", "out_frames", "run_beam_search",
@@ -60,6 +61,12 @@ def add_decode_flags(p: argparse.ArgumentParser) -> None:
                    choices=["auto", "xla", "pallas"],
                    help="auto/pallas: the all-class beam kernel; xla: the "
                         "top-P scan search")
+    add_lm_flags(p)
+
+
+def add_lm_flags(p: argparse.ArgumentParser) -> None:
+    """The LM, WFST and graph-decoding flags (JAX's ``add_lm_flags``, less
+    the host first pass's)."""
     g = p.add_argument_group("language model and WFST")
     g.add_argument("--lm", default=None,
                    help="ARPA n-gram LM over the unit symbols (or, with "

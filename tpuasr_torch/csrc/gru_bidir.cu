@@ -19,6 +19,9 @@
 // Per direction and step (pallas_gru.py:70-74, gate order r, z, n):
 // hp = h Wh, r = sigmoid(xp_r + hp_r), z = sigmoid(xp_z + hp_z),
 // n = tanh(xp_n + r hp_n), h' = (1 - z) n + z h, h = m h' + (1 - m) h.
+// The state before the first step is zero, or a direction's h0 (B, H)
+// where the caller passes one (streaming, which carries the state across
+// chunks: tpuasr/serve/streaming.py:211's lax.scan(step, hs[i], xp)).
 //
 // What bounds it on the H100: the operations (fp32 on the FMA units, never
 // TF32). K7 in training at T=249, B=128, H=512 does 2 x 249 x 128 x 512 x
@@ -73,6 +76,7 @@ struct BidirDir {
   const float* xp;                // (T, B, 3H)
   const float* wh;                // (H, 3H)
   float* ys;                      // (T, B, H), out; read back by blocks
+  const float* h0;                // (B, H) state before step 0, or null: 0
 };
 
 // The inputs of a gate item (row, unit): xp's three gates and the mask.
@@ -175,13 +179,14 @@ gru_bidir_f32_kernel(BidirDir d0, BidirDir d1,
   __syncthreads();
 
   // Step s runs time t (T-1-s with reverse); h_prev is ys at the previous
-  // step's time, zero at s = 0.
+  // step's time, at s = 0 h0, or zero without it (no staging, no product).
   for (int s = 0; s < T; ++s) {
     const int t = reverse ? T - 1 - s : s;
     const size_t tb = static_cast<size_t>(t) * B;
+    const bool has_prev = s || io.h0;
     const float* hprev =
-        s ? io.ys + (reverse ? tb + B : tb - B) * H : io.ys;
-    if (s) stage(hprev, 0);
+        s ? io.ys + (reverse ? tb + B : tb - B) * H : io.h0 ? io.h0 : io.ys;
+    if (has_prev) stage(hprev, 0);
     for (int pass = 0; pass < npass; ++pass) {
       const int b0 = rb0 + pass * kR;
       const int rows = min(kR, rb1 - b0);
@@ -189,10 +194,11 @@ gru_bidir_f32_kernel(BidirDir d0, BidirDir d1,
       const XIn x = pass == 0 ? pre : load_x(t, b0);
       // The item's own h_prev (this thread wrote it in the last step).
       const float h =
-          live && s ? __ldcg(hprev + static_cast<size_t>(b0 + gr) * H + j)
-                    : 0.f;
+          live && has_prev
+              ? __ldcg(hprev + static_cast<size_t>(b0 + gr) * H + j)
+              : 0.f;
       float p[3] = {0.f, 0.f, 0.f};                       // h_prev Wh
-      if (s) {
+      if (has_prev) {
         float acc[N];
 #pragma unroll
         for (int e = 0; e < N; ++e) acc[e] = 0.f;
@@ -285,15 +291,18 @@ extern "C" long long tpuasr_gru_bidir_fwd_smem(int H, int U, int KC) {
 
 // The f32 recurrence over ndir directions (1 or 2) with the plan (U, RG,
 // KC, smem) of ops/gru.py::_bidir_f32_plan (K7) or _f32_rec_plan (K5, K2
-// in f32; one direction): direction d reads xp<d> (T, B, 3H) and wh<d>
-// (H, 3H) and writes ys<d> (T, B, H), all f32 and contiguous, the second
-// set read only with ndir = 2; mask (T, B) f32; reverse: every direction
+// in f32; one direction): direction d reads xp<d> (T, B, 3H), wh<d>
+// (H, 3H) and, where not null, its state before the first step h0<d>
+// (B, H, 16-byte aligned), and writes ys<d> (T, B, H), all f32 and
+// contiguous, the second set read only with ndir = 2; mask (T, B) f32;
+// reverse: every direction
 // scans from t = T-1 down (K5's reverse; K7 passes 0); bar: ndir * RG
 // zeroed uint32 words. A plan the kernel does not lay out the same way is
 // refused.
 extern "C" int tpuasr_gru_bidir_fwd(const float* xp0, const float* wh0,
-                                    float* ys0, const float* xp1,
-                                    const float* wh1, float* ys1,
+                                    float* ys0, const float* h00,
+                                    const float* xp1, const float* wh1,
+                                    float* ys1, const float* h01,
                                     const float* mask, unsigned* bar, int T,
                                     int B, int H, int U, int RG, int KC,
                                     int reverse, int ndir, long long smem,
@@ -302,8 +311,8 @@ extern "C" int tpuasr_gru_bidir_fwd(const float* xp0, const float* wh0,
   if (ndir < 1 || ndir > 2 || RG < 1 || KC <= 0 || KC % 128 ||
       smem != tpuasr_gru_bidir_fwd_smem(H, U, KC))
     return static_cast<int>(cudaErrorInvalidValue);
-  const BidirDir d0{xp0, wh0, ys0};
-  const BidirDir d1{xp1, wh1, ys1};
+  const BidirDir d0{xp0, wh0, ys0, h00};
+  const BidirDir d1{xp1, wh1, ys1, h01};
 #define TPUASR_BIDIR(N)                                                       \
   launch_bidir<N>(d0, d1, mask, bar, T, B, H, RG, KC, reverse, ndir, stream)
   TPUASR_BY_UNITS(TPUASR_BIDIR)

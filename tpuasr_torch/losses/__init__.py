@@ -6,10 +6,14 @@
   recursions are the CUDA kernels K6/K6b for CUDA tensors and their plain
   versions for CPU tensors.
 
+* ``ctc_align``: CTC forced alignment (the Viterbi path, per-frame states
+  and labels, per-token frame spans), plain PyTorch.
+
 Conventions as in JAX: blank 0, log-probabilities (B, T, C), per-utterance
 negative log-likelihood without length normalization.
 """
 
+from tpuasr_torch.losses.align import ctc_align
 from tpuasr_torch.losses.ctc import ctc_loss
 from tpuasr_torch.losses.ctc_ref import ctc_loss_ref
 
@@ -26,4 +30,4 @@ def get_ctc_loss(impl: str = "fb"):
     raise ValueError(f"unknown CTC impl {impl!r}")
 
 
-__all__ = ["ctc_loss", "ctc_loss_ref", "get_ctc_loss"]
+__all__ = ["ctc_align", "ctc_loss", "ctc_loss_ref", "get_ctc_loss"]

@@ -3,7 +3,14 @@
 Counterpart of ``tpuasr/models/deepspeech_ctc.py``: a (time, freq) conv
 frontend with total time stride 2, stacked bidirectional GRUs with masked
 batch norm, a dense head and log-softmax; padded frames are zeroed after
-each norm and in the log-probs.
+each norm and in the log-probs. ``bidirectional=False`` stacks one
+forward ``GRULayer`` per layer (``rnn{i}.wx``, ``wh``, ``b``; widths
+``rnn_hidden`` in and out after the first) and ``explicit_pad`` pads the
+convs' time by (5, 5) on both sides (freq (20, 20) and (10, 10)) instead
+of XLA SAME, whose split depends on T's parity: the pair is the streaming
+model (``serve/streaming.py``, whose GRU layers run K5 from the state the
+previous chunk ended in); ``fused_bidir`` is ignored without the second
+direction, as in JAX.
 
 The constructor takes the JAX model's keyword arguments under the same
 names, so a checkpoint's ``model_kwargs`` carry over. With ``pallas_gru``
@@ -16,9 +23,8 @@ there. ``matmul_frontend`` runs both convs as band-matrix matmuls;
 ``int8_conv`` serves conv2 through K9 (int8 tap-GEMM; the sliding conv,
 or the band matmuls, in training); ``fused_bidir`` runs each BiGRU layer
 as one kernel for both directions (K7, K7b in training) on its own
-parameter layout. Options whose JAX numerics the port does not reproduce
-(``bf16_conv``, ``explicit_pad``, ``bidirectional=False``) raise
-``NotImplementedError``.
+parameter layout. ``bf16_conv``, whose JAX numerics the port does not
+reproduce, raises ``NotImplementedError``.
 
 ``model.train()`` gives the JAX ``train=True`` forward in float32: batch
 statistics in every norm (running statistics updated in place), dropout
@@ -35,7 +41,8 @@ from torch import nn
 import torch.nn.functional as F
 
 from tpuasr_torch.models.layers import (BatchNorm, BiGRU, FrontConv,
-                                        MaskedBatchNorm, _lecun_normal_,
+                                        GRULayer, MaskedBatchNorm,
+                                        _lecun_normal_,
                                         conv_out_length, flax_dropout,
                                         frontend_dim, sequence_mask)
 from tpuasr_torch.precision import full_fp32
@@ -55,13 +62,13 @@ class DeepSpeechCTC(nn.Module):
                  int8_conv: bool = False, in_features: int = 64,
                  device=None, generator: torch.Generator | None = None):
         super().__init__()
-        unsupported = {"bf16_conv": bf16_conv,
-                       "explicit_pad": explicit_pad,
-                       "bidirectional=False": not bidirectional}
-        for name, on in unsupported.items():
-            if on:
-                raise NotImplementedError(
-                    f"DeepSpeechCTC({name}) is not ported to tpuasr_torch")
+        if bf16_conv:
+            raise NotImplementedError(
+                "DeepSpeechCTC(bf16_conv) is not ported to tpuasr_torch")
+        # A unidirectional stack has no fused pair of directions.
+        fused_bidir = fused_bidir and bidirectional
+        self.bidirectional = bidirectional
+        self.explicit_pad = explicit_pad
         # JAX ignores int8 outside the kernel path (layers.py:117-126).
         int8 = pallas_gru and (int8_proj or int8_rec)
         if bf16_gru and not (fused_bidir
@@ -75,25 +82,33 @@ class DeepSpeechCTC(nn.Module):
         # bf16_kernel (layers.py:242).
         cd = (torch.bfloat16 if self.bf16_stream or (fused_bidir and bf16_gru)
               else torch.float32)
+        pad1 = ((5, 5), (20, 20)) if explicit_pad else "SAME"
+        pad2 = ((5, 5), (10, 10)) if explicit_pad else "SAME"
         self.conv1 = FrontConv(1, conv_channels, (11, 41), (2, 2),
                                generator=generator,
-                               use_matmul=matmul_frontend)
+                               use_matmul=matmul_frontend, padding=pad1)
         self.conv1_bn = BatchNorm(conv_channels)
         # int8_conv serves only: FrontConv takes use_matmul_q8 in eval().
         self.conv2 = FrontConv(conv_channels, conv_channels, (11, 21), (1, 2),
                                generator=generator,
                                use_matmul=matmul_frontend,
-                               use_matmul_q8=int8_conv)
+                               use_matmul_q8=int8_conv, padding=pad2)
         self.conv2_bn = BatchNorm(conv_channels)
         d = frontend_dim(in_features, conv_channels)
         for i in range(rnn_layers):
             self.add_module(f"rnn{i}_bn", MaskedBatchNorm(d))
-            self.add_module(f"rnn{i}", BiGRU(
-                d, rnn_hidden, compute_dtype=cd, int8_proj=int8,
-                int8_rec=int8 and int8_rec,
-                fused_proj=pallas_gru and fused_proj, generator=generator,
-                fused_bidir=fused_bidir))
-            d = 2 * rnn_hidden
+            kw = dict(compute_dtype=cd, int8_proj=int8,
+                      int8_rec=int8 and int8_rec,
+                      fused_proj=pallas_gru and fused_proj,
+                      generator=generator)
+            if bidirectional:
+                self.add_module(f"rnn{i}", BiGRU(d, rnn_hidden,
+                                                 fused_bidir=fused_bidir,
+                                                 **kw))
+                d = 2 * rnn_hidden
+            else:
+                self.add_module(f"rnn{i}", GRULayer(d, rnn_hidden, **kw))
+                d = rnn_hidden
         self.rnn_layers = rnn_layers
         self.head_bn = MaskedBatchNorm(d)
         self.head = nn.Linear(d, num_classes)

@@ -20,7 +20,7 @@ from tpuasr_torch.ops.conv import conv_taps_q8
 from tpuasr_torch.ops.gru import (gru_scan, gru_scan_bidir, gru_scan_xfused,
                                   gru_scan_xfused_q8)
 from tpuasr_torch.ops.quant import quantize_per_channel
-from tpuasr_torch.precision import full_fp32
+from tpuasr_torch.precision import deterministic_cudnn, full_fp32
 
 
 def sequence_mask(lengths: torch.Tensor, maxlen: int) -> torch.Tensor:
@@ -68,12 +68,52 @@ def _lecun_normal_(w: torch.Tensor, fan_in: int, generator) -> torch.Tensor:
                                      generator=generator)
 
 
+class _Conv2d(torch.autograd.Function):
+    """``F.conv2d(x, w, b, stride)`` whose backward runs cuDNN's
+    deterministic algorithms, and only the backward: cuDNN's default
+    weight-gradient algorithm sums in an order that changes from run to run
+    (two straight train steps came out up to 6.2e-6 apart), JAX's step
+    repeats. The forward keeps cuDNN's default choice."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride):
+        ctx.save_for_backward(x, w)
+        ctx.stride = list(stride)
+        ctx.bias = b is not None
+        return F.conv2d(x, w, b, stride=stride)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        need = ctx.needs_input_grad
+        with deterministic_cudnn():
+            dx, dw, db = torch.ops.aten.convolution_backward(
+                dy, x, w, [w.shape[0]] if ctx.bias else None, ctx.stride,
+                [0, 0], [1, 1], False, [0, 0], 1,
+                [need[0], need[1], ctx.bias and need[2]])
+        return dx, dw, db, None
+
+
+def conv2d(x, w, b, stride):
+    """``F.conv2d`` without padding; under autograd through ``_Conv2d``, so
+    that the train step repeats bit for bit."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _Conv2d.apply(x, w, b, tuple(stride))
+    return F.conv2d(x, w, b, stride=stride)
+
+
 class FrontConv(nn.Module):
-    """2-D conv over (time, freq) with XLA SAME padding, without a bias
-    unless ``bias=True`` (flax ``nn.Conv``'s default, zero-initialized).
+    """2-D conv over (time, freq), without a bias unless ``bias=True``
+    (flax ``nn.Conv``'s default, zero-initialized). ``padding`` is "SAME"
+    (XLA's split, the extra pad on the high side) or explicit
+    ((t_lo, t_hi), (f_lo, f_hi)), as JAX's ``padding=[(5, 5), (20, 20)]``
+    of the streaming DeepSpeech (deepspeech_ctc.py:63-64).
 
     Input and output are NCHW (B, C, T, F); ``weight`` is OIHW
-    (Cout, Cin, Kt, Kf). The model runs it under ``precision.full_fp32``.
+    (Cout, Cin, Kt, Kf). The model runs it under ``precision.full_fp32``;
+    in training its backward takes cuDNN's deterministic algorithms
+    (``_Conv2d``).
 
     As JAX's ``FrontConv`` (layers.py:285-379), two formulations over the
     same weight: ``use_matmul`` runs Kt shifted f32 matmuls of the
@@ -87,10 +127,12 @@ class FrontConv(nn.Module):
 
     def __init__(self, in_channels: int, features: int, kernel_size, strides,
                  generator=None, bias: bool = False, use_matmul: bool = False,
-                 use_matmul_q8: bool = False):
+                 use_matmul_q8: bool = False, padding="SAME"):
         super().__init__()
         self.kernel_size = tuple(kernel_size)
         self.strides = tuple(strides)
+        self.padding = (padding if padding == "SAME"
+                        else tuple(tuple(p) for p in padding))
         self.use_matmul = use_matmul
         self.use_matmul_q8 = use_matmul_q8
         self.weight = nn.Parameter(torch.empty(
@@ -117,12 +159,15 @@ class FrontConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         (kt, kf), (st, sf) = self.kernel_size, self.strides
-        pt = _same_pad(x.shape[2], kt, st)
-        pf = _same_pad(x.shape[3], kf, sf)
+        if self.padding == "SAME":
+            pt = _same_pad(x.shape[2], kt, st)
+            pf = _same_pad(x.shape[3], kf, sf)
+        else:
+            pt, pf = self.padding
         q8 = self.use_matmul_q8 and not self.training
         if not (self.use_matmul or q8):
             x = F.pad(x, (pf[0], pf[1], pt[0], pt[1]))
-            return F.conv2d(x, self.weight, self.bias, stride=(st, sf))
+            return conv2d(x, self.weight, self.bias, (st, sf))
         B, Cin, T, Fq = x.shape
         Cout = self.weight.shape[0]
         T_out = (T + pt[0] + pt[1] - kt) // st + 1
@@ -242,6 +287,10 @@ class GRULayer(nn.Module):
     in JAX (deepspeech_ctc.py:119-120): with ``fused_proj`` the K2 scan and
     its backward, otherwise xp = x@Wx+b by a matmul (layers.py:147-154) and
     ``gru_scan`` (K5, backward K5b).
+
+    Streaming (``serve/streaming.py``) runs a layer's weights chunk by
+    chunk instead: xp = x@Wx+b by a matmul, then K5 (``gru_scan_fwd``) from
+    the state the previous chunk ended in (its ``h0``), serving only.
     """
 
     def __init__(self, in_features: int, hidden: int, reverse: bool = False,

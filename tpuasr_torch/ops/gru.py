@@ -46,16 +46,18 @@ from tpuasr_torch.precision import full_fp32
 _MODE_K2, _MODE_Q8, _MODE_Q8_REC = 0, 1, 2
 
 
-def gru_recurrence(xp, hp_fn, mask, reverse, out_dtype):
+def gru_recurrence(xp, hp_fn, mask, reverse, out_dtype, h0=None):
     """The masked GRU recurrence over precomputed input projections.
 
-    xp (T, B, 3H) f32, hp_fn(h (B, H) f32) -> (B, 3H) f32, mask (T, B, 1).
-    The state is carried in f32; ys is stored in ``out_dtype``.
+    xp (T, B, 3H) f32, hp_fn(h (B, H) f32) -> (B, 3H) f32, mask (T, B, 1),
+    h0 (B, H) the state before the first step (zero when None). The state
+    is carried in f32; ys is stored in ``out_dtype``.
     """
     T, B, H3 = xp.shape
     H = H3 // 3
     m = mask.to(torch.float32).reshape(T, B, 1)
-    h = torch.zeros((B, H), dtype=torch.float32, device=xp.device)
+    h = (torch.zeros((B, H), dtype=torch.float32, device=xp.device)
+         if h0 is None else h0.to(torch.float32))
     ys = torch.empty((T, B, H), dtype=out_dtype, device=xp.device)
     for s in range(T):
         t = T - 1 - s if reverse else s
@@ -859,9 +861,9 @@ class _XFusedScan(torch.autograd.Function):
 # ---- K5 / K5b: the scan over precomputed projections, with BPTT ----------
 
 
-def gru_scan_plain(xp, wh, mask, reverse=False):
+def gru_scan_plain(xp, wh, mask, reverse=False, h0=None):
     """Plain version of K5: xp (T, B, 3H) f32, wh (H, 3H) f32,
-    mask (T, B, 1) -> ys (T, B, H) f32."""
+    mask (T, B, 1), h0 (B, H) or None (zero) -> ys (T, B, H) f32."""
     wh32 = wh.to(torch.float32)
 
     def hp_fn(h):
@@ -869,7 +871,7 @@ def gru_scan_plain(xp, wh, mask, reverse=False):
             return h @ wh32
 
     return gru_recurrence(xp.to(torch.float32), hp_fn, mask, reverse,
-                          torch.float32)
+                          torch.float32, h0)
 
 
 def prev_states(ys, reverse):
@@ -930,20 +932,54 @@ def _barrier(device, n=1):
     return torch.zeros(n, dtype=torch.int32, device=device)
 
 
-def gru_scan_fwd(xp, wh, mask, reverse=False):
+def _check_h0(h0, B, H, device, grad):
+    """h0 must be a (B, H) float32 tensor on the scan's device; the scans
+    from a state have no backward, so an input that requires grad raises."""
+    if grad or h0.requires_grad and torch.is_grad_enabled():
+        raise ValueError("a GRU scan from h0 has no backward (streaming "
+                         "serves only); run it under torch.no_grad()")
+    if (tuple(h0.shape) != (B, H) or h0.dtype != torch.float32
+            or h0.device != device):
+        raise ValueError(f"h0 must be ({B}, {H}) float32 on {device}, got "
+                         f"{tuple(h0.shape)} {h0.dtype} on {h0.device}")
+
+
+def _aligned_h0(h0):
+    """h0 contiguous at a 16-byte address (the kernel stages it by
+    cp.async), or None."""
+    if h0 is None:
+        return None
+    h0 = h0.contiguous()
+    return h0 if h0.data_ptr() % 16 == 0 else h0.clone()
+
+
+def gru_scan_fwd(xp, wh, mask, reverse=False, h0=None):
     """K5: ys (T, B, H) f32 from xp (T, B, 3H), wh (H, 3H), mask (T, B, 1).
     On the card, csrc/gru_bidir.cu's row-grouped recurrence at one
     direction (``_f32_rec_plan``; a shape it cannot hold raises ValueError
-    before any launch). One count a call."""
+    before any launch). One count a call.
+
+    h0: the state before the first step in scan order, (B, H) float32 on
+    xp's device, or None for zero (the training scans; that path and its
+    bits are unchanged). A padded step keeps the state, so a row masked
+    throughout returns h0. Streaming carries the state across chunks: a
+    scan over T steps equals a scan over the first T1 steps, then one over
+    the rest from the first's last state. There is no backward from h0:
+    with an input that requires grad (and grad enabled) it raises
+    ValueError."""
+    if h0 is not None:
+        _check_h0(h0, xp.shape[1], wh.shape[0], xp.device,
+                  torch.is_grad_enabled() and (xp.requires_grad
+                                               or wh.requires_grad))
     if xp.device.type == "cpu":
-        return gru_scan_plain(xp, wh, mask, reverse)
+        return gru_scan_plain(xp, wh, mask, reverse, h0)
     if xp.device.type != "cuda":
         raise ValueError(f"gru_scan_fwd: unsupported device {xp.device}")
     T, B, H, mask2 = _check_scan(xp, wh, mask)
     if xp.numel() == 0:
         return torch.empty((T, B, H), dtype=torch.float32, device=xp.device)
     plan = _f32_rec_plan(B, H, _sm_count(xp.device))
-    ys, = _bidir_f32(plan, (xp,), (wh,), mask2, reverse)
+    ys, = _bidir_f32(plan, (xp,), (wh,), mask2, reverse, (_aligned_h0(h0),))
     gru_scan_fwd.launches += 1
     return ys
 
@@ -1128,28 +1164,32 @@ def gru_scan_bidir_fwd(xpf, xpb, whf, whb, mask):
 gru_scan_bidir_fwd.launches = 0
 
 
-def _bidir_f32(plan: RowGroupPlan, xps, whs, mask2, reverse=False):
+def _bidir_f32(plan: RowGroupPlan, xps, whs, mask2, reverse=False,
+               h0s=None):
     """The f32 recurrence (csrc/gru_bidir.cu): one ys (T, B, H) f32 for
     each direction's xp (T, B, 3H) and wh (H, 3H), f32 and contiguous, all
     scanned in one sense under mask2 (T, B) (from t = T-1 down with
-    ``reverse``: K5's reverse); the directions share one launch where
-    ``plan.ndir`` is their number, else a launch each."""
+    ``reverse``: K5's reverse), each from its h0 in ``h0s`` (B, H) where
+    given and not None (16-byte aligned), else from zero; the directions
+    share one launch where ``plan.ndir`` is their number, else a launch
+    each."""
     T, B, H3 = xps[0].shape
     H = H3 // 3
     dev = xps[0].device
     fn = _build.lib().tpuasr_gru_bidir_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                    + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     ys = [torch.empty((T, B, H), dtype=torch.float32, device=dev)
           for _ in xps]
-    dirs = list(zip(xps, whs, ys))
+    dirs = [(*map(_build.ptr, d), _ptr_or_null(h0)) for *d, h0 in zip(
+        xps, whs, ys, h0s or (None,) * len(xps))]
     groups = [dirs] if plan.ndir == len(dirs) else [[d] for d in dirs]
     for group in groups:
         bar = _barrier(dev, plan.ndir * plan.rg)
         # With one direction, its pointers stand for the second, unread.
         with torch.cuda.device(dev):
-            code = fn(*map(_build.ptr, group[0]), *map(_build.ptr, group[-1]),
+            code = fn(*group[0], *group[-1],
                       _build.ptr(mask2), _build.ptr(bar), T, B, H, plan.U,
                       plan.rg, plan.kc, int(bool(reverse)), len(group),
                       plan.smem, _build.stream_ptr(mask2))

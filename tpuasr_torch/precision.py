@@ -8,6 +8,9 @@ both in full float32 (``Precision.HIGHEST`` in the featurizer; lower
 precision moves low-energy log-mel values by 0.3-0.6), so the port turns
 TF32 off for both around its forward passes and restores the caller's
 settings afterwards.
+
+``deterministic_cudnn`` asks cuDNN for its deterministic algorithms; the
+port's conv backward runs under it (``models.layers._Conv2d``).
 """
 
 from __future__ import annotations
@@ -28,3 +31,13 @@ def full_fp32():
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev_mm
         torch.backends.cudnn.allow_tf32 = prev_cudnn
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
