@@ -137,7 +137,23 @@ Phases, each fatal on failure:
      each layer's h0, the log-probs against the plain path's tick, K10 and
      its rebuild from the resumed beam), the device's idle share and time
      by kernel, every slot against a solo stream; one ``python -m
-     tpuasr_torch.cli.stream --beam --timestamps`` request.
+     tpuasr_torch.cli.stream --beam --timestamps`` request;
+ 13. bf16 training, config 3's bf16 points (benchmarks/
+     config3_deepspeech_train.py:40-45, :82-83): bf16_compute with the
+     TPU's pallas_gru, bf16_gru and bf16_conv on the 512 x 4
+     DeepSpeechCTC, adamw, B=64 and 128 x 5 s, U=24, through Trainer:
+     K5-bf16 and K5b-bf16 in every direction, K6 and K6b once a step,
+     step 1 against the plain path (BF16_STEP_TOL), the loss over 10
+     steps, and the B=64 step beside phase 7's f32 one with the device
+     time by kernel of both; then fused_bidir with bf16_gru at B=16 (K7
+     and K7b-bf16), and the deepspeech_var preset with fused_proj and
+     bf16_gru at B=16 (K2 in bf16 and K2b-bf16), once more with the
+     backward forced to the recompute route (K5b-bf16 on the rounded xp).
+     Phase 3 holds K5-bf16, K5b-bf16, K7b-bf16 (T'=249, H=512, B=16 and
+     64) and K2b-bf16 (deepspeech_var's D=512 and 768, H=384, B=16)
+     against their plain versions, timed beside their bound and
+     torch.nn.GRU in bf16, and tells the lean recurrence's rounding of
+     dhp apart from a kernel that skips it (``lean_round_control``).
 
 Weights are random, made from a seed. The line before the last holds
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}. Without
@@ -212,12 +228,19 @@ HBM_BPS = 3.35e12
 PEAK = {"fp32": 67e12, "tf32": 495e12, "bf16": 989e12, "int8": 1979e12}
 
 
-def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
-    """The least time (ms) for moving nbytes and doing ops of type kind,
-    and which of the two bounds it."""
-    t_bytes, t_ops = nbytes / HBM_BPS, ops / PEAK[kind]
+def bound_mixed(nbytes: float, ops: dict) -> tuple[float, str]:
+    """The least time (ms) for moving nbytes and doing the operations of
+    ops, which maps a type to its count, each type at its own peak, one
+    after the other; and which of the two bounds it."""
+    t_bytes = nbytes / HBM_BPS
+    t_ops = sum(n / PEAK[kind] for kind, n in ops.items())
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def bound(nbytes: float, ops: float, kind: str) -> tuple[float, str]:
+    """``bound_mixed`` for work of one type."""
+    return bound_mixed(nbytes, {kind: ops})
 
 
 def nbytes(*tensors) -> int:
@@ -1451,7 +1474,9 @@ def bwd_phases(gru_mod, key, args) -> str:
     call ("K7b", those of gru_scan_bidir_bwd) timed apart with CUDA events
     (mean of 10): the pre-scan products (hp, and K2b's xp), the lean
     recurrence, the post-scan products (the weight gradients, and K2b's
-    dx); and the recurrence's plan."""
+    dx); and the recurrence's plan. With bf16 streams the recurrence runs
+    over their f32 upcasts in its bf16 mode, as the wrappers run it (the
+    upcasts are not timed)."""
     if key == "K5b":
         xp, ysp, wh, mask, dys, rev = args
         T, B, _ = xp.shape
@@ -1482,20 +1507,24 @@ def bwd_phases(gru_mod, key, args) -> str:
         hpf, hpb = pre()
         dirs = [(xpf, hpf, yspf, dysf, whf), (xpb, hpb, yspb, dysb, whb)]
     H = dirs[0][-1].shape[0]
+    mode = 0
+    if dirs[0][-1].dtype == torch.bfloat16:
+        f32 = torch.float32
+        dirs = [(a.to(f32), hp, y.to(f32), d.to(f32), w.to(f32))
+                for a, hp, y, d, w in dirs]
+        mode = gru_mod._LEAN_ROUND_DHP | (
+            0 if key == "K2b" else gru_mod._LEAN_DXP_BF16)
     plan = gru_mod._lean_plan(B, H, ndir, gru_mod._sm_count(mask.device))
     m2 = mask.reshape(T, B).contiguous()
-    outs = gru_mod._lean(plan, dirs, m2, rev)
+    outs = gru_mod._lean(plan, dirs, m2, rev, mode)
     if key == "K2b":
         def post():
             return gru_mod._xfb_post(x, ysp, wx, *outs[0])
-    elif key == "K5b":
-        def post():
-            return gru_mod._dwh(ysp, outs[0][1])
     else:
         def post():
             return [gru_mod._dwh(d[2], o[1]) for d, o in zip(dirs, outs)]
     pre_ms, post_ms = cuda_ms(pre, 10), cuda_ms(post, 10)
-    rec_ms = cuda_ms(lambda: gru_mod._lean(plan, dirs, m2, rev), 10)
+    rec_ms = cuda_ms(lambda: gru_mod._lean(plan, dirs, m2, rev, mode), 10)
     return (f"phases: pre-scan products {pre_ms:.3f} ms, lean recurrence "
             f"{rec_ms:.3f} ms ({rec_ms / T * 1e3:.2f} us a step; U={plan.U},"
             f" {plan.rg} row group(s), {plan.ndir} direction(s) a grid of "
@@ -2069,18 +2098,19 @@ def capsnet_slice(kernels, wrappers, card, plain_path) -> None:
 
 def train_phase(tag, cfg, U, sizes, want, count, patches, kernels,
                 wrappers, card, prepare=None, check=None,
-                entries=None) -> None:
+                entries=None, tol=1e-4) -> dict:
     """A train step through Trainer on the card, on a batch of seeded noise
     (sizes[0] utterances of TRAIN_SECONDS, U tokens each): the launch counts
     of one step (which must equal want; the counts of the kernels in count
-    are kept), step 1 against the plain path (patches) within rtol 1e-4 on
+    are kept), step 1 against the plain path (patches) within rtol tol on
     the same weights and dropout stream, the loss over 10 more steps on the
     repeated batch, and train-step ms at each batch size in sizes. The
     launches of the wrappers in count add to their kernel entries, or to
     the entry that entries names for a wrapper.
     prepare(model) adjusts the seeded weights in place; check(trainer,
     batch, fresh_state, metrics, plain_path) adds checks of step 1, where
-    fresh_state() gives a state with step 1's weights."""
+    fresh_state() gives a state with step 1's weights. Returns {batch: (ms
+    a step, device time by kernel)}."""
     from tpuasr_torch.features import FeatureConfig
     from tpuasr_torch.train import Trainer
 
@@ -2159,9 +2189,10 @@ def train_phase(tag, cfg, U, sizes, want, count, patches, kernels,
     phase(f"[{tag}] step 1: loss {got['loss']:.6f} grad_norm "
           f"{got['grad_norm']:.6f}; plain path {ref['loss']:.6f} "
           f"{ref['grad_norm']:.6f} ({plain_s:.2f} s, host clock); relative "
-          f"differences {rel['loss']:.3e} {rel['grad_norm']:.3e} (tol 1e-4)")
+          f"differences {rel['loss']:.3e} {rel['grad_norm']:.3e} (tol "
+          f"{tol:.3e})")
     if not (all(np.isfinite(list(got.values())))
-            and max(rel.values()) <= 1e-4):
+            and max(rel.values()) <= tol):
         fail(f"{tag}: the training step disagrees with its plain path")
     del plain
     if check is not None:
@@ -2187,19 +2218,26 @@ def train_phase(tag, cfg, U, sizes, want, count, patches, kernels,
         if not np.isfinite(float(mn["loss"])):
             fail(f"{tag}: non-finite loss at B={n}")
         results.append((n, ms_n, tr, st, bt))
+    kw = cfg.model_kwargs
+    dtype = ("bf16" if cfg.bf16_compute or kw.get("bf16_gru")
+             or kw.get("bf16_conv") else "f32")
+    times = {}
     for n, ms_n, tr, st, bt in results:
-        phase(f"[{tag}] B={n} x {TRAIN_SECONDS:.0f} s f32: train step "
+        phase(f"[{tag}] B={n} x {TRAIN_SECONDS:.0f} s {dtype}: train step "
               f"{ms_n:.2f} ms (CUDA events, mean of 10 after a warm-up) = "
               f"{n / (ms_n / 1e3):.1f} utt/s [{card}]")
+        rows = device_breakdown(lambda: tr.train_step(st, bt), top=8)
         phase(f"[{tag}] B={n} device time of one step by kernel "
-              f"(torch.profiler): "
-              f"{device_breakdown(lambda: tr.train_step(st, bt), top=8)}")
+              f"(torch.profiler): {rows}")
+        times[n] = (ms_n, rows)
     torch.cuda.synchronize()
+    return times
 
 
-def train_slice(kernels, wrappers, card) -> None:
+def train_slice(kernels, wrappers, card) -> dict:
     """Phase 7: config 3's train step through Trainer on the card (the 512
-    x 4 DeepSpeechCTC in float32, adamw, B=16 and 64 x 5 s, U=24)."""
+    x 4 DeepSpeechCTC in float32, adamw, B=16 and 64 x 5 s, U=24). Returns
+    the f32 step's {batch: (ms, device time by kernel)}."""
     from tpuasr_torch.losses import ctc as ctc_mod
     from tpuasr_torch.ops import gru as gru_mod
     from tpuasr_torch.train import TrainConfig
@@ -2214,8 +2252,8 @@ def train_slice(kernels, wrappers, card) -> None:
     patches = ((gru_mod, "gru_scan_fwd", gru_mod.gru_scan_plain),
                (gru_mod, "gru_scan_bwd", gru_mod.gru_scan_bwd_plain),
                *ctc_patches)
-    train_phase("7 train", cfg, TRAIN_U, (TRAIN_B, 64), counted, counted,
-                patches, kernels, wrappers, card)
+    f32_times = train_phase("7 train", cfg, TRAIN_U, (TRAIN_B, 64), counted,
+                            counted, patches, kernels, wrappers, card)
     # The same step with fused_bidir=True: K7 (in f32: the K7-f32 entry)
     # and K7b once per layer, no K5/K5b.
     cfg = dataclasses.replace(cfg, model_kwargs=dict(cfg.model_kwargs,
@@ -2226,6 +2264,7 @@ def train_slice(kernels, wrappers, card) -> None:
     train_phase("7 train fused_bidir", cfg, TRAIN_U, (TRAIN_B, 64, 128),
                 dict(K7=LAYERS, K7b=LAYERS, K6=1, K6b=1), ("K7", "K7b"),
                 patches, kernels, wrappers, card, entries={"K7": "K7-f32"})
+    return f32_times
 
 
 def var_train_slice(kernels, wrappers, card) -> None:
@@ -3520,6 +3559,313 @@ def streaming_slice(record, kernels, wrappers, card, plain_path) -> None:
         fail(f"[12] cli stream output: {lines[-3:]}")
 
 
+# bf16 streams: a kernel and its plain version round at the same points, so
+# they differ only where an f32 sum in another order flips a bf16 rounding
+# of h or dhp, which then rides the next steps: ys within 8e-3 (one ulp
+# near 1 and its echo, test_k2_bf16_matches_jax's bound), each gradient
+# within 2^-6 of its largest magnitude (four bf16 ulps there).
+BF16_YS_TOL = 8e-3
+BF16_GRAD_REL = 2.0 ** -6
+# Step 1 of a bf16 train step against its plain path: loss and grad-norm
+# within one bf16 ulp relative (2^-8). Both sum many stream elements, each
+# one ulp apart at most where a flip happened, as often up as down.
+BF16_STEP_TOL = 2.0 ** -8
+
+
+# The lean recurrence's kRoundDhp against a kernel that ignores it. Rows
+# never mix in the backward, so a flipped bf16 rounding of dhp rides only
+# its own row: over the first 8 BPTT steps, the median over rows of dhp's
+# relative L2 error is within 2^-14 of the plain version that rounds dhp
+# for the rounded mode and beyond it for the unrounded one (on the CPU at
+# this shape: f64 sums for dhp@Wh^T 7.4e-8 away, no rounding 4.6e-4).
+LEAN_ROUND_GATE = 2.0 ** -14
+
+
+def lean_round_control(gru_mod, T, gen) -> None:
+    """Phase 3's negative control for the lean recurrence's bf16 mode:
+    K5b-bf16's phase b (T'=249, B=16, H=512, full rows, bf16 streams'
+    f32 upcasts) with kRoundDhp | kDxpBf16 and with kDxpBf16 alone, each
+    against gru_bwd_lean_plain with wh in bf16, the median row's error over
+    the first 8 BPTT steps (gated) and over the whole scan (printed)."""
+    dev = torch.device("cuda")
+    bf, f32 = torch.bfloat16, torch.float32
+    B, H = TRAIN_B, HIDDEN
+    mask = torch.ones((T, B, 1), device=dev)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev, bf)
+
+    xp, wh, dys = rnd(T, B, 3 * H), rnd(H, 3 * H, scale=H ** -0.5), \
+        rnd(T, B, H)
+    ysp = gru_mod.prev_states(gru_mod.gru_scan_plain(xp, wh, mask), False)
+    up = (xp.to(f32), gru_mod._hp(ysp, wh), ysp.to(f32), dys.to(f32),
+          wh.to(f32))
+    _, want = gru_mod.gru_bwd_lean_plain(*up[:3], wh, mask, up[3])
+    plan = gru_mod._lean_plan(B, H, 1, gru_mod._sm_count(dev))
+    errs = {}
+    for name, mode in (("rounded", gru_mod._LEAN_ROUND_DHP
+                        | gru_mod._LEAN_DXP_BF16),
+                       ("unrounded", gru_mod._LEAN_DXP_BF16)):
+        (_, dhp), = gru_mod._lean(plan, [up], mask.reshape(T, B), False,
+                                  mode)
+        errs[name] = [((dhp[sl] - want[sl]).norm(dim=(0, 2))
+                       / want[sl].norm(dim=(0, 2))).median().item()
+                      for sl in (slice(T - 8, T), slice(0, T))]
+    r, u = errs["rounded"], errs["unrounded"]
+    phase(f"[3 K5b-bf16 kRoundDhp control] T={T} B={B} H={H}: dhp relative "
+          f"L2 error against the plain version, median row, first 8 BPTT "
+          f"steps / whole scan: kRoundDhp|kDxpBf16 {r[0]:.3e} / "
+          f"{r[1]:.3e}, kDxpBf16 alone {u[0]:.3e} / {u[1]:.3e} (gate "
+          f"{LEAN_ROUND_GATE:.3e}: "
+          f"the first within, the second beyond)")
+    if not r[0] <= LEAN_ROUND_GATE < u[0]:
+        fail("the lean recurrence's kRoundDhp is not told apart from a "
+             "kernel that ignores it")
+
+
+def bf16_train_kernels(record, gen) -> None:
+    """Phase 3 for the bf16 forms of K5, K5b, K7b and K2b (config 3's bf16
+    points: T'=249, H=512, B=16 and 64; K2b at the deepspeech_var step's
+    D=512 and 768, H=384, B=16): each against its plain version, two calls
+    bit for bit, timed at the batch phase 13 runs beside the plain version,
+    the bound (bf16 products on the tensor cores, the weight gradients'
+    f32 sums on the FMA units) and torch.nn.GRU in bf16."""
+    from tpuasr_torch.features import FeatureConfig
+    from tpuasr_torch.features.reference import num_frames
+    from tpuasr_torch.ops import gru as gru_mod
+    from tpuasr_torch.utils.params import preset_for
+
+    dev = torch.device("cuda")
+    bf = torch.bfloat16
+    T = -(-num_frames(FeatureConfig(), int(SR * TRAIN_SECONDS)) // 2)
+
+    def mask_of(Bn):
+        ln = torch.randint(T // 2, T + 1, (Bn,), generator=gen)
+        ln[0], ln[1] = T, 1
+        m = (torch.arange(T)[:, None] < ln[None, :]).float()[:, :, None]
+        return m.to(dev).contiguous()
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(dev, bf)
+
+    def errors(got, want):
+        errs = [(a.float() - w.float()).abs().max().item()
+                for a, w in zip(got, want)]
+        tols = [BF16_GRAD_REL * w.float().abs().max().item() for w in want]
+        return errs, tols
+
+    def fmt(v):
+        return ", ".join(f"{e:.3e}" for e in v)
+
+    H = HIDDEN
+    lean_round_control(gru_mod, T, gen)
+    for Bn in (TRAIN_B, 64):
+        mask = mask_of(Bn)
+        for rev in (False, True):
+            xp, wh = rnd(T, Bn, 3 * H), rnd(H, 3 * H, scale=H ** -0.5)
+            dys = rnd(T, Bn, H)
+            ys = gru_mod.gru_scan_fwd(xp, wh, mask, rev)
+            ref = gru_mod.gru_scan_plain(xp, wh, mask, rev)
+            err = (ys.float() - ref.float()).abs().max().item()
+            same_f = torch.equal(ys, gru_mod.gru_scan_fwd(xp, wh, mask, rev))
+            ysp = gru_mod.prev_states(ref, rev)
+            args = (xp, ysp, wh, mask, dys, rev)
+            got = gru_mod.gru_scan_bwd(*args)
+            want = gru_mod.gru_scan_bwd_plain(*args)
+            errs, tols = errors(got, want)
+            same = all(torch.equal(a, c) for a, c in zip(
+                got, gru_mod.gru_scan_bwd(*args)))
+            msg = (f"[3 K5/K5b-bf16] gru bf16 T={T} B={Bn} H={H} reverse="
+                   f"{rev}: ys max_abs_err {err:.3e} (tol {BF16_YS_TOL}), "
+                   f"two calls equal {same_f}; dxp, dwh {fmt(errs)} (tol "
+                   f"{fmt(tols)}), two calls equal {same}; dtypes "
+                   f"{ys.dtype}, {got[0].dtype}, {got[1].dtype}")
+            t5 = t5b = ()
+            if Bn == 64 and not rev:
+                macs = T * Bn * H * 3 * H
+                ms = cuda_ms(lambda: gru_mod.gru_scan_fwd(xp, wh, mask), 10)
+                pms = cuda_ms(lambda: gru_mod.gru_scan_plain(xp, wh, mask), 1)
+                bms = cuda_ms(lambda: gru_mod.gru_scan_bwd(*args), 10)
+                pbms = cuda_ms(lambda: gru_mod.gru_scan_bwd_plain(*args), 1)
+                bd = bound_mixed(nbytes(xp, wh, mask, ys), {"bf16": 2 * macs})
+                bbd = bound_mixed(nbytes(*args[:5], *got),
+                                  {"bf16": 4 * macs, "fp32": 2 * macs})
+                lib = library_gru_ms(T, Bn, 2 * H, H, bf, False)
+                blib = library_gru_ms(T, Bn, 2 * H, H, bf, True)
+                msg += (f"; K5-bf16 kernel {ms:.3f} ms plain {pms:.3f} ms "
+                        f"bound {bd[0]:.4f} ms ({bd[1]}) torch.nn.GRU bf16 "
+                        f"forward {lib:.3f} ms; K5b-bf16 kernel {bms:.3f} ms "
+                        f"plain {pbms:.3f} ms bound {bbd[0]:.4f} ms "
+                        f"({bbd[1]}) torch.nn.GRU bf16 backward {blib:.3f} "
+                        f"ms; {bwd_phases(gru_mod, 'K5b', args)}")
+                t5, t5b = (ms, pms, bd, lib), (bms, pbms, bbd, blib)
+            phase(msg)
+            if not (err <= BF16_YS_TOL and same_f and same and all(
+                    e <= t for e, t in zip(errs, tols))
+                    and ys.dtype == got[0].dtype == got[1].dtype == bf):
+                fail(f"K5/K5b-bf16 disagree at B={Bn} reverse={rev}")
+            record("K5-bf16", "gru_scan_fwd (bf16: K2's recurrence over xp)",
+                   "tpuasr_torch/csrc/gru_scan.cu",
+                   "tpuasr/ops/pallas_gru.py:163", err, *t5)
+            record("K5b-bf16", "gru_scan_bwd (bf16)",
+                   "tpuasr_torch/csrc/gru_lean.cu",
+                   "tpuasr/ops/pallas_gru.py:190", max(errs), *t5b)
+        # K7b-bf16: both directions, forward in time under one mask.
+        xps = [rnd(T, Bn, 3 * H) for _ in range(2)]
+        whs = [rnd(H, 3 * H, scale=H ** -0.5) for _ in range(2)]
+        dyss = [rnd(T, Bn, H) for _ in range(2)]
+        ysb = gru_mod.gru_scan_bidir_plain(*xps, *whs, mask)
+        bargs = (*xps, *[gru_mod.prev_states(y, False) for y in ysb], *whs,
+                 mask, *dyss)
+        got = gru_mod.gru_scan_bidir_bwd(*bargs)
+        want = gru_mod.gru_scan_bidir_bwd_plain(*bargs)
+        errs, tols = errors(got, want)
+        same = all(torch.equal(a, c) for a, c in zip(
+            got, gru_mod.gru_scan_bidir_bwd(*bargs)))
+        msg = (f"[3 K7b-bf16] gru_scan_bidir_bwd bf16 T={T} B={Bn} H={H}: "
+               f"dxpf, dxpb, dwhf, dwhb max_abs_err {fmt(errs)} (tol "
+               f"{fmt(tols)}); two calls equal {same}")
+        t7 = ()
+        if Bn == 64:
+            macs = 2 * T * Bn * H * 3 * H
+            ms = cuda_ms(lambda: gru_mod.gru_scan_bidir_bwd(*bargs), 10)
+            pms = cuda_ms(lambda: gru_mod.gru_scan_bidir_bwd_plain(*bargs), 1)
+            bd = bound_mixed(nbytes(*bargs, *got),
+                             {"bf16": 4 * macs, "fp32": 2 * macs})
+            lib = library_gru_ms(T, Bn, 2 * H, H, bf, True,
+                                 bidirectional=True)
+            msg += (f"; kernel {ms:.3f} ms plain {pms:.3f} ms bound "
+                    f"{bd[0]:.4f} ms ({bd[1]}) torch.nn.GRU bf16 "
+                    f"bidirectional backward {lib:.3f} ms; "
+                    f"{bwd_phases(gru_mod, 'K7b', bargs)}")
+            t7 = (ms, pms, bd, lib)
+        phase(msg)
+        if not (same and all(e <= t for e, t in zip(errs, tols))):
+            fail(f"K7b-bf16 disagrees with its plain version at B={Bn}")
+        record("K7b-bf16", "gru_scan_bidir_bwd (bf16)",
+               "tpuasr_torch/csrc/gru_lean.cu",
+               "tpuasr/ops/pallas_gru.py:437", max(errs), *t7)
+        del xps, dyss, ysb, bargs, got, want
+    # K2b-bf16 at the deepspeech_var step's shapes (phase 13's B=16).
+    Hv = preset_for("deepspeech_var")[0]["rnn_hidden"]
+    mask = mask_of(TRAIN_B)
+    for D in (512, 3 * 256):
+        for rev in (False, True):
+            x, wx = rnd(T, TRAIN_B, D), rnd(D, 3 * Hv, scale=D ** -0.5)
+            b = (torch.randn(3 * Hv, generator=gen) * 0.1).to(dev)
+            wh, dys = rnd(Hv, 3 * Hv, scale=Hv ** -0.5), rnd(T, TRAIN_B, Hv)
+            ys = gru_mod.gru_scan_xfused_plain(x, wx, b, wh, mask, rev)
+            args = (x, gru_mod.prev_states(ys, rev), wx, b, wh, mask, dys,
+                    rev)
+            got = gru_mod.gru_scan_xfused_bwd(*args)
+            want = gru_mod.gru_scan_xfused_bwd_plain(*args)
+            errs, tols = errors(got, want)
+            same = all(torch.equal(a, c) for a, c in zip(
+                got, gru_mod.gru_scan_xfused_bwd(*args)))
+            msg = (f"[3 K2b-bf16] gru_scan_xfused_bwd bf16 T={T} "
+                   f"B={TRAIN_B} D={D} H={Hv} reverse={rev}: dx, dwx, db, "
+                   f"dwh max_abs_err {fmt(errs)} (tol {fmt(tols)}); two "
+                   f"calls equal {same}; dtypes "
+                   f"{', '.join(str(a.dtype) for a in got)}")
+            t2 = ()
+            if D == 768 and not rev:
+                n = T * TRAIN_B * 3 * Hv
+                ms = cuda_ms(lambda: gru_mod.gru_scan_xfused_bwd(*args), 10)
+                pms = cuda_ms(lambda: gru_mod.gru_scan_xfused_bwd_plain(
+                    *args), 1)
+                bd = bound_mixed(nbytes(*args[:7], *got), {
+                    "bf16": 2 * n * (2 * D + 2 * Hv),
+                    "fp32": 2 * n * (D + Hv)})
+                lib = library_gru_ms(T, TRAIN_B, D, Hv, bf, True)
+                msg += (f"; kernel {ms:.3f} ms plain {pms:.3f} ms bound "
+                        f"{bd[0]:.4f} ms ({bd[1]}) torch.nn.GRU bf16 "
+                        f"backward {lib:.3f} ms")
+                t2 = (ms, pms, bd, lib)
+            phase(msg)
+            if not (same and all(e <= t for e, t in zip(errs, tols))
+                    and [a.dtype for a in got]
+                    == [bf, bf, torch.float32, bf]):
+                fail(f"K2b-bf16 disagrees at D={D} reverse={rev}")
+            record("K2b-bf16", "gru_scan_xfused_bwd (bf16)",
+                   "tpuasr_torch/csrc/gru_lean.cu",
+                   "tpuasr/ops/pallas_gru.py:736", max(errs), *t2)
+    torch.cuda.empty_cache()
+
+
+def bf16_train_slice(kernels, wrappers, card, f32_times) -> None:
+    """Phase 13: config 3's bf16 points through Trainer on the card
+    (benchmarks/config3_deepspeech_train.py:40-45, :82-83: B64_bf16 and
+    B128_bf16 train with bf16_compute and, on the chip, pallas_gru,
+    bf16_gru and bf16_conv): the 512 x 4 DeepSpeechCTC, 64 classes and
+    mels, adamw, B=64 and 128 x 5 s, U=24. K5-bf16 and K5b-bf16 in every
+    GRU direction, K6 and K6b once a step; step 1 against the plain path
+    within BF16_STEP_TOL; the B=64 step beside phase 7's f32 one. Then
+    fused_bidir with bf16_gru and bf16_compute at B=16 (K7 in bf16 and
+    K7b-bf16 once a layer), and the deepspeech_var preset with fused_proj
+    and bf16_gru at B=16 (K2 in bf16 and K2b-bf16 in every direction), once
+    more with the backward forced to the recompute route (K5b-bf16 on the
+    rounded xp)."""
+    from tpuasr_torch.losses import ctc as ctc_mod
+    from tpuasr_torch.ops import gru as gru_mod
+    from tpuasr_torch.train import TrainConfig
+    from tpuasr_torch.utils.params import preset_for
+
+    ctc_patches = ((ctc_mod, "ctc_forward", ctc_mod.ctc_forward_plain),
+                   (ctc_mod, "ctc_backward", ctc_mod.ctc_backward_plain))
+    tpu = dict(pallas_gru=True, bf16_gru=True, bf16_conv=True)
+    cfg = TrainConfig(model="deepspeech_ctc", num_classes=NUM_CLASSES,
+                      warmup_steps=1, bf16_compute=True,
+                      model_kwargs=dict(rnn_hidden=HIDDEN, rnn_layers=LAYERS,
+                                        **tpu))
+    counted = {"K5-bf16": 2 * LAYERS, "K5b-bf16": 2 * LAYERS, "K6": 1,
+               "K6b": 1}
+    patches = ((gru_mod, "gru_scan_fwd", gru_mod.gru_scan_plain),
+               (gru_mod, "gru_scan_bwd", gru_mod.gru_scan_bwd_plain),
+               *ctc_patches)
+    times = train_phase("13 train bf16", cfg, TRAIN_U, (64, 128), counted,
+                        counted, patches, kernels, wrappers, card,
+                        tol=BF16_STEP_TOL)
+    (b_ms, b_rows), (f_ms, f_rows) = times[64], f32_times[64]
+    phase(f"[13 train bf16] B=64 step {b_ms:.2f} ms against phase 7's f32 "
+          f"B=64 step {f_ms:.2f} ms ({f_ms / b_ms:.2f}x) [{card}]; device "
+          f"time by kernel, bf16: {b_rows}; f32: {f_rows}")
+    cfg = TrainConfig(model="deepspeech_ctc", num_classes=NUM_CLASSES,
+                      warmup_steps=1, bf16_compute=True,
+                      model_kwargs=dict(rnn_hidden=HIDDEN, rnn_layers=LAYERS,
+                                        pallas_gru=True, bf16_gru=True,
+                                        fused_bidir=True))
+    patches = ((gru_mod, "gru_scan_bidir_fwd", gru_mod.gru_scan_bidir_plain),
+               (gru_mod, "gru_scan_bidir_bwd",
+                gru_mod.gru_scan_bidir_bwd_plain), *ctc_patches)
+    train_phase("13 train bf16 fused_bidir", cfg, TRAIN_U, (TRAIN_B,),
+                {"K7": LAYERS, "K7b-bf16": LAYERS, "K6": 1, "K6b": 1},
+                ("K7", "K7b-bf16"), patches, kernels, wrappers, card,
+                tol=BF16_STEP_TOL)
+    kwargs, train = preset_for("deepspeech_var")
+    cfg = TrainConfig(model="deepspeech_var", num_classes=NUM_CLASSES,
+                      warmup_steps=1, **train,
+                      model_kwargs=dict(kwargs, pallas_gru=True,
+                                        fused_proj=True, bf16_gru=True))
+    dirs = 2 * kwargs["rnn_layers"]
+    patches = ((gru_mod, "_xfused_k2",
+                lambda x, wx, b, wh, mask, rev:
+                gru_mod.gru_scan_xfused_plain(x, wx, b, wh, mask, rev)),
+               (gru_mod, "gru_scan_xfused_bwd",
+                gru_mod.gru_scan_xfused_bwd_plain),
+               (gru_mod, "gru_scan_bwd", gru_mod.gru_scan_bwd_plain),
+               *ctc_patches)
+    train_phase("13 train bf16 deepspeech_var", cfg, TRAIN_U, (TRAIN_B,),
+                {"K2": dirs, "K2b-bf16": dirs, "K6": 1, "K6b": 1},
+                ("K2", "K2b-bf16"), patches, kernels, wrappers, card,
+                tol=BF16_STEP_TOL)
+    with mock.patch.object(gru_mod, "xfused_bwd_is_fused",
+                           lambda D, H: False):
+        train_phase("13 train bf16 deepspeech_var recompute", cfg, TRAIN_U,
+                    (TRAIN_B,), {"K2": dirs, "K5b-bf16": dirs, "K6": 1,
+                                 "K6b": 1}, ("K5b-bf16",), patches, kernels,
+                    wrappers, card, tol=BF16_STEP_TOL)
+
+
 def main() -> int:
     # ---- 1. environment -------------------------------------------------
     clock = [("start", time.perf_counter())]     # (phase, its end)
@@ -3774,6 +4120,7 @@ def main() -> int:
     # K9 and K7 at config 5's and config 3's shapes; K7b at config 3's.
     conv_bidir_kernels(record, gen)
     bidir_bwd_kernels(record, gen)
+    bf16_train_kernels(record, gen)
 
     # K8 and K8b at config 4's shapes.
     capsnet_kernels(record, gen)
@@ -3839,6 +4186,10 @@ def main() -> int:
                 "K5": gru_mod.gru_scan_fwd,
                 "K5b": gru_mod.gru_scan_bwd,
                 "K2b": gru_mod.gru_scan_xfused_bwd,
+                "K5-bf16": gru_mod.gru_scan_fwd.bf16,
+                "K5b-bf16": gru_mod.gru_scan_bwd.bf16,
+                "K2b-bf16": gru_mod.gru_scan_xfused_bwd.bf16,
+                "K7b-bf16": gru_mod.gru_scan_bidir_bwd.bf16,
                 "K6": ctc_mod.ctc_forward,
                 "K6b": ctc_mod.ctc_backward}
     serving = ("K1", "K2", "K4", "K9", "K9-taps", "K9-slab", "K7", "K3",
@@ -4051,7 +4402,7 @@ def main() -> int:
     clock.append(("6", time.perf_counter()))
 
     # ---- 7. the training slice through Trainer.train_step ---------------------
-    train_slice(kernels, wrappers, card)
+    f32_times = train_slice(kernels, wrappers, card)
     clock.append(("7", time.perf_counter()))
 
     # ---- 8. the CapsNet training step through Trainer.train_step ----------
@@ -4073,6 +4424,10 @@ def main() -> int:
     # ---- 12. streaming (config 6) ------------------------------------------
     streaming_slice(record, kernels, wrappers, card, plain_path)
     clock.append(("12", time.perf_counter()))
+
+    # ---- 13. bf16 training: config 3's bf16 points -------------------------
+    bf16_train_slice(kernels, wrappers, card, f32_times)
+    clock.append(("13", time.perf_counter()))
     phase("[time] seconds by phase (host clock): " + json.dumps(
         {name: round(t - clock[i][1], 1)
          for i, (name, t) in enumerate(clock[1:])})
@@ -4081,7 +4436,8 @@ def main() -> int:
     order = ("K1", "K1b", "K2", "K2-f32", "K4", "K9", "K9-taps", "K9-slab",
              "K7", "K7-f32", "K3", "K3-LM", "K3-backtrack", "K10",
              "K10-rebuild", "K10-gather", "K8", "K8b",
-             "K5", "K5b", "K7b", "K2b", "K6", "K6b")
+             "K5", "K5b", "K7b", "K2b", "K6", "K6b",
+             "K5-bf16", "K5b-bf16", "K2b-bf16", "K7b-bf16")
     print(json.dumps({"kernels": [kernels[k] for k in order]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

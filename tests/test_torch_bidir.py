@@ -141,15 +141,22 @@ def test_backward_matches_jax_vjp():
 
 
 def test_no_grad_saves_nothing():
-    """Under no_grad the scan returns plain tensors (no graph), and with an
-    input requiring grad a bf16 stream is refused (backward is f32 only)."""
+    """Under no_grad the scan returns plain tensors (no graph), in f32 and
+    with bf16 streams; with an input requiring grad a bf16 stream is
+    differentiable too (K7b-bf16, tests/test_torch_gru_bf16.py), its
+    gradient in bf16."""
     case = [_t(a) for a in _scan_case(0)]
     with torch.no_grad():
         ysf, ysb = gru_scan_bidir(case[0].requires_grad_(), *case[1:])
     assert ysf.grad_fn is None and ysb.grad_fn is None
-    bf = [a.to(torch.bfloat16) for a in case[:4]]
-    with pytest.raises(NotImplementedError, match="float32"):
-        gru_scan_bidir(bf[0].requires_grad_(), *bf[1:], case[4])
+    bf = [a.detach().to(torch.bfloat16) for a in case[:4]]
+    with torch.no_grad():
+        ysf, ysb = gru_scan_bidir(bf[0].requires_grad_(), *bf[1:], case[4])
+    assert ysf.grad_fn is None and ysb.grad_fn is None
+    ysf, ysb = gru_scan_bidir(bf[0], *bf[1:], case[4])
+    assert ysf.grad_fn is not None and ysf.dtype == torch.bfloat16
+    (ysf.float().sum() + ysb.float().sum()).backward()
+    assert bf[0].grad.dtype == torch.bfloat16
 
 
 def test_reverse_sequences_matches_jax():

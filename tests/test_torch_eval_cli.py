@@ -135,7 +135,7 @@ def test_audio_loader_batches_equal_jax(tmp_path, cfg):
 
 def test_audio_loader_refuses_what_it_does_not_port(tmp_path):
     path = _corpus(tmp_path, n=2)
-    for kw in (dict(augment=True), dict(unlabeled_frames=True),
+    for kw in (dict(unlabeled_frames=True),
                dict(frame_label_cfg=JFeatureConfig())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             AudioLoader(path, LoaderConfig(**kw))

@@ -228,8 +228,8 @@ def test_try_build_falls_back(corpus):
     assert try_build(loader, "cpu", max_bytes=64) is None
     with pytest.raises(ValueError, match="budget"):
         DeviceCorpus(loader, "cpu", max_bytes=64)
-    # augment is refused by the port's loader itself; on a config that
-    # carries it the corpus raises as JAX's does and try_build streams.
+    # With augment (host random draws per batch) the corpus raises as
+    # JAX's does and try_build streams (tests/test_torch_corpus.py).
     loader.cfg = dataclasses.replace(loader.cfg, augment=True)
     assert try_build(loader, "cpu") is None
     with pytest.raises(ValueError, match="augment"):

@@ -1803,3 +1803,179 @@ def test_native_wav_reader_on_this_machine(tmp_path):
         ref, sr = load_wav(p)
         assert srs[j] == sr and lens[j] == len(ref)
         np.testing.assert_array_equal(out[j, :lens[j]], ref)
+
+
+# bf16 streams (JAX's kernels with dtype bf16): K5-bf16 (K2's tensor-core
+# recurrence over a given xp), K5b-bf16, K2b-bf16 and K7b-bf16 (the lean
+# recurrence's bf16 mode). The kernels and the plain versions round at the
+# same points; an f32 sum in another order can flip a bf16 rounding of h
+# or dhp, which rides the next steps: ys within 8e-3 (one bf16 ulp near 1
+# and its echo, test_k2_bf16_matches_jax's bound), each gradient within
+# 2^-6 of its largest magnitude (four ulps there).
+BF = torch.bfloat16
+BF16_GRAD_REL = 2.0 ** -6
+
+
+def _bf16_close(got, want, rel=BF16_GRAD_REL):
+    assert got.dtype == want.dtype
+    torch.testing.assert_close(got.float(), want.float(), rtol=0,
+                               atol=rel * want.float().abs().max().item())
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("H,B", [(40, 7), (130, 7), (512, 16), (512, 64)])
+def test_k5_k5b_bf16(dev, reverse, H, B):
+    """K5-bf16 and K5b-bf16 against their plain versions; each launch
+    counted on the wrappers' bf16 counters; dxp and dwh in bf16; two calls
+    the same bits."""
+    xp, wh, mask, dys = _scan_case(dev, H, B)
+    xp, wh, dys = xp.to(BF), wh.to(BF), dys.to(BF)
+    f0, b0 = gru_scan_fwd.bf16.launches, gru_scan_bwd.bf16.launches
+    n0 = gru_scan_fwd.launches + gru_scan_bwd.launches
+    ys = gru_scan_fwd(xp, wh, mask, reverse)
+    ref = gru_scan_plain(xp, wh, mask, reverse)
+    assert ys.dtype == BF
+    torch.testing.assert_close(ys.float(), ref.float(), rtol=0, atol=8e-3)
+    ysp = prev_states(ref, reverse)
+    got = gru_scan_bwd(xp, ysp, wh, mask, dys, reverse)
+    want = gru_scan_bwd_plain(xp, ysp, wh, mask, dys, reverse)
+    for a, w in zip(got, want):
+        _bf16_close(a, w)
+    again = gru_scan_bwd(xp, ysp, wh, mask, dys, reverse)
+    assert all(torch.equal(a, c) for a, c in zip(got, again))
+    assert gru_scan_fwd.bf16.launches == f0 + 1
+    assert gru_scan_bwd.bf16.launches == b0 + 2
+    assert gru_scan_fwd.launches + gru_scan_bwd.launches == n0
+    assert not got[0][:, 3].float().any()       # a row of length 0
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("D,H,B", [(70, 40, 7), (512, 384, 16),
+                                   (768, 384, 20)])
+def test_k2b_bf16(dev, D, H, B, reverse):
+    """K2b-bf16 (the fused route) against its plain version: dx, dwx, dwh
+    in bf16 and db in f32, each within 2^-6 of its largest magnitude; two
+    calls the same bits; counted on gru_scan_xfused_bwd.bf16."""
+    x, wx, b, wh, mask, dys = _xfb_case(dev, D, H, B)
+    x, wx, wh, dys = x.to(BF), wx.to(BF), wh.to(BF), dys.to(BF)
+    ysp = prev_states(gru_scan_xfused_plain(x, wx, b, wh, mask, reverse),
+                      reverse)
+    args = (x, ysp, wx, b, wh, mask, dys, reverse)
+    before = gru_scan_xfused_bwd.bf16.launches
+    got = gru_scan_xfused_bwd(*args)
+    assert gru_scan_xfused_bwd.bf16.launches == before + 1
+    want = gru_scan_xfused_bwd_plain(*args)
+    assert [a.dtype for a in got] == [BF, BF, torch.float32, BF]
+    for a, w in zip(got, want):
+        _bf16_close(a, w)
+    assert all(torch.equal(a, c) for a, c in zip(got,
+                                                 gru_scan_xfused_bwd(*args)))
+
+
+@pytest.mark.parametrize("H,B,T", [(40, 7, 37), (512, 16, 37),
+                                   (512, 128, 37), (640, 16, 9)])
+def test_k7b_bf16(dev, H, B, T):
+    """K7b-bf16 against its plain version (both directions in one launch
+    where the plan holds them), each output bf16 within 2^-6 of its
+    largest magnitude; two calls the same bits."""
+    ins, mask, dys = _bidir_case(dev, H, B, T)
+    ins = [t.to(BF) for t in ins]
+    dys = [t.to(BF) for t in dys]
+    ys = gru_scan_bidir_plain(*ins, mask)
+    ysp = [prev_states(y, False) for y in ys]
+    args = (ins[0], ins[1], *ysp, ins[2], ins[3], mask, *dys)
+    before = gru_scan_bidir_bwd.bf16.launches
+    got = gru_scan_bidir_bwd(*args)
+    again = gru_scan_bidir_bwd(*args)
+    assert gru_scan_bidir_bwd.bf16.launches == before + 2
+    want = gru_scan_bidir_bwd_plain(*args)
+    for a, c, w in zip(got, again, want):
+        assert torch.equal(a, c)
+        _bf16_close(a, w)
+
+
+# The lean recurrence's kRoundDhp, held apart from the sum-order noise. Rows
+# never mix in the backward, so a flipped bf16 rounding of dhp (an f32 sum
+# in another order on the other side of a rounding boundary) rides only
+# its own row. Over the first 8 BPTT steps, the median over rows of dhp's
+# relative L2 error: the rounded mode within 2^-14 of the plain version
+# that rounds dhp, a kernel that ignored the bit beyond it. On the CPU at
+# these inputs' shape (T=249, B=16, H=512), the plain version with f64
+# sums for dhp@Wh^T gave 7.4e-8 and the unrounded plain version 4.6e-4
+# (over the whole scan, each row's flips ride: 3.0e-4 and 5.3e-4).
+LEAN_ROUND_GATE = 2.0 ** -14
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_lean_bf16_mode_rounds_dhp(dev, reverse):
+    """A negative control for the lean recurrence's bf16 mode: the kernel
+    on the same f32 upcasts of bf16 streams with kRoundDhp | kDxpBf16
+    and with kDxpBf16 alone, each against gru_bwd_lean_plain with wh in
+    bf16 (which rounds dhp): the first passes LEAN_ROUND_GATE over the
+    first 8 BPTT steps (the median row), the second fails it."""
+    T, B, H = 249, 16, 512
+    xp, wh, _, dys = _scan_case(dev, H, B, T)
+    mask = torch.ones((T, B, 1), device=dev)
+    xp, wh, dys = xp.to(BF), wh.to(BF), dys.to(BF)
+    ysp = prev_states(gru_scan_plain(xp, wh, mask, reverse), reverse)
+    f32 = torch.float32
+    up = (xp.to(f32), gru_mod._hp(ysp, wh), ysp.to(f32), dys.to(f32),
+          wh.to(f32))
+    _, want = gru_mod.gru_bwd_lean_plain(*up[:3], wh, mask, up[3], reverse)
+    plan = gru_mod._lean_plan(B, H, 1, gru_mod._sm_count(dev))
+    first = slice(0, 8) if reverse else slice(T - 8, T)
+
+    def err(mode):
+        (_, dhp), = gru_mod._lean(plan, [up], mask.reshape(T, B), reverse,
+                                  mode)
+        w = want[first]
+        return ((dhp[first] - w).norm(dim=(0, 2))
+                / w.norm(dim=(0, 2))).median().item()
+
+    rounded = err(gru_mod._LEAN_ROUND_DHP | gru_mod._LEAN_DXP_BF16)
+    unrounded = err(gru_mod._LEAN_DXP_BF16)
+    assert rounded <= LEAN_ROUND_GATE < unrounded, (rounded, unrounded)
+
+
+def test_bf16_streams_refuse_f32_partners(dev):
+    """A bf16 stream with an f32 weight (or dys) reaches no kernel: a
+    ValueError before any launch, never an upcast f32 kernel."""
+    xp, wh, mask, dys = _scan_case(dev, 40)
+    n = (gru_scan_fwd.launches, gru_scan_fwd.bf16.launches,
+         gru_scan_bwd.launches, gru_scan_bwd.bf16.launches)
+    with pytest.raises(ValueError):
+        gru_scan_fwd(xp.to(BF), wh, mask)
+    with pytest.raises(ValueError):
+        gru_scan_bwd(xp.to(BF), xp[:, :, :40].to(BF).contiguous(),
+                     wh.to(BF), mask, dys)
+    assert n == (gru_scan_fwd.launches, gru_scan_fwd.bf16.launches,
+                 gru_scan_bwd.launches, gru_scan_bwd.bf16.launches)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(pallas_gru=True, bf16_gru=True, bf16_conv=True),
+    dict(pallas_gru=True, bf16_gru=True, fused_bidir=True),
+    dict(pallas_gru=True, bf16_gru=True, fused_proj=True)],
+    ids=["unfused", "fused_bidir", "fused_proj"])
+def test_bf16_training_step_runs_the_bf16_kernels(dev, kw):
+    """One backward of a small bf16 DeepSpeechCTC in training: the bf16
+    kernels launch (K5/K5b, K7/K7b or K2/K2b), the f32 ones do not, and the
+    gradients are finite."""
+    model = create_model("deepspeech_ctc", num_classes=8, rnn_hidden=40,
+                         rnn_layers=2, conv_channels=4, dropout=0.0,
+                         in_features=32, **kw,
+                         generator=torch.Generator().manual_seed(0))
+    model.to(dev).train()
+    wrappers = [gru_scan_fwd, gru_scan_bwd, gru_scan_bidir_bwd,
+                gru_scan_xfused_bwd]
+    counters = [w for f in wrappers for w in (f, f.bf16)]
+    before = [c.launches for c in counters]
+    feats = torch.randn(3, 50, 32, device=dev).to(BF)
+    lp, _ = model(feats, torch.tensor([50, 31, 9], device=dev))
+    lp.sum().backward()
+    got = [c.launches - b for c, b in zip(counters, before)]
+    f32_launches = got[0::2]
+    bf16_launches = got[1::2]
+    assert sum(f32_launches) == 0
+    assert sum(bf16_launches) >= 2
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters())

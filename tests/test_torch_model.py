@@ -109,17 +109,3 @@ def test_seeded_init_is_deterministic():
     wh = a.rnn0.fwd.wh.detach()
     torch.testing.assert_close(wh @ wh.T, torch.eye(32), atol=1e-5,
                                rtol=0)
-
-
-# bidirectional=False and explicit_pad are ported (the streaming model);
-# without the second direction fused_bidir is ignored, so bf16_gru still
-# needs the kernel path.
-@pytest.mark.parametrize("kw", [
-    dict(bf16_conv=True),
-    dict(bidirectional=False, fused_bidir=True, bf16_gru=True),
-    dict(bidirectional=False, explicit_pad=True, bf16_conv=True),
-    dict(pallas_gru=True, bf16_gru=True),
-])
-def test_unported_flags_raise(kw):
-    with pytest.raises(NotImplementedError):
-        create_model("deepspeech_ctc", **BASE, **kw, in_features=F)

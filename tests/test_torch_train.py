@@ -182,8 +182,7 @@ def test_dropout_is_seeded():
 
 @pytest.mark.parametrize("field,value,extra", [
     ("objective", "framewise_ce", {}), ("objective", "ssvae_elbo", {}),
-    ("use_grain", True, {}), ("use_grain", True, {"grain_workers": 2}),
-    ("bf16_compute", True, {}), ("bf16_compute", True, {"optimizer": "adam"})])
+    ("use_grain", True, {}), ("use_grain", True, {"grain_workers": 2})])
 def test_unported_fields_raise(field, value, extra):
     with pytest.raises(NotImplementedError, match=field.split("_")[0]):
         Trainer(TrainConfig(**{field: value}, **extra), FeatureConfig(),
@@ -192,12 +191,9 @@ def test_unported_fields_raise(field, value, extra):
 
 def test_unported_paths_raise():
     # Dither is ported (the step draws it from a stream of its own,
-    # tests/test_torch_features_modes.py); only what is not ported raises.
+    # tests/test_torch_features_modes.py), and bf16 training
+    # (tests/test_torch_train_bf16.py); only what is not ported raises.
     Trainer(TrainConfig(), FeatureConfig(dither=1.0), device="cpu")
-    model = create_model("deepspeech_ctc", num_classes=C, in_features=64,
-                         **dict(MODEL, bf16_gru=True, fused_proj=True)).train()
-    with pytest.raises(NotImplementedError, match="bf16"):
-        model(torch.zeros(2, 20, 64), torch.tensor([20, 10]))
 
 
 def test_trainer_defaults_to_the_card():

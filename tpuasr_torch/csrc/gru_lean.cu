@@ -1,5 +1,6 @@
-// The float32 GRU backward in three phases: its lean recurrence, and the
-// fixed-order products over all T*B rows that come after it.
+// The GRU backward in three phases (float32, or bf16 streams): its lean
+// recurrence, and the fixed-order products over all T*B rows that come
+// after it.
 //
 // Replaces, with csrc/gru_scan.cu's f32 projection for the products over
 // x and ysp, three Pallas kernels of tpuasr/ops/pallas_gru.py:
@@ -63,6 +64,16 @@
 //      order into its own partial, then the partials summed in slice order
 //      (sum_parts_kernel). No atomics: every call gives the same bits.
 //      K2b's dx = dxp Wx^T is phase a's projection again.
+//
+// bf16 (the JAX kernels with bf16 streams, pallas_gru.py:139, :271-293,
+// :719, :887): xp, ysp, dys and Wh hold bf16 values, and the recurrence
+// reads their f32 upcasts (phase a's products and phase c's sums read f32
+// rows anyway, and one load path keeps the f32 mode's bits). The mode
+// flags change two things: kRoundDhp rounds each staged dhp value to bf16
+// before dhp Wh^T, as JAX casts dhp to Wh's dtype for that product (dh,
+// the gates and the dhp written out for phase c's dWh stay f32,
+// unrounded); kDxpBf16 writes dxp rounded to bf16 (K5b, K7b), where K2b
+// keeps it in f32 for its dWx and db.
 #include "gru_coop.cuh"
 
 namespace {
@@ -185,17 +196,29 @@ sum_parts_kernel(const float* __restrict__ parts, int S, size_t n,
 constexpr int kTM = 8;            // rows of a lane's tile
 constexpr int kGI = 2;            // gate items a thread loads at once
 
-// One direction's tensors, all f32 and contiguous.
+constexpr int kRoundDhp = 1;      // mode: dhp rounded to bf16 for dhp Wh^T
+constexpr int kDxpBf16 = 2;       // mode: dxp written in bf16
+
+// One direction's tensors, f32 (dxp bf16 with kDxpBf16) and contiguous.
 struct LeanDir {
   const float* xp;                // (T, B, 3H): x Wx + b
   const float* hp;                // (T, B, 3H): ysp Wh
   const float* ysp;               // (T, B, H): h before each step
   const float* dys;               // (T, B, H)
   const float* wh;                // (H, 3H)
-  float* dxp;                     // (T, B, 3H), out
+  void* dxp;                      // (T, B, 3H), out
   float* dhp;                     // (T, B, 3H), out; read back by blocks
   float* dh;                      // (B, H), zeroed: the carried gradient
 };
+
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+__device__ __forceinline__ float4 bf16_round4(float4 v) {
+  return make_float4(bf16_round(v.x), bf16_round(v.y), bf16_round(v.z),
+                     bf16_round(v.w));
+}
 
 // The saved inputs of a gate item (row, unit j): xp's and hp's three gates,
 // h_prev, dys and the mask (zeros where the item is not live).
@@ -240,12 +263,12 @@ size_t lean_smem_bytes(int H, int U, int KC) {
 // ceil(B / RG) of them. Rows never meet rows of another group or
 // direction, so each (direction, row group) has a barrier of its own, one
 // a step. reverse: the scan ran from t = T-1 down (K2b's or K5b's reversed
-// direction), so BPTT runs up from t = 0.
+// direction), so BPTT runs up from t = 0. mode: kRoundDhp | kDxpBf16.
 template <int U>
 __global__ void __launch_bounds__(kThreads, 1)
 gru_lean_kernel(LeanDir d0, LeanDir d1, const float* __restrict__ mask,
                 unsigned* __restrict__ bar, int T, int B, int H, int reverse,
-                int RG, int KC) {
+                int RG, int KC, int mode) {
   constexpr int TN = lean_tn(U);
   constexpr int N = kTM * TN;             // sums a lane keeps
   constexpr int RT = kR / kTM;            // row tiles of a pass
@@ -283,6 +306,7 @@ gru_lean_kernel(LeanDir d0, LeanDir d1, const float* __restrict__ mask,
   const int items = (rb1 - rb0) * U;
   const int kc4 = KC / 4, k34 = K3 / 4;
   const bool vec = (H3 & 3) == 0;
+  const bool round_dhp = mode & kRoundDhp;
   GateIn pre[kGI];
   auto load_first = [&](int t) {
 #pragma unroll
@@ -326,9 +350,17 @@ gru_lean_kernel(LeanDir d0, LeanDir d1, const float* __restrict__ mask,
         const float dxr = dn * v.an * rg_ * (1.f - rg_);
         const float dxz = dz * zg * (1.f - zg);
         const size_t q = (tb + b) * H3 + j;
-        io.dxp[q] = dxr * m;
-        io.dxp[q + H] = dxz * m;
-        io.dxp[q + 2 * H] = dn * m;
+        if (mode & kDxpBf16) {
+          __nv_bfloat16* o = static_cast<__nv_bfloat16*>(io.dxp);
+          o[q] = __float2bfloat16_rn(dxr * m);
+          o[q + H] = __float2bfloat16_rn(dxz * m);
+          o[q + 2 * H] = __float2bfloat16_rn(dn * m);
+        } else {
+          float* o = static_cast<float*>(io.dxp);
+          o[q] = dxr * m;
+          o[q + H] = dxz * m;
+          o[q + 2 * H] = dn * m;
+        }
         io.dhp[q] = dxr * m;
         io.dhp[q + H] = dxz * m;
         io.dhp[q + 2 * H] = dn * rg_ * m;
@@ -355,19 +387,21 @@ gru_lean_kernel(LeanDir d0, LeanDir d1, const float* __restrict__ mask,
           for (int e = tid; e < kR * kc4; e += kThreads) {
             const int r = e / kc4;
             const int c = c0 + 4 * (e - r * kc4);
-            reinterpret_cast<float4*>(st)[e] =
-                r < rows && c < H3
-                    ? __ldcg(reinterpret_cast<const float4*>(
-                          src + static_cast<size_t>(b0 + r) * H3 + c))
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
+            float4 v = r < rows && c < H3
+                           ? __ldcg(reinterpret_cast<const float4*>(
+                                 src + static_cast<size_t>(b0 + r) * H3 + c))
+                           : make_float4(0.f, 0.f, 0.f, 0.f);
+            reinterpret_cast<float4*>(st)[e] = round_dhp ? bf16_round4(v) : v;
           }
         } else {
           for (int e = tid; e < kR * KC; e += kThreads) {
             const int r = e / KC;
             const int c = c0 + e - r * KC;
-            st[e] = r < rows && c < H3
-                        ? __ldcg(src + static_cast<size_t>(b0 + r) * H3 + c)
-                        : 0.f;
+            const float v =
+                r < rows && c < H3
+                    ? __ldcg(src + static_cast<size_t>(b0 + r) * H3 + c)
+                    : 0.f;
+            st[e] = round_dhp ? bf16_round(v) : v;
           }
         }
         __syncthreads();
@@ -417,9 +451,9 @@ gru_lean_kernel(LeanDir d0, LeanDir d1, const float* __restrict__ mask,
 template <int U>
 int launch_lean(const LeanDir& d0, const LeanDir& d1, const float* mask,
                 unsigned* bar, int T, int B, int H, int reverse, int RG,
-                int KC, int ndir, cudaStream_t stream) {
+                int KC, int ndir, int mode, cudaStream_t stream) {
   LeanDir a = d0, b = d1;
-  void* args[] = {&a, &b, &mask, &bar, &T, &B, &H, &reverse, &RG, &KC};
+  void* args[] = {&a, &b, &mask, &bar, &T, &B, &H, &reverse, &RG, &KC, &mode};
   return launch_cooperative(
       reinterpret_cast<const void*>(gru_lean_kernel<U>),
       ndir * RG * ((H + U - 1) / U), lean_smem_bytes(H, U, KC), args,
@@ -464,23 +498,26 @@ extern "C" long long tpuasr_gru_lean_smem(int H, int U, int KC) {
 // Phase b over ndir directions (1 or 2) with the plan (U, RG, KC, smem) of
 // ops/gru.py::_lean_plan: direction d's tensors are those of LeanDir's
 // fields, the second set read only with ndir = 2. mask (T, B) f32; bar:
-// ndir * RG zeroed uint32 words. A plan the kernel does not lay out the
-// same way is refused.
+// ndir * RG zeroed uint32 words; mode: 0 (float32), or kRoundDhp (1) with
+// kDxpBf16 (2) or without it (the bf16 streams). A plan the kernel does
+// not lay out the same way is refused.
 extern "C" int tpuasr_gru_lean(
     const float* xp0, const float* hp0, const float* ysp0, const float* dys0,
-    const float* wh0, float* dxp0, float* dhp0, float* dh0, const float* xp1,
+    const float* wh0, void* dxp0, float* dhp0, float* dh0, const float* xp1,
     const float* hp1, const float* ysp1, const float* dys1, const float* wh1,
-    float* dxp1, float* dhp1, float* dh1, const float* mask, unsigned* bar,
+    void* dxp1, float* dhp1, float* dh1, const float* mask, unsigned* bar,
     int T, int B, int H, int reverse, int U, int RG, int KC, int ndir,
-    long long smem, cudaStream_t stream) {
+    int mode, long long smem, cudaStream_t stream) {
   if (T <= 0 || B <= 0 || H <= 0) return 0;
-  if (ndir < 1 || ndir > 2 || RG < 1 || KC <= 0 || KC % 128 ||
+  if (ndir < 1 || ndir > 2 || RG < 1 || KC <= 0 || KC % 128 || mode < 0 ||
+      mode > (kRoundDhp | kDxpBf16) ||
       smem != tpuasr_gru_lean_smem(H, U, KC))
     return static_cast<int>(cudaErrorInvalidValue);
   const LeanDir d0{xp0, hp0, ysp0, dys0, wh0, dxp0, dhp0, dh0};
   const LeanDir d1{xp1, hp1, ysp1, dys1, wh1, dxp1, dhp1, dh1};
 #define TPUASR_LEAN(N)                                                        \
-  launch_lean<N>(d0, d1, mask, bar, T, B, H, reverse, RG, KC, ndir, stream)
+  launch_lean<N>(d0, d1, mask, bar, T, B, H, reverse, RG, KC, ndir, mode,   \
+                 stream)
   TPUASR_BY_UNITS(TPUASR_LEAN)
 #undef TPUASR_LEAN
 }

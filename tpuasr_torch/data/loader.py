@@ -7,9 +7,13 @@ default) a batch's uncached wavs are decoded in one call by the native
 multithreaded reader (``data/native_wav.py``, ``native/wav_batch.cc``),
 bit for bit what ``manifest.load_wav`` (scipy) gives; JAX falls back to
 scipy when its library is not built, the port raises instead.
-``native_io=False`` reads every wav by scipy. Per-frame labels
-(``frame_label_cfg``, ``unlabeled_frames``) and waveform augmentation
-(``augment``) are not ported: they raise ``NotImplementedError``.
+``native_io=False`` reads every wav by scipy. ``augment`` scales each
+utterance by a gain drawn from ``gain_range`` and, with ``noise_std`` > 0,
+adds Gaussian noise, drawn from the loader's own
+``np.random.default_rng(seed + 104729)`` in JAX's order (one stream over
+the loader's life, one gain then one noise vector per row), so the batches
+equal JAX's bit for bit. Per-frame labels (``frame_label_cfg``,
+``unlabeled_frames``) are not ported: they raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -47,9 +51,7 @@ class LoaderConfig:
 def _unsupported(cfg: LoaderConfig) -> list[str]:
     bad = {"frame_label_cfg (frame-wise objectives, ROADMAP Queue 1 item 12)":
            cfg.frame_label_cfg is not None,
-           "unlabeled_frames (ROADMAP Queue 1 item 12)": cfg.unlabeled_frames,
-           "augment (host waveform augmentation, ROADMAP Queue 1 item 5)":
-           cfg.augment}
+           "unlabeled_frames (ROADMAP Queue 1 item 12)": cfg.unlabeled_frames}
     return [name for name, on in bad.items() if on]
 
 
@@ -85,6 +87,7 @@ class AudioLoader:
         self._cache_nbytes = 0
         self._scratch: dict[str, np.ndarray] = {}   # batch-local, no budget
         self.epoch = 0
+        self._aug_rng = np.random.default_rng(self.cfg.seed + 104729)
 
     # -- deterministic, resumable batch plan --------------------------------
 
@@ -182,8 +185,15 @@ class AudioLoader:
         token_lens = np.zeros((B,), np.int32)
         real = np.zeros((B,), bool)
         seen = set()
+        cfg = self.cfg
         for j, u in enumerate(utts):
             data = self._wav(u)[:S]
+            if cfg.augment:
+                data = data * self._aug_rng.uniform(*cfg.gain_range)
+                if cfg.noise_std > 0:
+                    data = data + self._aug_rng.normal(
+                        0.0, cfg.noise_std, size=len(data)).astype(
+                            np.float32)
             wav[j, :len(data)] = data
             wav_lens[j] = len(data)
             toks = u.tokens[:U]

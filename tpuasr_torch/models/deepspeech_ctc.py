@@ -16,22 +16,29 @@ The constructor takes the JAX model's keyword arguments under the same
 names, so a checkpoint's ``model_kwargs`` carry over. With ``pallas_gru``
 the RNN stack follows the JAX kernel path: time-major, streamed in bf16
 with ``bf16_gru``, the int8 GRU kernel with ``int8_proj``/``int8_rec``.
-The port always runs the input projection inside the GRU kernel
-(``fused_proj``); in float32 that is the same math as JAX's separate
-projection, so ``pallas_gru=False`` and ``fused_proj=False`` are accepted
-there. ``matmul_frontend`` runs both convs as band-matrix matmuls;
-``int8_conv`` serves conv2 through K9 (int8 tap-GEMM; the sliding conv,
-or the band matmuls, in training); ``fused_bidir`` runs each BiGRU layer
-as one kernel for both directions (K7, K7b in training) on its own
-parameter layout. ``bf16_conv``, whose JAX numerics the port does not
-reproduce, raises ``NotImplementedError``.
+In float32 the port serves with the input projection inside the GRU
+kernel (K2) whatever ``fused_proj`` says: that is the same math as JAX's
+separate projection. ``matmul_frontend`` runs both convs as band-matrix
+matmuls; ``int8_conv`` serves conv2 through K9 (int8 tap-GEMM; the
+sliding conv, or the band matmuls, in training); ``fused_bidir`` runs
+each BiGRU layer as one kernel for both directions (K7, K7b in training)
+on its own parameter layout.
 
-``model.train()`` gives the JAX ``train=True`` forward in float32: batch
-statistics in every norm (running statistics updated in place), dropout
-after each BiGRU drawn from the ``generator`` passed to ``forward``, the
-int8 flags ignored (one instance trains f32 and serves int8), and the GRU
-scans K5/K5b (or K2 with its backward under ``fused_proj``). A bf16 stream
-(``bf16_gru``) does not train in the port: it raises.
+bf16 follows JAX's rounding points (``GRULayer``, ``BiGRU``): ``bf16_gru``
+rounds x@Wx+b to bf16 outside the scan and runs the bf16 scan K5 (K5b in
+training) with ``pallas_gru``, or the f32 scan over the rounded xp
+without it; with ``fused_proj`` it runs K2 (K2b) over bf16 x and weights;
+with ``fused_bidir`` K7 (K7b) over bf16 projections. ``bf16_conv`` runs
+both convs in bf16 (f32 sums, bf16 output; the norms after them take
+their statistics in f32 and return f32, as flax's ``nn.BatchNorm``). bf16
+features (``TrainConfig.bf16_compute``) make conv1 a bf16 conv whatever
+``bf16_conv`` says, as JAX's ``FrontConv`` takes its input's dtype.
+
+``model.train()`` gives the JAX ``train=True`` forward: batch statistics
+in every norm (running statistics updated in place), dropout after each
+BiGRU drawn from the ``generator`` passed to ``forward``, the int8 flags
+ignored (one instance trains and serves int8), and each GRU scan's
+backward kernel (K5b, K2b, K7b, in f32 or bf16).
 """
 
 from __future__ import annotations
@@ -62,37 +69,31 @@ class DeepSpeechCTC(nn.Module):
                  int8_conv: bool = False, in_features: int = 64,
                  device=None, generator: torch.Generator | None = None):
         super().__init__()
-        if bf16_conv:
-            raise NotImplementedError(
-                "DeepSpeechCTC(bf16_conv) is not ported to tpuasr_torch")
         # A unidirectional stack has no fused pair of directions.
         fused_bidir = fused_bidir and bidirectional
         self.bidirectional = bidirectional
         self.explicit_pad = explicit_pad
         # JAX ignores int8 outside the kernel path (layers.py:117-126).
         int8 = pallas_gru and (int8_proj or int8_rec)
-        if bf16_gru and not (fused_bidir
-                             or pallas_gru and (fused_proj or int8)):
-            raise NotImplementedError(
-                "bf16_gru without the fused projection rounds x@Wx to bf16 "
-                "outside the scan; only the fused kernel path is ported")
         self.bf16_stream = pallas_gru and bf16_gru
         self.dropout = dropout
-        # The fused BiGRU takes bf16 from bf16_gru alone, as JAX's
-        # bf16_kernel (layers.py:242).
-        cd = (torch.bfloat16 if self.bf16_stream or (fused_bidir and bf16_gru)
-              else torch.float32)
+        # bf16_gru is JAX's bf16_kernel in every GRU form (layers.py:126,
+        # :147-156, :242).
+        cd = torch.bfloat16 if bf16_gru else torch.float32
+        cdt = torch.bfloat16 if bf16_conv else None
         pad1 = ((5, 5), (20, 20)) if explicit_pad else "SAME"
         pad2 = ((5, 5), (10, 10)) if explicit_pad else "SAME"
         self.conv1 = FrontConv(1, conv_channels, (11, 41), (2, 2),
                                generator=generator,
-                               use_matmul=matmul_frontend, padding=pad1)
+                               use_matmul=matmul_frontend, padding=pad1,
+                               dtype=cdt)
         self.conv1_bn = BatchNorm(conv_channels)
         # int8_conv serves only: FrontConv takes use_matmul_q8 in eval().
         self.conv2 = FrontConv(conv_channels, conv_channels, (11, 21), (1, 2),
                                generator=generator,
                                use_matmul=matmul_frontend,
-                               use_matmul_q8=int8_conv, padding=pad2)
+                               use_matmul_q8=int8_conv, padding=pad2,
+                               dtype=cdt)
         self.conv2_bn = BatchNorm(conv_channels)
         d = frontend_dim(in_features, conv_channels)
         for i in range(rnn_layers):
@@ -100,7 +101,7 @@ class DeepSpeechCTC(nn.Module):
             kw = dict(compute_dtype=cd, int8_proj=int8,
                       int8_rec=int8 and int8_rec,
                       fused_proj=pallas_gru and fused_proj,
-                      generator=generator)
+                      pallas=pallas_gru, generator=generator)
             if bidirectional:
                 self.add_module(f"rnn{i}", BiGRU(d, rnn_hidden,
                                                  fused_bidir=fused_bidir,
@@ -125,13 +126,10 @@ class DeepSpeechCTC(nn.Module):
 
     def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor,
                 generator: torch.Generator | None = None):
-        """feats (B, T, F) f32, feat_lens (B,) -> (log_probs (B, T', C),
-        out_lens (B,)) with T' = ceil(T / 2) and padded frames zero.
-        ``generator`` (on feats' device) draws the dropout masks in
-        training."""
-        if self.training and self.bf16_stream:
-            raise NotImplementedError(
-                "bf16_gru does not train in tpuasr_torch; train in float32")
+        """feats (B, T, F) f32 (or bf16, ``bf16_compute``), feat_lens (B,)
+        -> (log_probs (B, T', C) f32, out_lens (B,)) with T' = ceil(T / 2)
+        and padded frames zero. ``generator`` (on feats' device) draws the
+        dropout masks in training."""
         with full_fp32():
             return self._forward(feats, feat_lens, generator)
 
@@ -143,7 +141,9 @@ class DeepSpeechCTC(nn.Module):
             return self._conv_frontend(feats, feat_lens)
 
     def _conv_frontend(self, feats, feat_lens):
-        x = feats.to(torch.float32)[:, None]              # (B, 1, T, F)
+        if feats.dtype != torch.bfloat16:
+            feats = feats.to(torch.float32)
+        x = feats[:, None]                                # (B, 1, T, F)
         x = F.relu(self.conv1_bn(self.conv1(x)))
         out_lens = conv_out_length(feat_lens, 11, 2, "SAME")
         tmask = sequence_mask(out_lens, x.shape[2])[:, None, :, None]

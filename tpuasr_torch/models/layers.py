@@ -115,6 +115,11 @@ class FrontConv(nn.Module):
     in training its backward takes cuDNN's deterministic algorithms
     (``_Conv2d``).
 
+    ``dtype`` is JAX's (layers.py:337-341): x and the weight are cast to it
+    (the input's dtype when None) and the output comes back in it; a bf16
+    conv (``bf16_conv``, or a bf16 input) sums in f32 and rounds its output
+    to bf16, in every formulation.
+
     As JAX's ``FrontConv`` (layers.py:285-379), two formulations over the
     same weight: ``use_matmul`` runs Kt shifted f32 matmuls of the
     (B, T, F*Cin) rows against per-tap freq-Toeplitz band matrices;
@@ -127,8 +132,9 @@ class FrontConv(nn.Module):
 
     def __init__(self, in_channels: int, features: int, kernel_size, strides,
                  generator=None, bias: bool = False, use_matmul: bool = False,
-                 use_matmul_q8: bool = False, padding="SAME"):
+                 use_matmul_q8: bool = False, padding="SAME", dtype=None):
         super().__init__()
+        self.dtype = dtype
         self.kernel_size = tuple(kernel_size)
         self.strides = tuple(strides)
         self.padding = (padding if padding == "SAME"
@@ -165,15 +171,19 @@ class FrontConv(nn.Module):
         else:
             pt, pf = self.padding
         q8 = self.use_matmul_q8 and not self.training
+        dt = self.dtype or x.dtype
+        x = x.to(dt)
+        weight = self.weight.to(dt)
         if not (self.use_matmul or q8):
             x = F.pad(x, (pf[0], pf[1], pt[0], pt[1]))
-            return conv2d(x, self.weight, self.bias, (st, sf))
+            bias = None if self.bias is None else self.bias.to(dt)
+            return conv2d(x, weight, bias, (st, sf))
         B, Cin, T, Fq = x.shape
         Cout = self.weight.shape[0]
         T_out = (T + pt[0] + pt[1] - kt) // st + 1
         F_out = (Fq + pf[0] + pf[1] - kf) // sf + 1
         N = F_out * Cout
-        w = self.weight.permute(2, 3, 1, 0)               # HWIO
+        w = weight.permute(2, 3, 1, 0)                    # HWIO
         # NHWC rows with the freq and channel axes flattened f * Cin + c.
         xp = F.pad(x.permute(0, 2, 3, 1), (0, 0, 0, 0, pt[0], pt[1]))
         xf = xp.reshape(B, T + pt[0] + pt[1], Fq * Cin)
@@ -184,20 +194,24 @@ class FrontConv(nn.Module):
             if (Fq * Cin) % 128 or N % 128:
                 raise ValueError(f"use_matmul_q8 needs lane-aligned dims, "
                                  f"got K={Fq * Cin}, N={N}")
-            m = self.band_matrices(w.to(torch.float32), Fq, F_out, kf, sf,
-                                   pf[0])
+            # JAX quantizes the f32 kernel, whatever dtype the conv has.
+            m = self.band_matrices(self.weight.permute(2, 3, 1, 0).to(
+                torch.float32), Fq, F_out, kf, sf, pf[0])
             mq, sw = quantize_per_channel(m.reshape(-1, N))
             out = conv_taps_q8(xf.to(torch.float32).contiguous(),
                                mq.reshape(kt, Fq * Cin, N), sw, T_out)
         else:
+            # f32 sums of each tap's products (exact for bf16 operands),
+            # rounded to dt once at the end, as JAX's dot_general with
+            # preferred_element_type f32 (layers.py:371-379).
             m = self.band_matrices(w, Fq, F_out, kf, sf, pf[0])
-            out = x.new_zeros((B, T_out, N))
+            out = x.new_zeros((B, T_out, N), dtype=torch.float32)
             for t in range(kt):
                 xs = xf[:, t:t + (T_out - 1) * st + 1:st]
-                out = out + xs @ m[t]
-        out = out.reshape(B, T_out, F_out, Cout).permute(0, 3, 1, 2)
+                out = out + xs.to(torch.float32) @ m[t].to(torch.float32)
+        out = out.reshape(B, T_out, F_out, Cout).permute(0, 3, 1, 2).to(dt)
         if self.bias is not None:
-            out = out + self.bias[None, :, None, None]
+            out = out + self.bias.to(dt)[None, :, None, None]
         return out
 
 
@@ -228,6 +242,10 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, C, T, F) f32, or bf16 (a bf16 conv's output): flax takes
+        the statistics in f32 and promotes the output with its f32 scale
+        and bias, so it comes back f32."""
+        x = x.to(torch.float32)
         if self.training:
             mean = x.mean(dim=(0, 2, 3))
             var = torch.clamp((x * x).mean(dim=(0, 2, 3)) - mean * mean,
@@ -279,14 +297,22 @@ class GRULayer(nn.Module):
     """Unidirectional GRU over time-major (T, B, D) input, gate order
     r, z, n; padded steps freeze the state and come out as zeros.
 
-    Serving (``eval()``), the scan is the fused-projection kernel: K2
-    (``gru_scan_xfused``) with the weights cast to ``compute_dtype``, or
-    with ``int8_proj`` K4 (``gru_scan_xfused_q8``), the weights quantized
-    per output channel on each call as in JAX; ``int8_rec`` also quantizes
-    wh. Training (``train()``), float32 only and the int8 flags ignored, as
-    in JAX (deepspeech_ctc.py:119-120): with ``fused_proj`` the K2 scan and
-    its backward, otherwise xp = x@Wx+b by a matmul (layers.py:147-154) and
-    ``gru_scan`` (K5, backward K5b).
+    One route a call, in ``compute_dtype`` (f32, or bf16: JAX's
+    ``bf16_kernel``), in training (``train()``, the int8 flags ignored as
+    in JAX, deepspeech_ctc.py:119-120) and serving (``eval()``) alike:
+
+    * serving with ``int8_proj``: K4 (``gru_scan_xfused_q8``), the weights
+      quantized per output channel on each call as in JAX (``int8_rec``
+      also quantizes wh);
+    * ``fused_proj``, and every f32 serving call: K2 (``gru_scan_xfused``,
+      K2b backward) over x, wx and wh in ``compute_dtype`` and b in f32
+      (layers.py:142-146); f32 serving without ``fused_proj`` is the same
+      math as JAX's separate projection;
+    * otherwise xp = x@Wx + b by a matmul, in bf16 rounded by the product
+      and again by the sum (layers.py:147-156), then ``gru_scan`` (K5, K5b
+      backward) with wh in ``compute_dtype``; without ``pallas``
+      (``pallas_gru=False``, JAX's lax.scan, layers.py:168-185) the f32
+      scan over xp's upcast with the f32 wh.
 
     Streaming (``serve/streaming.py``) runs a layer's weights chunk by
     chunk instead: xp = x@Wx+b by a matmul, then K5 (``gru_scan_fwd``) from
@@ -296,10 +322,11 @@ class GRULayer(nn.Module):
     def __init__(self, in_features: int, hidden: int, reverse: bool = False,
                  compute_dtype=torch.float32, int8_proj: bool = False,
                  int8_rec: bool = False, fused_proj: bool = True,
-                 generator=None):
+                 generator=None, pallas: bool = True):
         super().__init__()
         self.reverse = reverse
         self.fused_proj = fused_proj
+        self.pallas = pallas
         self.compute_dtype = compute_dtype
         self.int8_proj = int8_proj or int8_rec
         self.int8_rec = int8_rec
@@ -312,12 +339,10 @@ class GRULayer(nn.Module):
 
     def forward(self, x: torch.Tensor, mask_t: torch.Tensor) -> torch.Tensor:
         """x (T, B, D), mask_t (T, B, 1) f32 -> (T, B, H) in x's dtype."""
-        if self.training:
-            return self._train_forward(x, mask_t)
         cd = self.compute_dtype
-        xc = x.to(cd).contiguous()
-        b = self.b.to(torch.float32).contiguous()
-        if self.int8_proj:
+        if self.int8_proj and not self.training:
+            xc = x.to(cd).contiguous()
+            b = self.b.to(torch.float32).contiguous()
             wxq, sw = quantize_per_channel(self.wx, axis=0)
             if self.int8_rec:
                 whq, swh = quantize_per_channel(self.wh, axis=0)
@@ -327,25 +352,20 @@ class GRULayer(nn.Module):
                 ys = gru_scan_xfused_q8(xc, wxq, sw, b,
                                         self.wh.to(cd).contiguous(), mask_t,
                                         self.reverse)
-        else:
-            ys = gru_scan_xfused(xc, self.wx.to(cd).contiguous(), b,
-                                 self.wh.to(cd).contiguous(), mask_t,
+        elif self.fused_proj or (cd == torch.float32 and not self.training):
+            ys = gru_scan_xfused(x.to(cd).contiguous(), self.wx.to(cd),
+                                 self.b, self.wh.to(cd), mask_t,
                                  self.reverse)
+        else:
+            # JAX's order: x@Wx rounded to cd, then + b in cd.
+            T, B, D = x.shape
+            with full_fp32():
+                xp = (x.reshape(T * B, D).to(cd) @ self.wx.to(cd)
+                      + self.b.to(cd)).reshape(T, B, -1)
+            wh = self.wh.to(cd) if self.pallas else self.wh
+            ys = gru_scan(xp.to(wh.dtype), wh, mask_t, self.reverse)
         ys = ys.to(x.dtype)
         return ys * mask_t.to(ys.dtype)
-
-    def _train_forward(self, x, mask_t):
-        if self.compute_dtype != torch.float32 or x.dtype != torch.float32:
-            raise NotImplementedError(
-                "training is ported in float32 only (bf16_gru is not)")
-        if self.fused_proj:
-            ys = gru_scan_xfused(x.contiguous(), self.wx, self.b, self.wh,
-                                 mask_t, self.reverse)
-        else:
-            T, B, D = x.shape
-            xp = (x.reshape(T * B, D) @ self.wx + self.b).reshape(T, B, -1)
-            ys = gru_scan(xp, self.wh, mask_t, self.reverse)
-        return ys * mask_t
 
 
 def reverse_sequences(x: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
@@ -366,10 +386,11 @@ class BiGRU(nn.Module):
     JAX's fused form (layers.py:226-260): the parameters ``fwd_wx``,
     ``fwd_wh``, ``fwd_b``, ``bwd_wx``, ``bwd_wh``, ``bwd_b`` sit on this
     module, xp_f = x@Wx_f + b_f and xp_b = reverse(x)@Wx_b + b_b are
-    matmuls in ``compute_dtype`` (bf16 with ``bf16_gru``), and both
-    recursions run in one kernel (``gru_scan_bidir``: K7, and K7b in
-    training, float32 only). As in JAX, that branch ignores ``fused_proj``,
-    ``int8_proj`` and ``int8_rec``.
+    matmuls in ``compute_dtype`` (bf16 with ``bf16_gru``: rounded by the
+    product and by the sum), and both recursions run in one kernel
+    (``gru_scan_bidir``: K7, and K7b in training, in f32 or bf16). As in
+    JAX, that branch ignores ``fused_proj``, ``int8_proj``, ``int8_rec``
+    and ``pallas``.
     """
 
     def __init__(self, in_features: int, hidden: int, generator=None,

@@ -4,8 +4,9 @@ Counterparts of tpuasr/ops/pallas_gru.py:
 
 * ``gru_scan`` (K5 forward, K5b backward; pallas_gru.py:238): the masked
   recurrence over xp = x@Wx+b, differentiable. Its kernels are
-  ``gru_scan_fwd`` (``csrc/gru_bidir.cu``'s row-grouped f32 recurrence at
-  one direction, planned by ``_f32_rec_plan``) and ``gru_scan_bwd`` (the
+  ``gru_scan_fwd`` (in f32 ``csrc/gru_bidir.cu``'s row-grouped recurrence
+  at one direction, planned by ``_f32_rec_plan``; in bf16 K2's
+  tensor-core recurrence over the given xp) and ``gru_scan_bwd`` (the
   three phases of ``csrc/gru_lean.cu`` at one direction);
 * ``gru_scan_xfused`` (K2, pallas_gru.py:772): the input projection fused
   with the scan (``csrc/gru_scan.cu``: a tiled projection launch, then the
@@ -21,7 +22,7 @@ Counterparts of tpuasr/ops/pallas_gru.py:
   only;
 * ``gru_scan_bidir`` (K7 forward, K7b backward; pallas_gru.py:501): both
   directions of a BiGRU over precomputed projections in one launch,
-  differentiable in float32. Its kernels are ``gru_scan_bidir_fwd``
+  differentiable. Its kernels are ``gru_scan_bidir_fwd``
   (``csrc/gru_bidir.cu`` in f32, planned by ``_bidir_f32_plan``, and
   ``csrc/gru_scan.cu`` in bf16) and ``gru_scan_bidir_bwd`` (the three
   phases, both directions in one grid).
@@ -30,12 +31,23 @@ Every kernel wrapper launches its kernel for CUDA tensors and runs its plain
 version for CPU tensors. Layouts follow the JAX package: x (T, B, D)
 time-major, wx (D, 3H), wh (H, 3H), b (3H,), gate order r, z, n,
 mask (T, B, 1).
+
+Every scan and its backward also takes JAX's bf16 streams (the kernels'
+``dtype``, pallas_gru.py:163-293, :437, :736): xp (or x and wx), wh and ys
+in bf16, the state and the gates in f32, h rounded to bf16 for h@Wh. The
+backwards round where JAX's do: dys to ys's dtype, dhp to bf16 before
+dhp@Wh^T, dxp (K5b, K7b) and K2b's dx written in bf16, dWh and dWx rounded
+to bf16 at the end from f32 sums of the unrounded dhp and dxp, db in f32.
+A bf16 call on the card reaches the bf16 form of its kernel, counted on
+the wrapper's ``bf16.launches``; a dtype a kernel does not take raises
+ValueError before any launch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import types
 
 import torch
 
@@ -446,11 +458,18 @@ def gru_scan_xfused_bwd_plain(x, ysp, wx, b, wh, mask, dys, reverse=False):
     the gates, dhp and dxp masked on padded steps, then dx[t] = dxp@Wx^T and
     the sums dWh, dWx and db. x (T, B, D), ysp = prev_states(ys) (T, B, H),
     wx (D, 3H), b (3H,), wh (H, 3H), mask (T, B, 1), dys (T, B, H)
-    -> (dx (T, B, D), dwx (D, 3H), db (3H,), dwh (H, 3H)), f32."""
+    -> (dx (T, B, D), dwx (D, 3H), db (3H,), dwh (H, 3H)), f32.
+
+    With bf16 x, wx, wh, ysp and dys (JAX's bf16 streams; b f32): xp stays
+    f32, unrounded; dhp is rounded to bf16 for dhp@Wh^T and dxp for
+    dxp@Wx^T; dx comes back in bf16, dWx and dWh summed in f32 from the
+    unrounded dxp and dhp, then rounded to bf16 (pallas_gru.py:719, :887);
+    db in f32."""
     T, B, D = x.shape
     H = wh.shape[0]
     m = mask.to(torch.float32).reshape(T, B, 1)
     wx32, wh32 = wx.to(torch.float32), wh.to(torch.float32)
+    rnd = _rounding(wh.dtype)
     b32 = b.to(torch.float32)
     dh = x.new_zeros((B, H), dtype=torch.float32)
     dwh = x.new_zeros((H, 3 * H), dtype=torch.float32)
@@ -473,12 +492,21 @@ def gru_scan_xfused_bwd_plain(x, ysp, wx, b, wh, mask, dys, reverse=False):
             dxz = dz * z * (1.0 - z)
             dhp = torch.cat([dxr, dxz, dn * r], dim=1) * m[t]
             dxp = torch.cat([dxr, dxz, dn], dim=1) * m[t]
-            dh = m[t] * (d * z + dhp @ wh32.T) + (1.0 - m[t]) * d
+            dh = m[t] * (d * z + rnd(dhp) @ wh32.T) + (1.0 - m[t]) * d
             dwh += h_prev.T @ dhp
-            dx[t] = dxp @ wx32.T
+            dx[t] = rnd(dxp) @ wx32.T
             dwx += xt.T @ dxp
             db += dxp.sum(0)
-    return dx, dwx, db, dwh
+    return dx.to(x.dtype), dwx.to(wx.dtype), db, dwh.to(wh.dtype)
+
+
+def _rounding(dtype):
+    """x -> x rounded to ``dtype`` and widened back to f32 (the identity for
+    f32): where JAX casts an f32 value to the weights' dtype before a
+    product."""
+    if dtype == torch.float32:
+        return lambda v: v
+    return lambda v: v.to(dtype).to(torch.float32)
 
 
 # ---- The float32 BPTT in three phases (csrc/gru_lean.cu) -----------------
@@ -607,22 +635,29 @@ def _f32_rec_plan(B: int, H: int, n_sm: int = 132) -> RowGroupPlan:
                            "the f32 GRU recurrence (K5, K2 in f32)")
 
 
-def _lean(plan: RowGroupPlan, dirs, mask2, reverse):
-    """Phase b: one (dxp, dhp) (T, B, 3H) f32 for each direction's
+_LEAN_ROUND_DHP, _LEAN_DXP_BF16 = 1, 2     # kRoundDhp, kDxpBf16
+
+
+def _lean(plan: RowGroupPlan, dirs, mask2, reverse, mode=0):
+    """Phase b: one (dxp, dhp) (T, B, 3H) for each direction's
     (xp, hp, ysp, dys, wh), all f32 and contiguous, under mask2 (T, B); the
     directions share one launch where ``plan.ndir`` is 2, else a launch
-    each."""
+    each. dhp is f32; dxp f32, or bf16 with ``_LEAN_DXP_BF16`` in
+    ``mode``; ``_LEAN_ROUND_DHP`` rounds dhp to bf16 for dhp@Wh^T (the
+    bf16 streams, whose wh holds bf16 values)."""
     T, B, H3 = dirs[0][0].shape
     H = H3 // 3
     dev = dirs[0][0].device
     fn = _build.lib().tpuasr_gru_lean
-    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 9
                    + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     groups = [dirs] if plan.ndir == len(dirs) else [[d] for d in dirs]
+    dxp_dtype = (torch.bfloat16 if mode & _LEAN_DXP_BF16
+                 else torch.float32)
     outs = []
     for group in groups:
-        dxp = [torch.empty_like(d[0]) for d in group]
+        dxp = [torch.empty_like(d[0], dtype=dxp_dtype) for d in group]
         dhp = [torch.empty_like(d[0]) for d in group]
         dh = torch.zeros((len(group), B, H), dtype=torch.float32, device=dev)
         ptrs = [[*map(_build.ptr, (*d, dxp[i], dhp[i], dh[i]))]
@@ -632,24 +667,33 @@ def _lean(plan: RowGroupPlan, dirs, mask2, reverse):
         with torch.cuda.device(dev):
             code = fn(*ptrs[0], *ptrs[-1], _build.ptr(mask2),
                       _build.ptr(bar), T, B, H, int(bool(reverse)), plan.U,
-                      plan.rg, plan.kc, len(group), plan.smem,
+                      plan.rg, plan.kc, len(group), mode, plan.smem,
                       _build.stream_ptr(mask2))
         _build.check(code, "gru lean recurrence")
         outs += list(zip(dxp, dhp))
     return outs
 
 
-def _mm_f32(a, w, bias=None):
-    """a (M, K) @ w (K, N) (+ bias (N,)) in f32 on K2's f32 projection
-    tiles (FMA units, each sum in k order, never TF32); w may be a strided
-    view: it is packed into zero-padded (round_up(K, 8), round_up(N, 128))."""
+def _mm(a, w, bias=None):
+    """a (M, K) @ w (K, N) (+ bias (N,) f32) -> (M, N) f32 on K2's
+    projection tiles, in a fixed order: for f32 operands the FMA tiles
+    (each sum in k order, never TF32), for bf16 ones the ``mma.sync`` tiles
+    (exact products, f32 sums, unrounded). w may be a strided view: it is
+    packed zero-padded as ``_pack_proj`` packs K2's weights, (kp, np) in
+    f32 and W^T (np, kp) in bf16."""
     K, N = w.shape
-    kp, np_ = _round_up(K, 8), _round_up(N, _PROJ_TILE)
-    wp = w.new_zeros((kp, np_))
-    wp[:K, :N] = w
+    np_ = _round_up(N, _PROJ_TILE)
+    if a.dtype == torch.bfloat16:
+        kind, kp = "bf16", _round_up(K, _PROJ_STAGE // 2)
+        wp = w.new_zeros((np_, kp))
+        wp[:N, :K] = w.T
+    else:
+        kind, kp = "f32", _round_up(K, 8)
+        wp = w.new_zeros((kp, np_))
+        wp[:K, :N] = w
     if bias is None:
-        bias = w.new_zeros((N,))
-    return _proj_rows("f32", a, wp, bias, kp, np_)
+        bias = torch.zeros((N,), dtype=torch.float32, device=w.device)
+    return _proj_rows(kind, a, wp, bias, kp, np_)
 
 
 def _tn_slices(M: int, N1: int, N2: int, n_sm: int) -> int:
@@ -688,9 +732,11 @@ def _tn_product(a, b, ones=False):
 
 
 def _hp(ysp, wh):
-    """Phase a's hp = ysp @ Wh (T, B, 3H) over all T*B rows."""
+    """Phase a's hp = ysp @ Wh (T, B, 3H) f32 over all T*B rows: on the f32
+    tiles, or the bf16 tiles for bf16 ysp and wh (exact products, f32
+    sums)."""
     T, B, H = ysp.shape
-    return _mm_f32(ysp.reshape(T * B, H), wh).reshape(T, B, 3 * H)
+    return _mm(ysp.reshape(T * B, H), wh).reshape(T, B, 3 * H)
 
 
 def _dwh(ysp, dhp):
@@ -704,11 +750,14 @@ def gru_bwd_lean_plain(xp, hp, ysp, wh, mask, dys, reverse=False):
     xp = x@Wx+b and hp = ysp@Wh (T, B, 3H), ysp and dys (T, B, H), step by
     step in BPTT order, the gates, dhp and dxp masked on padded steps, and
     dh = m (dh_tot z) + (1 - m) dh_tot + m dhp @ Wh^T -> (dxp, dhp)
-    (T, B, 3H) f32."""
+    (T, B, 3H) f32. With wh in bf16 (the bf16 streams) dhp is rounded to
+    bf16 for dhp @ Wh^T, as the kernel's kRoundDhp mode; dxp and dhp come
+    back unrounded."""
     T, B, H3 = xp.shape
     H = H3 // 3
     m = mask.to(torch.float32).reshape(T, B, 1)
     wh32 = wh.to(torch.float32)
+    rnd = _rounding(wh.dtype)
     dh = xp.new_zeros((B, H), dtype=torch.float32)
     dxp = xp.new_empty((T, B, H3), dtype=torch.float32)
     dhp = xp.new_empty((T, B, H3), dtype=torch.float32)
@@ -727,7 +776,7 @@ def gru_bwd_lean_plain(xp, hp, ysp, wh, mask, dys, reverse=False):
             dhp[t] = torch.cat([dxr, dxz, dn * r], dim=1) * m[t]
             dxp[t] = torch.cat([dxr, dxz, dn], dim=1) * m[t]
             dh = (m[t] * (d * z) + (1.0 - m[t]) * d
-                  + m[t] * (dhp[t] @ wh32.T))
+                  + m[t] * (rnd(dhp[t]) @ wh32.T))
     return dxp, dhp
 
 
@@ -767,31 +816,57 @@ def gru_scan_xfused_bwd_phases_plain(x, ysp, wx, b, wh, mask, dys,
 
 
 def _xfb_pre(x, ysp, wx, b, wh):
-    """K2b's phase a: xp = x@Wx+b and hp = ysp@Wh (T, B, 3H) over all rows."""
+    """K2b's phase a: xp = x@Wx+b and hp = ysp@Wh (T, B, 3H) f32 over all
+    rows, on the f32 tiles, or for bf16 operands on the bf16 tiles (xp
+    unrounded, as JAX's in-kernel xp)."""
     T, B, D = x.shape
     H = wh.shape[0]
-    xp = _mm_f32(x.reshape(T * B, D), wx, b).reshape(T, B, 3 * H)
+    xp = _mm(x.reshape(T * B, D), wx, b).reshape(T, B, 3 * H)
     return xp, _hp(ysp, wh)
 
 
 def _xfb_post(x, ysp, wx, dxp, dhp):
-    """K2b's phase c: (dx, dwx, db, dwh) from dxp and dhp (T, B, 3H)."""
+    """K2b's phase c: (dx, dwx, db, dwh) from dxp and dhp (T, B, 3H) f32,
+    unrounded; x, ysp and wx f32, or bf16 (then dx = bf16(dxp) @ Wx^T on
+    the bf16 tiles, written in bf16, and dwx and dwh rounded to bf16 from
+    the f32 sums)."""
     T, B, D = x.shape
     H3 = wx.shape[1]
     dxp2 = dxp.reshape(T * B, H3)
-    dwx_db = _tn_product(x.reshape(T * B, D), dxp2, ones=True)
-    dx = _mm_f32(dxp2, wx.T).reshape(T, B, D)
-    return dx, dwx_db[:D], dwx_db[D], _dwh(ysp, dhp)
+    f32 = torch.float32
+    dwx_db = _tn_product(x.reshape(T * B, D).to(f32), dxp2, ones=True)
+    dwh = _dwh(ysp.to(f32), dhp)
+    if x.dtype == f32:
+        dx = _mm(dxp2, wx.T).reshape(T, B, D)
+        return dx, dwx_db[:D], dwx_db[D], dwh
+    bf = torch.bfloat16
+    dx = _mm(dxp2.to(bf), wx.T).reshape(T, B, D).to(bf)
+    return dx, dwx_db[:D].to(bf), dwx_db[D].contiguous(), dwh.to(bf)
+
+
+def _check_streams(name, dtype, **tensors):
+    """The tensors of one scan or backward share ``dtype``, f32 or bf16:
+    a bf16 call reaches the bf16 form of its kernel, never an f32 kernel
+    on upcasts; ValueError before any launch otherwise."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"{name}: float32 or bfloat16 streams, got {dtype}")
+    for k, t in tensors.items():
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: {k} is {t.dtype}, the streams are "
+                             f"{dtype}")
 
 
 def gru_scan_xfused_bwd(x, ysp, wx, b, wh, mask, dys, reverse=False):
-    """K2b: (dx (T, B, D), dwx (D, 3H), db (3H,), dwh (H, 3H)) f32 from
-    x (T, B, D), ysp = prev_states(ys) (T, B, H), wx (D, 3H), b (3H,),
-    wh (H, 3H), mask (T, B, 1) and dys (T, B, H), all f32. On the card, in
-    three phases: xp = x@Wx+b and hp = ysp@Wh over all T*B rows, the lean
-    recurrence (``_lean_plan``: a shape it cannot hold raises ValueError
-    before any launch), then dWh, dWx, db and dx over all rows; every
-    product on hand-written FMA tiles, in a fixed order."""
+    """K2b: (dx (T, B, D), dwx (D, 3H), db (3H,), dwh (H, 3H)) from
+    x (T, B, D), ysp = prev_states(ys) (T, B, H), wx (D, 3H), b (3H,) f32,
+    wh (H, 3H), mask (T, B, 1) and dys (T, B, H); x, ysp, wx, wh and dys
+    all f32 (every output f32) or all bf16 (JAX's bf16 streams: dx, dwx
+    and dwh in bf16, db in f32). On the card, in three phases: xp = x@Wx+b
+    and hp = ysp@Wh over all T*B rows, the lean recurrence (``_lean_plan``:
+    a shape it cannot hold raises ValueError before any launch; in bf16 it
+    rounds dhp for dhp@Wh^T), then dWh, dWx, db and dx over all rows;
+    every product on hand-written tiles, in a fixed order. One count a
+    call, on ``launches`` (f32) or ``bf16.launches``."""
     if x.device.type == "cpu":
         return gru_scan_xfused_bwd_plain(x, ysp, wx, b, wh, mask, dys,
                                          reverse)
@@ -800,38 +875,60 @@ def gru_scan_xfused_bwd(x, ysp, wx, b, wh, mask, dys, reverse=False):
                          f"{x.device}")
     T, B, D = x.shape
     H = wh.shape[0]
-    f32 = (torch.float32,)
-    _build.check_tensor("x", x, x.device, f32, (T, B, D))
-    _build.check_tensor("wx", wx, x.device, f32, (D, 3 * H))
-    _build.check_tensor("b", b, x.device, f32, (3 * H,))
-    _build.check_tensor("wh", wh, x.device, f32, (H, 3 * H))
+    dt = (x.dtype,)
+    _check_streams("gru_scan_xfused_bwd", x.dtype, wx=wx, wh=wh, ysp=ysp,
+                   dys=dys)
+    _build.check_tensor("x", x, x.device, dt, (T, B, D))
+    _build.check_tensor("wx", wx, x.device, dt, (D, 3 * H))
+    _build.check_tensor("b", b, x.device, (torch.float32,), (3 * H,))
+    _build.check_tensor("wh", wh, x.device, dt, (H, 3 * H))
     for name, t in (("ysp", ysp), ("dys", dys)):
-        _build.check_tensor(name, t, x.device, f32, (T, B, H))
+        _build.check_tensor(name, t, x.device, dt, (T, B, H))
     mask2 = _mask_2d(mask, T, B, x.device)
     if x.numel() == 0 or H == 0:
         return (torch.zeros_like(x), torch.zeros_like(wx),
                 torch.zeros_like(b), torch.zeros_like(wh))
     plan = _lean_plan(B, H, 1, _sm_count(x.device))
+    bf16 = x.dtype == torch.bfloat16
     xp, hp = _xfb_pre(x, ysp, wx, b, wh)
-    (dxp, dhp), = _lean(plan, [(xp, hp, ysp, dys, wh)], mask2, reverse)
-    gru_scan_xfused_bwd.launches += 1
+    f32 = torch.float32
+    (dxp, dhp), = _lean(plan, [(xp, hp, ysp.to(f32), dys.to(f32),
+                                wh.to(f32))], mask2, reverse,
+                        _LEAN_ROUND_DHP if bf16 else 0)
+    (gru_scan_xfused_bwd.bf16 if bf16 else gru_scan_xfused_bwd).launches += 1
     return _xfb_post(x, ysp, wx, dxp, dhp)
 
 
 gru_scan_xfused_bwd.launches = 0
+gru_scan_xfused_bwd.bf16 = types.SimpleNamespace(launches=0)
+
+
+def _xf_recompute_xp(x, wx, b):
+    """The recompute route's xp (pallas_gru.py:900-901): x@Wx+b over all
+    T*B rows in x's dtype; in bf16 the product is rounded to bf16 and
+    b.bf16 added in bf16, so xp is rounded twice (the forward's in-kernel
+    xp is not rounded at all)."""
+    T, B, D = x.shape
+    x2 = x.reshape(T * B, D)
+    with full_fp32():
+        if x.dtype == torch.float32:
+            return (x2 @ wx + b).reshape(T, B, -1)
+        f32 = torch.float32
+        return ((x2.to(f32) @ wx.to(f32)).to(x.dtype)
+                + b.to(x.dtype)).reshape(T, B, -1)
 
 
 class _XFusedScan(torch.autograd.Function):
     """K2 forward; backward by JAX's rule (``xfused_bwd_is_fused``): K2b
     where JAX takes ``_xf_bwd_fused``, otherwise ``_xf_bwd_recompute``'s
-    route, xp = x@Wx+b by a matmul, K5b for dxp and dWh, then dx, dWx and
-    db by matmuls. Float32 only."""
+    route, xp = x@Wx+b by a matmul (``_xf_recompute_xp``), K5b for dxp
+    and dWh, then dx, dWx and db by matmuls on dxp's f32 upcast. In f32,
+    or with bf16 x, wx, wh (and ys, dys): dx, dwx and dwh come back in
+    bf16, db in f32, as JAX's ``.astype`` casts return them
+    (pallas_gru.py:887-888, :925-926)."""
 
     @staticmethod
     def forward(ctx, x, wx, b, wh, mask, reverse):
-        if x.dtype != torch.float32:
-            raise NotImplementedError(
-                "the backward of gru_scan_xfused is ported for float32 only")
         ys = _xfused_k2(x, wx, b, wh, mask, reverse)
         ctx.save_for_backward(x, wx, b, wh, mask, ys)
         ctx.reverse = reverse
@@ -843,35 +940,38 @@ class _XFusedScan(torch.autograd.Function):
         T, B, D = x.shape
         H3 = wx.shape[1]
         ysp = prev_states(ys, ctx.reverse)
+        dys = dys.to(ys.dtype).contiguous()
         if xfused_bwd_is_fused(D, wh.shape[0]):
             dx, dwx, db, dwh = gru_scan_xfused_bwd(
-                x, ysp, wx, b, wh, mask, dys.contiguous(), ctx.reverse)
+                x, ysp, wx, b, wh, mask, dys, ctx.reverse)
             return dx, dwx, db, dwh, None, None
+        xp = _xf_recompute_xp(x, wx, b)
+        dxp, dwh = gru_scan_bwd(xp, ysp, wh, mask, dys, ctx.reverse)
+        f32 = torch.float32
+        dxp2 = dxp.reshape(T * B, H3).to(f32)
         with full_fp32():
-            xp = (x.reshape(T * B, D) @ wx + b).reshape(T, B, H3)
-        dxp, dwh = gru_scan_bwd(xp, ysp, wh, mask, dys.contiguous(),
-                                ctx.reverse)
-        dxp2 = dxp.reshape(T * B, H3)
-        with full_fp32():
-            dx = (dxp2 @ wx.T).reshape(T, B, D)
-            dwx = x.reshape(T * B, D).T @ dxp2
-        return dx, dwx, dxp2.sum(0), dwh, None, None
+            dx = (dxp2 @ wx.to(f32).T).reshape(T, B, D)
+            dwx = x.reshape(T * B, D).to(f32).T @ dxp2
+        return (dx.to(x.dtype), dwx.to(wx.dtype), dxp2.sum(0), dwh, None,
+                None)
 
 
 # ---- K5 / K5b: the scan over precomputed projections, with BPTT ----------
 
 
 def gru_scan_plain(xp, wh, mask, reverse=False, h0=None):
-    """Plain version of K5: xp (T, B, 3H) f32, wh (H, 3H) f32,
-    mask (T, B, 1), h0 (B, H) or None (zero) -> ys (T, B, H) f32."""
+    """Plain version of K5: xp (T, B, 3H) and wh (H, 3H), both f32 or both
+    bf16, mask (T, B, 1), h0 (B, H) or None (zero) -> ys (T, B, H) in xp's
+    dtype. The state and the gates are f32; in bf16 h is rounded to bf16
+    for h @ Wh (JAX's ``_fwd_kernel``, pallas_gru.py:89-90)."""
     wh32 = wh.to(torch.float32)
 
     def hp_fn(h):
         with full_fp32():
-            return h @ wh32
+            return h.to(wh.dtype).to(torch.float32) @ wh32
 
     return gru_recurrence(xp.to(torch.float32), hp_fn, mask, reverse,
-                          torch.float32, h0)
+                          xp.dtype, h0)
 
 
 def prev_states(ys, reverse):
@@ -887,11 +987,15 @@ def prev_states(ys, reverse):
 def gru_scan_bwd_plain(xp, ysp, wh, mask, dys, reverse=False):
     """Plain version of K5b, step by step as ``_bwd_kernel``
     (pallas_gru.py:117-146): the gates recomputed from (xp, ysp), every
-    gradient masked on padded steps. -> dxp (T, B, 3H), dwh (H, 3H), f32."""
+    gradient masked on padded steps. -> dxp (T, B, 3H), dwh (H, 3H), f32.
+    With bf16 streams (xp, ysp, wh, dys in bf16): dhp rounded to bf16 for
+    dhp @ Wh^T (pallas_gru.py:139), dxp written in bf16, dWh summed in f32
+    from the unrounded dhp and returned in bf16 (:293)."""
     T, B, H3 = xp.shape
     H = H3 // 3
     m = mask.to(torch.float32).reshape(T, B, 1)
     wh32 = wh.to(torch.float32)
+    rnd = _rounding(wh.dtype)
     dh = xp.new_zeros((B, H), dtype=torch.float32)
     dwh = xp.new_zeros((H, H3), dtype=torch.float32)
     dxp = xp.new_empty((T, B, H3), dtype=torch.float32)
@@ -910,9 +1014,9 @@ def gru_scan_bwd_plain(xp, ysp, wh, mask, dys, reverse=False):
             dxz = dz * z * (1.0 - z)
             dhp = torch.cat([dxr, dxz, dn * r], dim=1) * m[t]
             dxp[t] = torch.cat([dxr, dxz, dn], dim=1) * m[t]
-            dh = m[t] * (d * z + dhp @ wh32.T) + (1.0 - m[t]) * d
+            dh = m[t] * (d * z + rnd(dhp) @ wh32.T) + (1.0 - m[t]) * d
             dwh += h_prev.T @ dhp
-    return dxp, dwh
+    return dxp.to(xp.dtype), dwh.to(wh.dtype)
 
 
 def _check_scan(xp, wh, mask):
@@ -920,9 +1024,10 @@ def _check_scan(xp, wh, mask):
     H = wh.shape[0]
     if H3 != 3 * H:
         raise ValueError(f"xp has {H3} columns, expected 3 * {H}")
-    f32 = (torch.float32,)
-    _build.check_tensor("xp", xp, xp.device, f32, (T, B, 3 * H))
-    _build.check_tensor("wh", wh, xp.device, f32, (H, 3 * H))
+    dt = (xp.dtype,)
+    _check_streams("gru_scan", xp.dtype, wh=wh)
+    _build.check_tensor("xp", xp, xp.device, dt, (T, B, 3 * H))
+    _build.check_tensor("wh", wh, xp.device, dt, (H, 3 * H))
     return T, B, H, _mask_2d(mask, T, B, xp.device)
 
 
@@ -954,10 +1059,14 @@ def _aligned_h0(h0):
 
 
 def gru_scan_fwd(xp, wh, mask, reverse=False, h0=None):
-    """K5: ys (T, B, H) f32 from xp (T, B, 3H), wh (H, 3H), mask (T, B, 1).
-    On the card, csrc/gru_bidir.cu's row-grouped recurrence at one
-    direction (``_f32_rec_plan``; a shape it cannot hold raises ValueError
-    before any launch). One count a call.
+    """K5: ys (T, B, H) from xp (T, B, 3H), wh (H, 3H), mask (T, B, 1).
+    f32: on the card, csrc/gru_bidir.cu's row-grouped recurrence at one
+    direction (``_f32_rec_plan``). bf16 (xp and wh in bf16, ys bf16; JAX's
+    ``_fwd_kernel`` with bf16 streams): K2's tensor-core recurrence over
+    the given xp (``_scan_plan(B, H, H, _MODE_K2, bf16)``, as K7's bf16
+    forward at one direction). A shape its plan cannot hold raises
+    ValueError before any launch. One count a call, on ``launches`` (f32)
+    or ``bf16.launches``.
 
     h0: the state before the first step in scan order, (B, H) float32 on
     xp's device, or None for zero (the training scans; that path and its
@@ -966,52 +1075,84 @@ def gru_scan_fwd(xp, wh, mask, reverse=False, h0=None):
     scan over T steps equals a scan over the first T1 steps, then one over
     the rest from the first's last state. There is no backward from h0:
     with an input that requires grad (and grad enabled) it raises
-    ValueError."""
+    ValueError. Only the f32 scan starts from h0."""
     if h0 is not None:
         _check_h0(h0, xp.shape[1], wh.shape[0], xp.device,
                   torch.is_grad_enabled() and (xp.requires_grad
                                                or wh.requires_grad))
+        if xp.dtype != torch.float32:
+            raise ValueError("gru_scan_fwd starts from h0 in float32 only")
     if xp.device.type == "cpu":
         return gru_scan_plain(xp, wh, mask, reverse, h0)
     if xp.device.type != "cuda":
         raise ValueError(f"gru_scan_fwd: unsupported device {xp.device}")
     T, B, H, mask2 = _check_scan(xp, wh, mask)
     if xp.numel() == 0:
-        return torch.empty((T, B, H), dtype=torch.float32, device=xp.device)
-    plan = _f32_rec_plan(B, H, _sm_count(xp.device))
+        return torch.empty((T, B, H), dtype=xp.dtype, device=xp.device)
+    n_sm = _sm_count(xp.device)
+    if xp.dtype == torch.bfloat16:
+        plan = _scan_plan(B, H, H, _MODE_K2, torch.bfloat16, n_sm)
+        ys = _recur(plan, xp, _pack_rec(wh, plan), None, mask2, reverse,
+                    torch.bfloat16)
+        gru_scan_fwd.bf16.launches += 1
+        return ys
+    plan = _f32_rec_plan(B, H, n_sm)
     ys, = _bidir_f32(plan, (xp,), (wh,), mask2, reverse, (_aligned_h0(h0),))
     gru_scan_fwd.launches += 1
     return ys
 
 
 gru_scan_fwd.launches = 0
+gru_scan_fwd.bf16 = types.SimpleNamespace(launches=0)
 
 
 def gru_scan_bwd(xp, ysp, wh, mask, dys, reverse=False):
-    """K5b: (dxp (T, B, 3H), dwh (H, 3H)) f32 from xp, ysp = prev_states(ys),
-    wh, mask (T, B, 1) and dys (T, B, H). On the card, in three phases at
-    one direction: hp = ysp@Wh over all T*B rows, the lean recurrence
+    """K5b: (dxp (T, B, 3H), dwh (H, 3H)) from xp, ysp = prev_states(ys),
+    wh, mask (T, B, 1) and dys (T, B, H), all f32 or all bf16 (outputs in
+    the same dtype). On the card, in three phases at one direction:
+    hp = ysp@Wh over all T*B rows, the lean recurrence
     (``_lean_plan(B, H, 1)``: a shape it cannot hold raises ValueError
-    before any launch), then dWh = ysp^T dhp over all rows, in a fixed
-    order. One count a call."""
+    before any launch; in bf16 over the streams' f32 upcasts, dhp rounded
+    for dhp@Wh^T and dxp written in bf16), then dWh = ysp^T dhp over all
+    rows, in a fixed order (rounded to bf16 at the end in bf16). One count
+    a call, on ``launches`` (f32) or ``bf16.launches``."""
     if xp.device.type == "cpu":
         return gru_scan_bwd_plain(xp, ysp, wh, mask, dys, reverse)
     if xp.device.type != "cuda":
         raise ValueError(f"gru_scan_bwd: unsupported device {xp.device}")
     T, B, H, mask2 = _check_scan(xp, wh, mask)
-    f32 = (torch.float32,)
-    _build.check_tensor("ysp", ysp, xp.device, f32, (T, B, H))
-    _build.check_tensor("dys", dys, xp.device, f32, (T, B, H))
+    _check_streams("gru_scan_bwd", xp.dtype, ysp=ysp, dys=dys)
+    dt = (xp.dtype,)
+    _build.check_tensor("ysp", ysp, xp.device, dt, (T, B, H))
+    _build.check_tensor("dys", dys, xp.device, dt, (T, B, H))
     if xp.numel() == 0:
         return torch.empty_like(xp), torch.zeros_like(wh)
     plan = _lean_plan(B, H, 1, _sm_count(xp.device))
-    (dxp, dhp), = _lean(plan, [(xp, _hp(ysp, wh), ysp, dys, wh)], mask2,
-                        reverse)
-    gru_scan_bwd.launches += 1
-    return dxp, _dwh(ysp, dhp)
+    (dxp, dwh), = _lean_dirs(plan, [(xp, ysp, dys, wh)], mask2, reverse)
+    (gru_scan_bwd.bf16 if xp.dtype == torch.bfloat16
+     else gru_scan_bwd).launches += 1
+    return dxp, dwh
 
 
 gru_scan_bwd.launches = 0
+gru_scan_bwd.bf16 = types.SimpleNamespace(launches=0)
+
+
+def _lean_dirs(plan, dirs, mask2, reverse):
+    """The three phases of K5b and K7b: for each direction's
+    (xp, ysp, dys, wh), all f32 or all bf16, hp = ysp@Wh (on the bf16
+    tiles for bf16), the lean recurrence over the f32 upcasts (in bf16 dhp
+    rounded for dhp@Wh^T and dxp written in bf16), then dWh = ysp^T dhp
+    from the unrounded dhp, cast to wh's dtype -> [(dxp, dwh)] in the
+    streams' dtype. In f32 every cast is the tensor itself."""
+    f32 = torch.float32
+    mode = (_LEAN_ROUND_DHP | _LEAN_DXP_BF16
+            if dirs[0][0].dtype == torch.bfloat16 else 0)
+    up = [(xp.to(f32), _hp(ysp, wh), ysp.to(f32), dys.to(f32), wh.to(f32))
+          for xp, ysp, dys, wh in dirs]
+    outs = _lean(plan, up, mask2, reverse, mode)
+    return [(dxp, _dwh(u[2], dhp).to(d[3].dtype))
+            for (dxp, dhp), u, d in zip(outs, up, dirs)]
 
 
 class _GRUScan(torch.autograd.Function):
@@ -1026,15 +1167,16 @@ class _GRUScan(torch.autograd.Function):
     def backward(ctx, dys):
         xp, wh, mask, ys = ctx.saved_tensors
         dxp, dwh = gru_scan_bwd(xp, prev_states(ys, ctx.reverse), wh, mask,
-                                dys.contiguous(), ctx.reverse)
+                                dys.to(ys.dtype).contiguous(), ctx.reverse)
         return dxp, dwh, None, None
 
 
 def gru_scan(xp, wh, mask, reverse=False):
-    """Masked GRU over time, differentiable: xp (T, B, 3H) f32, wh (H, 3H)
-    f32, mask (T, B, 1) -> ys (T, B, H). K5 forward, K5b backward (the plain
-    versions for CPU tensors). reverse=True is the right-to-left GRU on
-    left-aligned ragged rows, as in JAX."""
+    """Masked GRU over time, differentiable: xp (T, B, 3H) and wh (H, 3H),
+    both f32 or both bf16 (JAX's bf16 streams), mask (T, B, 1) -> ys
+    (T, B, H) in xp's dtype. K5 forward, K5b backward (the plain versions
+    for CPU tensors). reverse=True is the right-to-left GRU on left-aligned
+    ragged rows, as in JAX."""
     return _GRUScan.apply(xp.contiguous(), wh.contiguous(), mask, reverse)
 
 
@@ -1109,7 +1251,8 @@ def gru_scan_bidir_plain(xpf, xpb, whf, whb, mask):
 def gru_scan_bidir_bwd_plain(xpf, xpb, yspf, yspb, whf, whb, mask, dysf,
                              dysb):
     """Plain version of K7b: ``gru_scan_bwd_plain`` per direction, both
-    forward in time. -> (dxpf, dxpb, dwhf, dwhb), f32."""
+    forward in time. -> (dxpf, dxpb, dwhf, dwhb) in the streams' dtype
+    (f32, or bf16 with JAX's bf16 rounding points)."""
     dxpf, dwhf = gru_scan_bwd_plain(xpf, yspf, whf, mask, dysf)
     dxpb, dwhb = gru_scan_bwd_plain(xpb, yspb, whb, mask, dysb)
     return dxpf, dxpb, dwhf, dwhb
@@ -1208,49 +1351,52 @@ def gru_scan_bidir_bwd_phases_plain(xpf, xpb, yspf, yspb, whf, whb, mask,
 
 
 def gru_scan_bidir_bwd(xpf, xpb, yspf, yspb, whf, whb, mask, dysf, dysb):
-    """K7b: (dxpf, dxpb (T, B, 3H), dwhf, dwhb (H, 3H)) f32 from xpf, xpb,
+    """K7b: (dxpf, dxpb (T, B, 3H), dwhf, dwhb (H, 3H)) from xpf, xpb,
     yspf = prev_states(ysf), yspb, whf, whb, mask (T, B, 1) and dysf, dysb
-    (T, B, H). On the card, in three phases: hp = ysp@Wh for both
+    (T, B, H), all f32 or all bf16 (outputs in that dtype; bf16 rounds as
+    K5b does). On the card, in three phases: hp = ysp@Wh for both
     directions over all T*B rows, the lean recurrence with both directions
     in one grid (``_lean_plan(B, H, 2)``: a launch a direction where they
     cannot share one; a shape it cannot hold raises ValueError before any
     launch), then dWh = ysp^T dhp per direction over all rows, in a fixed
-    order. One count a call."""
+    order. One count a call, on ``launches`` (f32) or ``bf16.launches``."""
     if xpf.device.type == "cpu":
         return gru_scan_bidir_bwd_plain(xpf, xpb, yspf, yspb, whf, whb,
                                         mask, dysf, dysb)
     if xpf.device.type != "cuda":
         raise ValueError(f"gru_scan_bidir_bwd: unsupported device "
                          f"{xpf.device}")
+    dt = xpf.dtype
     T, B, H, mask2 = _check_bidir(xpf, xpb, whf, whb, mask,
-                                  (torch.float32,))
+                                  (torch.float32, torch.bfloat16))
+    _check_streams("gru_scan_bidir_bwd", dt, yspf=yspf, yspb=yspb,
+                   dysf=dysf, dysb=dysb)
     for name, t in (("yspf", yspf), ("yspb", yspb), ("dysf", dysf),
                     ("dysb", dysb)):
-        _build.check_tensor(name, t, xpf.device, (torch.float32,),
-                            (T, B, H))
+        _build.check_tensor(name, t, xpf.device, (dt,), (T, B, H))
     if xpf.numel() == 0:
         return (torch.empty_like(xpf), torch.empty_like(xpb),
                 torch.zeros_like(whf), torch.zeros_like(whb))
     plan = _lean_plan(B, H, 2, _sm_count(xpf.device))
-    dirs = [(xpf, _hp(yspf, whf), yspf, dysf, whf),
-            (xpb, _hp(yspb, whb), yspb, dysb, whb)]
-    (dxpf, dhpf), (dxpb, dhpb) = _lean(plan, dirs, mask2, False)
-    gru_scan_bidir_bwd.launches += 1
-    return dxpf, dxpb, _dwh(yspf, dhpf), _dwh(yspb, dhpb)
+    (dxpf, dwhf), (dxpb, dwhb) = _lean_dirs(
+        plan, [(xpf, yspf, dysf, whf), (xpb, yspb, dysb, whb)], mask2,
+        False)
+    (gru_scan_bidir_bwd.bf16 if dt == torch.bfloat16
+     else gru_scan_bidir_bwd).launches += 1
+    return dxpf, dxpb, dwhf, dwhb
 
 
 gru_scan_bidir_bwd.launches = 0
+gru_scan_bidir_bwd.bf16 = types.SimpleNamespace(launches=0)
 
 
 class _BidirScan(torch.autograd.Function):
     """K7 forward, K7b backward (the plain versions for CPU tensors), as
-    JAX's custom VJP (pallas_gru.py:501-559). Float32 only."""
+    JAX's custom VJP (pallas_gru.py:501-559), in f32 or with bf16 streams
+    (dys cast to ys's dtype, pallas_gru.py:531-534)."""
 
     @staticmethod
     def forward(ctx, xpf, xpb, whf, whb, mask):
-        if xpf.dtype != torch.float32:
-            raise NotImplementedError(
-                "the backward of gru_scan_bidir is ported for float32 only")
         ysf, ysb = gru_scan_bidir_fwd(xpf, xpb, whf, whb, mask)
         ctx.save_for_backward(xpf, xpb, whf, whb, mask, ysf, ysb)
         return ysf, ysb
@@ -1260,7 +1406,8 @@ class _BidirScan(torch.autograd.Function):
         xpf, xpb, whf, whb, mask, ysf, ysb = ctx.saved_tensors
         grads = gru_scan_bidir_bwd(
             xpf, xpb, prev_states(ysf, False), prev_states(ysb, False), whf,
-            whb, mask, dysf.contiguous(), dysb.contiguous())
+            whb, mask, dysf.to(ysf.dtype).contiguous(),
+            dysb.to(ysb.dtype).contiguous())
         return (*grads, None)
 
 
@@ -1269,8 +1416,8 @@ def gru_scan_bidir(xpf, xpb, whf, whb, mask):
     semantics (pallas_gru.py:501): xpb comes from the per-row reversed
     input, and both recursions run forward in time under ``mask``.
     xpf, xpb (T, B, 3H), whf, whb (H, 3H), mask (T, B, 1) -> (ysf, ysb)
-    (T, B, H). Differentiable in float32 (K7, then K7b); with no input
-    requiring grad, K7 alone runs and nothing is saved."""
+    (T, B, H). Differentiable in f32 and with bf16 streams (K7, then K7b);
+    with no input requiring grad, K7 alone runs and nothing is saved."""
     args = (xpf.contiguous(), xpb.contiguous(), whf.contiguous(),
             whb.contiguous(), mask)
     if torch.is_grad_enabled() and any(

@@ -11,6 +11,17 @@ settings afterwards.
 
 ``deterministic_cudnn`` asks cuDNN for its deterministic algorithms; the
 port's conv backward runs under it (``models.layers._Conv2d``).
+
+``full_fp32(bf16_sums=True)`` also keeps cuBLAS's bf16 matmuls summing in
+float32 throughout: ``allow_bf16_reduced_precision_reduction``
+(``torch.backends.cuda.matmul``) is True by default and lets a split
+reduction round its partial sums, where JAX's bf16 products
+(``preferred_element_type`` f32 on the TPU's MXU) round only the result.
+The rule: training sums in full, serving does not. ``Trainer.train_step``
+is the one caller that asks, around its forward and backward, so every
+bf16 product of a training step sums in f32; serving and
+``Trainer.evaluate`` keep cuBLAS's default, and the bf16 serving arms keep
+their bits.
 """
 
 from __future__ import annotations
@@ -21,16 +32,19 @@ import torch
 
 
 @contextlib.contextmanager
-def full_fp32():
-    prev_mm = torch.backends.cuda.matmul.allow_tf32
-    prev_cudnn = torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
+def full_fp32(bf16_sums: bool = False):
+    mm = torch.backends.cuda.matmul
+    prev = (mm.allow_tf32, torch.backends.cudnn.allow_tf32,
+            mm.allow_bf16_reduced_precision_reduction)
+    mm.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if bf16_sums:
+        mm.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev_mm
-        torch.backends.cudnn.allow_tf32 = prev_cudnn
+        (mm.allow_tf32, torch.backends.cudnn.allow_tf32,
+         mm.allow_bf16_reduced_precision_reduction) = prev
 
 
 @contextlib.contextmanager
@@ -41,3 +55,4 @@ def deterministic_cudnn():
         yield
     finally:
         torch.backends.cudnn.deterministic = prev
+

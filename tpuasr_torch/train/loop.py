@@ -7,13 +7,15 @@ SpecAugment (``spec_augment``, training only) -> the acoustic model in
 training mode -> per-utterance CTC NLL (K6/K6b on the card) -> mean over
 the batch's real rows -> gradients (K5b for every GRU scan) -> the
 optimizer chain (global-norm clip, adamw | adam | nesterov sgd, in
-``optax.MultiSteps`` with ``accum_steps`` > 1), all in float32 with TF32
-off, forward and backward. cuDNN picks its own conv algorithms, and its
-default weight-gradient backward sums in an order that can change from run
-to run: a caller who needs two runs, or a run and its resumption, to give
-the same bits sets ``torch.backends.cudnn.deterministic``. PyTorch runs
-the step eagerly and updates the model's parameters and batch statistics
-in place;
+``optax.MultiSteps`` with ``accum_steps`` > 1), in float32 with TF32
+off, forward and backward. ``bf16_compute`` casts the features to bf16
+before the model, for every model, as JAX does (loop.py:234-235); the
+model's own flags (``bf16_gru``, ``bf16_conv``) say where it computes in
+bf16, bf16 matmuls sum in full f32 (``precision.full_fp32``), and
+the parameters, gradients and optimizer state stay f32. The convs'
+backward takes cuDNN's deterministic algorithms (``models.layers._Conv2d``),
+so two straight runs give the same bits. PyTorch runs the step eagerly and
+updates the model's parameters and batch statistics in place;
 ``TrainState`` carries the model, the optimizer state and the step count
 (a host int).
 
@@ -39,7 +41,7 @@ epoch; ``train/loss``, ``dev/loss`` and ``dev/ter`` rows in
 ``metrics.csv``.
 
 Not ported (they raise ``NotImplementedError``): objectives other than
-"ctc", Grain and bf16 compute.
+"ctc", and Grain.
 """
 
 from __future__ import annotations
@@ -112,8 +114,7 @@ class TrainConfig:
 def _unsupported(cfg: TrainConfig) -> list[str]:
     bad = {"objective != 'ctc' (ROADMAP Queue 1 item 12)":
            cfg.objective != "ctc",
-           "use_grain (ROADMAP Queue 1 item 5)": cfg.use_grain,
-           "bf16_compute (ROADMAP Queue 1 item 10)": cfg.bf16_compute}
+           "use_grain (ROADMAP Queue 1 item 5)": cfg.use_grain}
     return [name for name, on in bad.items() if on]
 
 
@@ -247,6 +248,8 @@ class Trainer:
                     freq_width=cfg.sa_freq_width,
                     time_masks=cfg.sa_time_masks,
                     time_frac=cfg.sa_time_frac)
+            if cfg.bf16_compute:
+                feats = feats.to(torch.bfloat16)
         model.train(train)
         logp, out_lens = model(feats, flens, generator=(
             self._step_generator(step, 0) if train else None))
@@ -266,7 +269,7 @@ class Trainer:
             p.grad = None
         # TF32 off for the backward too: cuDNN's conv gradients would
         # otherwise run in TF32 (torch.backends.cudnn.allow_tf32 is True).
-        with full_fp32():
+        with full_fp32(bf16_sums=True):
             loss, _, _ = self._loss_fn(model, batch, True, state.step)
             loss.backward()
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
