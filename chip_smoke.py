@@ -153,7 +153,23 @@ Phases, each fatal on failure:
      64) and K2b-bf16 (deepspeech_var's D=512 and 768, H=384, B=16)
      against their plain versions, timed beside their bound and
      torch.nn.GRU in bf16, and tells the lean recurrence's rounding of
-     dhp apart from a kernel that skips it (``lean_round_control``).
+     dhp apart from a kernel that skips it (``lean_round_control``);
+ 14. the host first pass over the bench LG (native/wfst_decode.cc and
+     native/wfst_lattice.cc, built at first use by
+     tpuasr_torch/native/build.py) on config 5's int8 arm: the arm's batch
+     with K3 and the graph arm's search on its log-probs counted, the
+     log-probs copied to the host once; wfst_ctc_decode on all 128
+     utterances by the host clock with its thread count; against the
+     Python versions (impl="py", in worker processes) the 1-best on 4
+     utterances, the n-best (3) and the lattice on 2 (and the n-best cut
+     to 2 s); the share of 1-best words equal to the graph arm's; the host
+     beam search (native/ctc_host.cc) against K3; align_confidence and
+     beam_posterior on the card against the CPU; and three CLI requests on
+     phase 6's setting (predict --fst-decode with n-best, confidences,
+     lattices and word times; predict --beam --confidence --align
+     --dump-loglikes; cli.test --fst-decode --align --write-segments
+     --dump-loglikes), whose Kaldi archives must equal the phase's
+     log-probs and alignments bit for bit.
 
 Weights are random, made from a seed. The line before the last holds
 {"kernels": [...]}; the last line is {"ok": true, "device": {...}}. Without
@@ -370,7 +386,8 @@ def bench_lexicon():
 def bench_graph():
     """The bench LG (bench.py:196-201): the lexicon composed with a word
     bigram, determinized with prune 10, quantum 0.1, at most 400,000
-    states. -> (GraphTables, seconds on the host)."""
+    states. -> (GraphTables, the composed LG as a WFST, seconds on the
+    host)."""
     from tpuasr_torch.decode import (compile_graph_tables, compose,
                                      lexicon_to_fst, ngram_to_fst)
     from tpuasr_torch.lm import train_ngram
@@ -382,7 +399,7 @@ def bench_graph():
                               {w: i + 1 for i, (w, _) in enumerate(prons)}))
     tabs = compile_graph_tables(lg, NUM_CLASSES, max_states=400_000,
                                 prune=10.0, quantum=0.1)
-    return tabs, time.perf_counter() - t0
+    return tabs, lg, time.perf_counter() - t0
 
 
 def lm_graph_kernels(record, lp, blens, lms, g_pack) -> None:
@@ -3866,6 +3883,474 @@ def bf16_train_slice(kernels, wrappers, card, f32_times) -> None:
                     wrappers, card, tol=BF16_STEP_TOL)
 
 
+# Phase 14: the host first pass over the bench LG (native/wfst_decode.cc and
+# native/wfst_lattice.cc, built by tpuasr_torch/native/build.py) on config
+# 5's int8 arm's log-probs. Its plain versions, the Python mirrors
+# (impl="py"), take tens of seconds an utterance at T'=499 on the bench
+# LG, so they run on a few utterances only, in worker processes beside the
+# other checks: the 1-best on FST_ORACLE_UTTS, the n-best and the lattice
+# on FST_LATTICE_UTTS, also cut to FST_SHORT_T frames (2 s): on 10 s of
+# the random model's log-probs the n-best's A* can exhaust its 10,000-pop
+# budget before a path reaches the sink (in the JAX package too; ROADMAP
+# Queue 3), and at 2 s it finds hypotheses to compare. The n-best's word
+# confidences are float32 forward-backward sums in the native library and
+# float64 in Python: a posterior is exp(alpha + beta - total), three sums
+# as large as the best path's cost, so they agree to FST_CONF_ULPS float32
+# ulps of that cost (relative): a fixed 1e-5 is below float32's
+# resolution there.
+FST_ORACLE_UTTS = 4
+FST_LATTICE_UTTS = 2
+FST_SHORT_T = 100
+FST_SCORE_RTOL = 1e-5
+FST_CONF_ULPS = 32
+# The host prefix beam search (native/ctc_host.cc) against K3: at the
+# served width (16, 8 classes a step) the share that agree is printed; at
+# a wide beam (64, every class; tests/test_native.py's setting) on the
+# first HOST_BEAM_UTTS utterances, cut to their first HOST_BEAM_T frames,
+# tokens are exact and scores within 1e-4. The random model's posteriors
+# are near uniform (the Viterbi path's per-frame posterior, utt_conf, is
+# ~0.03), so near-ties abound: the host's map merge and K3 (equal to the
+# scan search and their plain versions) then keep different beams further
+# in; the share at full length is printed.
+HOST_BEAM_UTTS = 8
+HOST_BEAM_T = 16
+HOST_BEAM_RTOL = 1e-4
+GRAPH_AGREE_UTTS = 32
+
+
+def host_cpu() -> str:
+    """The host CPU as /proc/cpuinfo names it (vendor, model name, family
+    and model numbers) and its architecture, for host-clock figures."""
+    import platform
+    fields = {}
+    try:
+        for line in Path("/proc/cpuinfo").read_text().splitlines():
+            key, _, val = line.partition(":")
+            fields.setdefault(key.strip(), val.strip())
+    except OSError:
+        pass
+    name = " ".join(fields.get(k, "") for k in ("vendor_id", "model name"))
+    return (f"{name.strip() or 'CPU'} (family {fields.get('cpu family', '?')}"
+            f" model {fields.get('model', '?')}, {platform.machine()})")
+
+
+def request_files(tmp: Path, state, flags) -> list:
+    """Phase 6's request setting under tmp: the int8 arm's weights
+    (w.npz, 512 x 4, 64 classes), units.txt and three seeded wavs of 2.0,
+    3.5 and 5.0 s; -> the wavs' paths."""
+    from scipy.io import wavfile
+    from tpuasr_torch.convert import save_npz, to_jax_variables
+
+    meta = dict(model="deepspeech_ctc", num_classes=NUM_CLASSES,
+                model_kwargs=dict(rnn_hidden=HIDDEN, rnn_layers=LAYERS,
+                                  **flags))
+    save_npz(to_jax_variables(state), tmp / "w.npz", meta=meta)
+    (tmp / "units.txt").write_text("\n".join(UNITS))
+    rng = np.random.default_rng(SEED + 1)
+    paths = []
+    for i, sec in enumerate((2.0, 3.5, 5.0)):
+        p = tmp / f"req{i}.wav"
+        wavfile.write(p, SR, (rng.standard_normal(int(SR * sec))
+                              * 3000).astype(np.int16))
+        paths.append(str(p))
+    return paths
+
+
+def run_cli(main, argv) -> tuple:
+    """(rc, stdout lines, host seconds) of one CLI main in this process."""
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    return rc, buf.getvalue().strip().splitlines(), time.perf_counter() - t0
+
+
+def fst_slice(kernels, wrappers, rec, tabs_g, lg, state, flags, wav_d,
+              lens_d, card, audio_s) -> None:
+    """Phase 14: the host first pass over the bench LG on config 5's int8
+    arm (B=128 x 10 s, 512 x 4, C=64) through Recognizer: the counted run
+    (the arm with K3, then the graph arm's K10 and rebuild on its
+    log-probs), the 1-best on all 128 utterances by the host clock, its
+    words against the graph arm's, the plain Python versions of the 1-best,
+    n-best and lattice, the host beam search against K3, the confidences on
+    the card against the CPU, and three CLI requests whose archives must be
+    this phase's log-probs and alignments bit for bit."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from tpuasr_torch.decode import (BeamSearchConfig, ctc_beam_search_xla,
+                                     graph_tokens_to_words, wfst_ctc_decode,
+                                     wfst_ctc_decode_nbest, wfst_ctc_lattice)
+    from tpuasr_torch.decode.fst_decode import flatten_fst
+    from tpuasr_torch.native import ctc_beam_search_host
+    from tpuasr_torch.serve.offline import Recognizer
+
+    feat_cfg = rec.featurizer.cfg
+    gcfg = BeamSearchConfig(beam_width=BEAM, class_topk=8, max_len=256)
+    grec = Recognizer(rec.model, feat_cfg, gcfg, rec.device, graph=tabs_g)
+
+    # The counted run: the int8 arm's batch (K1, K4 a layer and direction,
+    # K3 and its backtrack), then the graph arm's search on its log-probs.
+    for w in wrappers.values():
+        w.launches = 0
+    out = rec(wav_d, lens_d)
+    with torch.inference_mode():
+        gout = ctc_beam_search_xla(out["log_probs"], out["out_lens"], gcfg,
+                                   graph=grec.graph)
+    torch.cuda.synchronize()
+    counts = {k: w.launches for k, w in wrappers.items()}
+    want = dict({k: 0 for k in wrappers}, K1=1, K4=2 * LAYERS, K3=1,
+                **{"K3-backtrack": 1, "K10": 1, "K10-rebuild": 1})
+    phase(f"[14 fst] launch counts of the batch and its graph search: "
+          f"{json.dumps({k: n for k, n in counts.items() if n})}")
+    if counts != want:
+        fail(f"[14] launch counts {counts} != {want}")
+    for k, n in counts.items():
+        kernels[k]["launches"] += n
+
+    logp, ol = out["log_probs"], out["out_lens"]
+    lp_np, ol_np = logp.cpu().numpy(), ol.cpu().numpy()
+    Bn, T, C = lp_np.shape
+    flat = flatten_fst(lg)
+    n_cpu = os.cpu_count()
+    affinity = len(os.sched_getaffinity(0))
+    cpu = host_cpu()
+
+    # The 1-best first pass on every utterance, on all hardware threads.
+    t0 = time.perf_counter()
+    fb = wfst_ctc_decode(lg, lp_np, ol_np)
+    fb_s = time.perf_counter() - t0
+    phase(f"[14 fst] wfst_ctc_decode B={Bn} T'={T} on the bench LG "
+          f"({flat.num_states} states, {len(flat.ilabels)} arcs), beam 16, "
+          f"max_active 2000: {fb_s:.3f} s = {Bn / fb_s:.2f} utterances/s = "
+          f"{audio_s / fb_s:.1f}x real time (host clock, {n_cpu} hardware "
+          f"threads, {affinity} in this process's affinity, {cpu}) [{card}];"
+          f" reached a final state {int(fb['reached_final'].sum())}/{Bn}, "
+          f"mean words/utt {fb['word_lens'].mean():.1f}")
+
+    # The plain versions and the host beam searches in worker processes
+    # (spawned: this process holds the card), longest first.
+    short = min(FST_SHORT_T, T)
+    ol_short = np.minimum(ol_np, short)
+    jobs = [(("nbest", i), wfst_ctc_decode_nbest,
+             (lg, lp_np[i:i + 1], ol_np[i:i + 1]), dict(nbest=3, impl="py"))
+            for i in range(FST_LATTICE_UTTS)]
+    jobs += [(("lattice", i), wfst_ctc_lattice,
+              (lg, lp_np[i, :ol_np[i]]), dict(impl="py"))
+             for i in range(FST_LATTICE_UTTS)]
+    jobs += [(("1best", i), wfst_ctc_decode,
+              (lg, lp_np[i:i + 1], ol_np[i:i + 1]), dict(impl="py"))
+             for i in range(FST_ORACLE_UTTS)]
+    jobs += [(("host_wide", t), ctc_beam_search_host,
+              (np.ascontiguousarray(lp_np[:HOST_BEAM_UTTS, :t]),
+               np.minimum(ol_np[:HOST_BEAM_UTTS], t)),
+              dict(beam_width=64, class_topk=C - 1, max_len=t))
+             for t in (T, HOST_BEAM_T)]
+    jobs += [(("nbest_short", i), wfst_ctc_decode_nbest,
+              (lg, lp_np[i:i + 1, :short], ol_short[i:i + 1]),
+              dict(nbest=3, impl="py")) for i in range(FST_LATTICE_UTTS)]
+    jobs += [(("host_served", 0), ctc_beam_search_host, (lp_np, ol_np),
+              dict(beam_width=16, class_topk=8, max_len=256))]
+    # The graph arm's words: its tokens replayed through the LG (host
+    # Python, ~1 s an utterance), on the first GRAPH_AGREE_UTTS.
+    g_toks = gout["tokens"][:GRAPH_AGREE_UTTS, 0].cpu().numpy()
+    g_lens = gout["token_lens"][:GRAPH_AGREE_UTTS, 0].cpu().numpy()
+    jobs += [(("replay", i), graph_tokens_to_words,
+              (lg, g_toks[i:i + 4], g_lens[i:i + 4]), dict(offset=0))
+             for i in range(0, len(g_toks), 4)]
+    t_pool = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(max_workers=min(len(jobs), n_cpu),
+                             mp_context=ctx) as pool:
+        futures = {key: pool.submit(fn, *a, **kw) for key, fn, a, kw in jobs}
+        # Meanwhile on the card and in this process: the graph arm's words
+        # against the first pass's (reported: a random model), the
+        # confidences, and the CLI requests.
+        fst_confidences(out)
+        fst_requests(rec, state, flags, lg)
+        res = {key: f.result() for key, f in futures.items()}
+    pool_s = time.perf_counter() - t_pool
+    gw = [w for i in range(0, len(g_toks), 4) for w in res[("replay", i)]]
+    agree = np.mean([gw[i] == fb["words"][i, :fb["word_lens"][i]].tolist()
+                     for i in range(len(gw))])
+    phase(f"[14 fst] 1-best words equal to the graph arm's (K10, class_topk "
+          f"8, its tokens replayed through the LG) on {agree:.4f} of the "
+          f"first {len(gw)} utterances (reported, not gated: the model is "
+          f"untrained)")
+    fst_oracle_gates(lg, lp_np, ol_np, ol_short, short, fb, res)
+    host_beam_gates(logp, ol, lp_np, res)
+    phase(f"[14 fst] plain versions and host beams: {len(jobs)} jobs in "
+          f"{min(len(jobs), n_cpu)} worker processes, {pool_s:.1f} s "
+          f"(host clock, {cpu})")
+
+
+@torch.inference_mode()
+def fst_confidences(out) -> None:
+    """align_confidence of K3's best hypotheses (the batch ``out``) on the
+    card against the same call on CPU copies (spans exact, confidences
+    within 1e-5); and beam_posterior of K3's 8-best scores against float64
+    numpy."""
+    from tpuasr_torch.decode import (BeamSearchConfig, align_confidence,
+                                     beam_posterior)
+    from tpuasr_torch.decode import beam as beam_mod
+
+    logp, ol = out["log_probs"], out["out_lens"]
+    toks, tl = out["tokens"][:, 0], out["token_lens"][:, 0]
+    U = max(1, int(tl.max()))
+    toks = toks[:, :U].clamp(min=0).contiguous()
+    dev_cf = align_confidence(logp, toks, tl, ol)
+    cpu_cf = align_confidence(logp.cpu(), toks.cpu(), tl.cpu(), ol.cpu())
+    spans = all(torch.equal(dev_cf[k].cpu(), cpu_cf[k])
+                for k in ("token_starts", "token_ends", "feasible"))
+    errs = {k: float(((dev_cf[k].cpu() - cpu_cf[k]).abs()
+                      / cpu_cf[k].abs().clamp(min=1e-30)).max())
+            for k in ("token_conf", "utt_conf")}
+    nb = beam_mod.ctc_beam_search(logp, ol, BeamSearchConfig(
+        beam_width=BEAM, max_len=256), n_best=BEAM)
+    post = beam_posterior(nb["scores"]).cpu()
+    bp_err = float((post - beam_posterior(nb["scores"].cpu())).abs().max())
+    # Against float64: score - logsumexp(scores) cancels in float32, so a
+    # posterior p carries p times a few ulps of the scores' magnitude.
+    s = nb["scores"].cpu().numpy().astype(np.float64)
+    ref = np.exp(s - s.max(1, keepdims=True))
+    ref /= ref.sum(1, keepdims=True)
+    post = post.numpy().astype(np.float64)
+    ulp = np.spacing(np.abs(s).max(1, keepdims=True).astype(np.float32))
+    f64 = float((np.abs(post - ref) / (ref * ulp + 1e-30)).max())
+    phase(f"[14 confidence] align_confidence on the card against the CPU: "
+          f"spans and feasibility equal {spans} (tol: exact), token_conf "
+          f"and utt_conf relative error {errs['token_conf']:.3e} / "
+          f"{errs['utt_conf']:.3e} (tol 1e-5), mean utt_conf "
+          f"{float(dev_cf['utt_conf'].mean()):.4f}; beam_posterior of K3's "
+          f"{BEAM}-best on the card against the CPU max_abs_err "
+          f"{bp_err:.3e} (tol 1e-6), against float64 numpy {f64:.2f} ulps "
+          f"of the scores' magnitude relative (tol 4), mean top posterior "
+          f"{post[:, 0].mean():.4f}")
+    if not (spans and max(errs.values()) <= 1e-5 and bp_err <= 1e-6
+            and f64 <= 4):
+        fail("[14] confidences on the card disagree with the CPU")
+
+
+def fst_requests(rec, state, flags, lg) -> None:
+    """Phase 14's CLI requests on phase 6's setting: predict --fst-decode
+    with the lattice engine's n-best, confidences, lattice and word times;
+    predict --beam --confidence --align --dump-loglikes; cli.test
+    --fst-decode --align --write-segments --dump-loglikes over a manifest of
+    the request wavs with word transcripts. The archives must hold this
+    phase's log-probs and alignments (the int8 arm on the same batches)
+    bit for bit."""
+    from tpuasr_torch.cli import predict
+    from tpuasr_torch.cli import test as test_cli
+    from tpuasr_torch.data import (AudioLoader, LoaderConfig, Utterance,
+                                   load_wav, read_manifest, write_manifest)
+    from tpuasr_torch.losses import ctc_align
+    from tpuasr_torch.utils import kaldi_io
+
+    prons, _ = bench_lexicon()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        paths = request_files(tmp, state, flags)
+        lg.save_text(tmp / "lg.fst")
+        (tmp / "lg_words.txt").write_text("<eps> 0\n" + "".join(
+            f"{w} {i + 1}\n" for i, (w, _) in enumerate(prons)))
+        dev = rec.device
+        ds = ["deepspeech_ctc", *paths, "--weights", str(tmp / "w.npz"),
+              "--units", str(tmp / "units.txt"), "--device", dev.type]
+        fst = ["--fst", str(tmp / "lg.fst"), "--fst-osyms",
+               str(tmp / "lg_words.txt")]
+        rc, lines, secs = run_cli(predict.main, [
+            *ds, "--fst-decode", *fst, "--fst-nbest", "3", "--confidence",
+            "--write-lattice", str(tmp / "lat.txt"), "--align"])
+        hyps = [ln for ln in lines if not ln.startswith("#")]
+        lat_n = (tmp / "lat.txt").read_text().count("\n\n") \
+            if (tmp / "lat.txt").exists() else 0
+        phase(f"[14 cli predict --fst-decode --fst-nbest 3 --confidence "
+              f"--write-lattice --align] rc={rc}, {len(hyps)} hypotheses, "
+              f"{lat_n} lattices, {sum(ln.startswith('# conf:') for ln in lines)}"
+              f" conf and {sum(ln.startswith('# align:') for ln in lines)} "
+              f"align lines in {secs:.2f} s (host clock, load included)")
+        if rc != 0 or lat_n != len(paths) or not all(
+                w.startswith("w") for ln in hyps
+                for w in ln.split("\t")[-1].split()):
+            fail(f"[14] predict --fst-decode output: {lines}")
+
+        rc, lines, secs = run_cli(predict.main, [
+            *ds, "--beam", "--beam-width", str(BEAM), "--confidence",
+            "--align", "--dump-loglikes", str(tmp / "lp")])
+        # This phase's log-probs of the same padded batch.
+        wavs = [load_wav(p)[0] for p in paths]
+        S = max(len(w) for w in wavs)
+        batch = np.zeros((len(wavs), S), np.float32)
+        for i, w in enumerate(wavs):
+            batch[i, :len(w)] = w
+        ref = rec(batch, np.array([len(w) for w in wavs], np.int32))
+        got = list(kaldi_io.read_ark(tmp / "lp.ark"))
+        same = [k for k, _ in got] == [Path(p).stem for p in paths] and all(
+            np.array_equal(m, ref["log_probs"][i, :int(ref["out_lens"][i])]
+                           .cpu().numpy()) for i, (_, m) in enumerate(got))
+        phase(f"[14 cli predict --beam --confidence --align --dump-loglikes] "
+              f"rc={rc}, {sum(ln.startswith('# conf: utt') for ln in lines)} "
+              f"conf and {sum(ln.startswith('# align:') for ln in lines)} "
+              f"align lines in {secs:.2f} s; the ark's {len(got)} matrices "
+              f"equal this phase's log-probs bit for bit: {same}")
+        if rc != 0 or not same:
+            fail(f"[14] predict --dump-loglikes: rc {rc}, {lines[-3:]}")
+
+        rng = np.random.default_rng(SEED + 14)
+        utts = []
+        for i, p in enumerate(paths):
+            ws = rng.integers(0, len(prons), size=int(rng.integers(2, 6)))
+            utts.append(Utterance(
+                id=f"req{i}", wav=p, text=" ".join(prons[w][0] for w in ws),
+                tokens=[u for w in ws for u in prons[w][1]],
+                num_samples=len(wavs[i])))
+        write_manifest(tmp / "req.jsonl", utts)
+        rc, lines, secs = run_cli(test_cli.main, [
+            "deepspeech_ctc", "--manifest", str(tmp / "req.jsonl"),
+            "--checkpoint", str(tmp / "w.npz"), "--units",
+            str(tmp / "units.txt"), "--device", dev.type, "--fst-decode", *fst,
+            "--align", str(tmp / "ali"), "--write-segments",
+            str(tmp / "seg.jsonl"), "--dump-loglikes", str(tmp / "tlp")])
+        want_ali, want_lp = {}, {}
+        for b in AudioLoader(tmp / "req.jsonl", LoaderConfig(
+                batch_size=16, max_label_len=64, shuffle=False)):
+            o = rec(b["wav"], b["wav_lens"])
+            with torch.inference_mode():
+                al = ctc_align(o["log_probs"], torch.as_tensor(
+                    b["tokens"], device=dev), o["out_lens"],
+                    torch.as_tensor(b["token_lens"], device=dev))
+            for j in np.flatnonzero(b["real"]):
+                n = int(o["out_lens"][j])
+                want_ali[b["ids"][j]] = al["frame_labels"][j, :n].cpu()\
+                    .numpy().astype(np.float32)
+                want_lp[b["ids"][j]] = o["log_probs"][j, :n].cpu().numpy()
+        got_ali = dict(kaldi_io.read_ark(tmp / "ali.ark"))
+        got_lp = dict(kaldi_io.read_ark(tmp / "tlp.ark"))
+        same = (got_ali.keys() == want_ali.keys() == got_lp.keys()
+                and all(np.array_equal(got_ali[k], want_ali[k])
+                        and np.array_equal(got_lp[k], want_lp[k])
+                        for k in want_ali))
+        segs = [u.segments for u in read_manifest(tmp / "seg.jsonl")]
+        phase(f"[14 cli test --fst-decode --align --write-segments "
+              f"--dump-loglikes] rc={rc}, '{lines[-1] if lines else ''}' in "
+              f"{secs:.2f} s; alignments and log-probs equal this phase's "
+              f"bit for bit: {same}; {sum(bool(s) for s in segs)}/"
+              f"{len(segs)} utterances with aligned segments")
+        if rc != 0 or not same or "final-reached" not in lines[-1]:
+            fail(f"[14] cli.test --fst-decode: rc {rc}, {lines[-4:]}")
+
+
+def fst_oracle_gates(lg, lp_np, ol_np, ol_short, short, fb, res) -> None:
+    """The native first pass, n-best and lattice against their Python
+    versions (``res``, computed in the pool)."""
+    from tpuasr_torch.decode import wfst_ctc_decode_nbest, wfst_ctc_lattice
+
+    ints = ("words", "frames", "word_lens", "nhyp", "reached_final")
+    bad = []
+    srel = 0.0
+    for i in range(FST_ORACLE_UTTS):
+        py = res[("1best", i)]
+        for k in ints[:3] + ints[4:]:
+            if not np.array_equal(fb[k][i], py[k][0]):
+                bad.append(f"1best {i} {k}")
+        srel = max(srel, abs(float(fb["scores"][i]) / float(py["scores"][0])
+                             - 1))
+    phase(f"[14 fst] 1-best against impl='py' on {FST_ORACLE_UTTS} "
+          f"utterances: words, frames, reached_final equal "
+          f"{not bad} (tol: exact); scores relative error {srel:.3e} (tol "
+          f"{FST_SCORE_RTOL})")
+    nrel = crel = 0.0
+    nhyp = []
+    for tag, lens, T_cut in (("nbest", ol_np, None),
+                             ("nbest_short", ol_short, short)):
+        for i in range(FST_LATTICE_UTTS):
+            lp = lp_np[i:i + 1] if T_cut is None else lp_np[i:i + 1, :T_cut]
+            nat = wfst_ctc_decode_nbest(lg, lp, lens[i:i + 1], nbest=3)
+            py = res[(tag, i)]
+            for k in ints:
+                if not np.array_equal(nat[k], py[k]):
+                    bad.append(f"{tag} {i} {k}")
+            n = int(nat["nhyp"][0])
+            nhyp.append(n)
+            if n:
+                nrel = max(nrel, float(np.abs(nat["scores"][0, :n]
+                                              / py["scores"][0, :n] - 1)
+                                       .max()))
+                L = int(nat["word_lens"][0, 0])
+                # FST_CONF_ULPS float32 ulps of the best path's cost.
+                tol = FST_CONF_ULPS * np.spacing(
+                    np.float32(abs(py["scores"][0, 0])))
+                c, d = nat["confidences"][0, :L], py["confidences"][0, :L]
+                crel = max(crel, float((np.abs(c - d)
+                                        / np.maximum(d, 1e-30)).max() / tol)
+                           if L else 0.0)
+    lat_rows = []
+    for i in range(FST_LATTICE_UTTS):
+        nat = wfst_ctc_lattice(lg, lp_np[i, :ol_np[i]])
+        py = res[("lattice", i)]
+        rel = abs(nat["best_cost"] / py["best_cost"] - 1)
+        if not (rel <= FST_SCORE_RTOL
+                and nat["reached_final"] == py["reached_final"]):
+            bad.append(f"lattice {i}")
+        lat_rows.append(f"{len(nat['src'])}/{len(py['src'])} links, "
+                        f"source outflow {nat['post'][nat['src'] == 0].sum():.5f}"
+                        f", best_cost relative error {rel:.3e}")
+    phase(f"[14 fst] n-best (nbest 3) against impl='py' on "
+          f"{FST_LATTICE_UTTS} utterances at T'={lp_np.shape[1]} and cut to "
+          f"{short} frames: hypotheses {nhyp}; words, frames, lengths, nhyp, "
+          f"reached_final equal {not bad} (tol: exact); scores relative "
+          f"error {nrel:.3e} (tol {FST_SCORE_RTOL}); confidences' relative "
+          f"error {crel:.3f} of the tolerance ({FST_CONF_ULPS} float32 ulps "
+          f"of the best cost); lattices (native/py): {'; '.join(lat_rows)}")
+    if bad or srel > FST_SCORE_RTOL or nrel > FST_SCORE_RTOL or crel > 1.0:
+        fail(f"[14] the native first pass disagrees with impl='py': {bad}")
+
+
+@torch.inference_mode()
+def host_beam_gates(logp, ol, lp_np, res) -> None:
+    """The host beam search (``res``, computed in the pool) against K3 on
+    the same log-probs: at the served width the share of equal tokens; at
+    a wide beam on the first HOST_BEAM_UTTS utterances the share at full
+    length, and at their first HOST_BEAM_T frames tokens exact and scores
+    within HOST_BEAM_RTOL."""
+    from tpuasr_torch.decode import BeamSearchConfig
+    from tpuasr_torch.decode import beam as beam_mod
+
+    T = lp_np.shape[1]
+    n = HOST_BEAM_UTTS
+
+    def agree(host, dev):
+        """Per utterance: equal tokens; and the scores' relative error."""
+        same = [int(host["token_lens"][i]) == int(dev["token_lens"][i, 0])
+                and np.array_equal(
+                    host["tokens"][i, :int(host["token_lens"][i])],
+                    dev["tokens"][i, 0, :int(dev["token_lens"][i, 0])]
+                    .cpu().numpy()) for i in range(len(host["scores"]))]
+        rel = np.abs(host["scores"] / dev["scores"][:, 0].cpu().numpy() - 1)
+        return np.array(same), float(rel.max())
+
+    served, _ = agree(res[("host_served", 0)], beam_mod.ctc_beam_search(
+        logp, ol, BeamSearchConfig(beam_width=16, max_len=256)))
+    full, full_rel = agree(res[("host_wide", T)], beam_mod.ctc_beam_search(
+        logp[:n], ol[:n], BeamSearchConfig(beam_width=64, max_len=T)))
+    cut, rel = agree(res[("host_wide", HOST_BEAM_T)],
+                     beam_mod.ctc_beam_search(
+                         logp[:n, :HOST_BEAM_T].contiguous(),
+                         ol[:n].clamp(max=HOST_BEAM_T),
+                         BeamSearchConfig(beam_width=64,
+                                          max_len=HOST_BEAM_T)))
+    phase(f"[14 host beam] ctc_beam_search_host against K3 on the same "
+          f"log-probs: beam 16 (host class_topk 8) tokens equal on "
+          f"{served.mean():.4f} of {len(lp_np)} utterances (reported); beam "
+          f"64 with every class on the first {n}: at T'={T} "
+          f"{int(full.sum())}/{n} equal, scores relative error "
+          f"{full_rel:.3e} (reported), at their first {HOST_BEAM_T} frames "
+          f"tokens equal {bool(cut.all())} (tol: exact), scores relative "
+          f"error {rel:.3e} (tol {HOST_BEAM_RTOL})")
+    if not (cut.all() and rel <= HOST_BEAM_RTOL):
+        fail("[14] the host beam search disagrees with K3 at a wide beam")
+
+
 def main() -> int:
     # ---- 1. environment -------------------------------------------------
     clock = [("start", time.perf_counter())]     # (phase, its end)
@@ -3916,7 +4401,7 @@ def main() -> int:
     kernels = {}
 
     # ---- 3. the bench decoding graph, then each kernel ---------------------
-    tabs_g, g_secs = bench_graph()
+    tabs_g, lg, g_secs = bench_graph()
     g_pack = torch.cat([torch.as_tensor(tabs_g.next_state),
                         torch.as_tensor(tabs_g.cost).view(torch.int32)],
                        1).to(dev).contiguous()
@@ -4319,25 +4804,12 @@ def main() -> int:
     clock.append(("5", time.perf_counter()))
 
     # ---- 6. requests through the CLI --------------------------------------
-    from scipy.io import wavfile
     from tpuasr_torch.cli import predict
     from tpuasr_torch.utils.params import preset_for
 
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
-        meta = dict(model="deepspeech_ctc", num_classes=NUM_CLASSES,
-                    model_kwargs=dict(rnn_hidden=HIDDEN, rnn_layers=LAYERS,
-                                      **arms["int8"]))
-        save_npz(to_jax_variables(state), tmp / "w.npz", meta=meta)
-        (tmp / "units.txt").write_text(
-            "\n".join(["<blank>"] + [f"p{i}" for i in range(1, NUM_CLASSES)]))
-        rng = np.random.default_rng(SEED + 1)
-        paths = []
-        for i, sec in enumerate((2.0, 3.5, 5.0)):
-            p = tmp / f"req{i}.wav"
-            wavfile.write(p, SR, (rng.standard_normal(int(SR * sec))
-                                  * 3000).astype(np.int16))
-            paths.append(str(p))
+        paths = request_files(tmp, state, arms["int8"])
         # A unit LM as ARPA, and the bench lexicon (unit names) with its
         # word bigram for the graph.
         lms[2].save_arpa(tmp / "units.arpa")
@@ -4428,6 +4900,11 @@ def main() -> int:
     # ---- 13. bf16 training: config 3's bf16 points -------------------------
     bf16_train_slice(kernels, wrappers, card, f32_times)
     clock.append(("13", time.perf_counter()))
+
+    # ---- 14. the host first pass over the bench LG ------------------------
+    fst_slice(kernels, wrappers, recs["int8"], tabs_g, lg, state,
+              arms["int8"], wav_d, lens_d, card, audio_s)
+    clock.append(("14", time.perf_counter()))
     phase("[time] seconds by phase (host clock): " + json.dumps(
         {name: round(t - clock[i][1], 1)
          for i, (name, t) in enumerate(clock[1:])})

@@ -256,14 +256,67 @@ def test_cli_test_prints_the_jax_pipelines_wer(scored, mode, monkeypatch):
         assert ln.split("\t")[1] == text
 
 
-@pytest.mark.parametrize("flag", [["--align", "a"], ["--dump-loglikes", "d"],
-                                  ["--write-segments", "s.jsonl"],
-                                  ["--fst-decode"]],
-                         ids=["align", "dump_loglikes", "write_segments",
-                              "fst_decode"])
+# The JAX command's host outputs, each flag once: (its arguments, the
+# archive or manifest it writes under OUT). OUT is each command's own
+# directory.
+HOST_FLAGS = {
+    "align": (["--align", "OUT/ali"], "ali"),
+    "dump_loglikes": (["--dump-loglikes", "OUT/lp.v1"], "lp.v1"),
+    "write_segments": (["--align", "OUT/ali", "--write-segments",
+                        "OUT/seg.jsonl"], "seg.jsonl"),
+    "fst_decode": (["--fst-decode", "--fst", "l.fst", "--fst-osyms",
+                    "fst_words.txt"], None),
+}
+
+
+@pytest.mark.parametrize("flag", list(HOST_FLAGS))
 def test_cli_test_refuses_unported_flags(scored, flag, monkeypatch):
-    tmp, path, _ = scored
-    with pytest.raises(SystemExit, match="ROADMAP"):
-        _run(test_cli, ["resnet_ctc", "--manifest", str(path), "--checkpoint",
-                        str(tmp / "w.npz"), "--device", "cpu", *flag],
-             monkeypatch)
+    """The four flags ``cli.test`` once refused as unported now run beside
+    JAX's ``test.py`` on the same weights: the same summary and '# wrote'
+    lines and the same hypotheses handed to ``wer``; the alignments' frame
+    labels exact, the log-probs within 1e-4 (the model's bound against
+    JAX), the manifest's aligned segments equal; ``--fst-decode`` scores
+    the first pass's words over the lexicon transducer."""
+    import tpuasr.cli.test as j_test_cli
+    from tpuasr.utils import kaldi_io as j_kaldi_io
+    from tpuasr_torch.utils import kaldi_io
+
+    tmp, path, units = scored
+    extra, written = HOST_FLAGS[flag]
+    got = {}
+    for tag, cli, weights, dev in (
+            ("port", test_cli, "w.npz", ["--device", "cpu"]),
+            ("jax", j_test_cli, "w.msgpack", [])):
+        out = tmp / f"host_{flag}_{tag}"
+        out.mkdir()
+        argv = ["resnet_ctc", "--manifest", str(path), "--units",
+                str(tmp / "units.txt"), "--batch-size", "4", "--checkpoint",
+                str(tmp / weights), *dev,
+                *[str(tmp / a) if (tmp / a).exists()
+                  else a.replace("OUT", str(out)) for a in extra]]
+        rc, lines, calls = _run(cli, argv, monkeypatch)
+        assert rc == 0
+        got[tag] = ([ln.replace(str(out), "OUT") for ln in lines
+                     if ln.startswith(("#", "utterances:"))], calls, out)
+    (lines, calls, out), (jlines, jcalls, jout) = got["port"], got["jax"]
+    assert lines == jlines and calls == jcalls
+    assert len(lines) == (1 if written is None
+                          else 1 + len(extra) // 2)
+    if flag == "fst_decode":
+        assert "final-reached" in lines[-1] and len(calls[0][1]) == 6
+    elif flag == "write_segments":
+        from tpuasr_torch.data import read_manifest
+        segs = [(u.id, u.segments) for u in read_manifest(out / written)]
+        assert segs == [(u.id, u.segments)
+                        for u in j_read_manifest(jout / written)]
+        assert any(s for _, s in segs)
+    else:
+        a = list(kaldi_io.read_ark(out / f"{written}.ark"))
+        b = list(j_kaldi_io.read_ark(jout / f"{written}.ark"))
+        assert [k for k, _ in a] == [k for k, _ in b]
+        assert sorted(k for k, _ in a) == [f"u{i}" for i in range(6)]
+        for (_, x), (_, y) in zip(a, b):
+            if flag == "align":
+                np.testing.assert_array_equal(x, y)
+            else:
+                np.testing.assert_allclose(x, y, rtol=0, atol=1e-4)

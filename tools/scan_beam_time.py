@@ -57,7 +57,7 @@ def main() -> int:
     print(smi("name,power.limit"), flush=True)
     _build.lib()
     dev = torch.device("cuda")
-    tabs, _ = cs.bench_graph()
+    tabs, _, _ = cs.bench_graph()
     g_pack = torch.cat([torch.as_tensor(tabs.next_state),
                         torch.as_tensor(tabs.cost).view(torch.int32)],
                        1).to(dev).contiguous()

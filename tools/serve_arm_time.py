@@ -80,7 +80,7 @@ def main() -> int:
         model.load_state_dict(cs.fused_bidir_state(state)
                               if flags.get("fused_bidir") else state)
         recs[arm] = Recognizer(model, feat_cfg, bcfg, "cuda")
-    tabs, _ = cs.bench_graph()
+    tabs, _, _ = cs.bench_graph()
     for P in (8, cs.NUM_CLASSES - 1):
         recs[f"graph P={P}"] = Recognizer(
             recs["int8"].model, feat_cfg,

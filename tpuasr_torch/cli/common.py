@@ -1,8 +1,9 @@
 """Shared CLI plumbing: the flags the CLIs share, the feature config and
 the model from a checkpoint (JAX's msgpack format, the port's or JAX's) or
 an ``.npz`` export, units, LM and WFST loading,
-fusion tables, the beam-search dispatch with its loud fallback, and the
-decoding graph for ``--graph-decode``.
+fusion tables, the beam-search dispatch with its loud fallback, the
+decoding graph for ``--graph-decode``, the host first pass's options
+(``--fst-decode``) and the archive keys of wav files.
 
 Counterpart of ``tpuasr/cli/common.py``.
 """
@@ -17,12 +18,14 @@ from tpuasr_torch.data.manifest import load_wav
 from tpuasr_torch.features import FeatureConfig, num_frames
 from tpuasr_torch.models import MODEL_REGISTRY
 
-__all__ = ["add_decode_flags", "add_lm_flags", "add_model_flags",
-           "build_decode_graph",
-           "feature_config", "fusion_tables", "load_fst", "load_lm",
+__all__ = ["add_decode_flags", "add_first_pass_flags", "add_lm_flags",
+           "add_model_flags",
+           "build_decode_graph", "check_first_pass",
+           "feature_config", "first_pass_kwargs", "fusion_tables",
+           "load_fst", "load_lm",
            "load_model", "load_units", "load_wav", "load_weights",
            "lm_symbols", "make_word_decoder", "out_frames", "run_beam_search",
-           "tokens_to_text"]
+           "tokens_to_text", "wav_keys"]
 
 
 def add_model_flags(p: argparse.ArgumentParser, serving: bool = True) -> None:
@@ -50,7 +53,7 @@ def add_model_flags(p: argparse.ArgumentParser, serving: bool = True) -> None:
 
 
 def add_decode_flags(p: argparse.ArgumentParser) -> None:
-    """The beam, LM, WFST and graph-decoding flags."""
+    """The beam, LM, WFST, first-pass and graph-decoding flags."""
     p.add_argument("--beam", action="store_true",
                    help="CTC prefix beam search instead of greedy")
     p.add_argument("--beam-width", type=int, default=16)
@@ -62,11 +65,40 @@ def add_decode_flags(p: argparse.ArgumentParser) -> None:
                    help="auto/pallas: the all-class beam kernel; xla: the "
                         "top-P scan search")
     add_lm_flags(p)
+    add_first_pass_flags(p)
+
+
+def add_first_pass_flags(p: argparse.ArgumentParser) -> None:
+    """The host first pass's flags (the rest of JAX's ``add_lm_flags``),
+    with JAX's defaults."""
+    g = p.add_argument_group("host first pass over --fst")
+    g.add_argument("--fst-decode", action="store_true",
+                   help="first-pass decode over --fst on the host (C++ "
+                        "token passing, decode/fst_decode.py; Kaldi's latgen "
+                        "over a TLG.fst): the graph drives the search instead "
+                        "of rescoring a pruned n-best; emits words")
+    g.add_argument("--fst-beam", type=float, default=16.0,
+                   help="first-pass pruning beam in tropical cost units "
+                        "(Kaldi --beam)")
+    g.add_argument("--fst-max-active", type=int, default=2000,
+                   help="first-pass token cap a frame (Kaldi --max-active)")
+    g.add_argument("--acoustic-scale", type=float, default=1.0,
+                   help="weight on the AM term against graph costs in "
+                        "--fst-decode (Kaldi --acoustic-scale)")
+    g.add_argument("--fst-lattice-beam", type=float, default=8.0,
+                   help="lattice pruning beam of --fst-decode's n-best and "
+                        "lattices (Kaldi --lattice-beam)")
+    g.add_argument("--fst-nbest", type=int, default=1,
+                   help="with --fst-decode: the top-N word sequences of the "
+                        "lattice (exact A* n-best)")
+    g.add_argument("--write-lattice", metavar="PATH", default=None,
+                   help="with --fst-decode: write each utterance's pruned "
+                        "raw lattice to PATH as a Kaldi-style text archive")
 
 
 def add_lm_flags(p: argparse.ArgumentParser) -> None:
     """The LM, WFST and graph-decoding flags (JAX's ``add_lm_flags``, less
-    the host first pass's)."""
+    the host first pass's: ``add_first_pass_flags``)."""
     g = p.add_argument_group("language model and WFST")
     g.add_argument("--lm", default=None,
                    help="ARPA n-gram LM over the unit symbols (or, with "
@@ -82,7 +114,7 @@ def add_lm_flags(p: argparse.ArgumentParser) -> None:
     g.add_argument("--fst", default=None,
                    help="OpenFst WFST (binary or text), ilabels = unit ids: "
                         "n-best rescoring with --beam, the graph with "
-                        "--graph-decode")
+                        "--graph-decode or --fst-decode")
     g.add_argument("--fst-weight", type=float, default=1.0,
                    help="weight on the FST log-prob (minus tropical cost)")
     g.add_argument("--fst-isyms", default=None,
@@ -94,7 +126,7 @@ def add_lm_flags(p: argparse.ArgumentParser) -> None:
                     help="decode under a decoding graph compiled to dense "
                          "tables (--fst, or L from --lexicon/--words/--units "
                          "composed with a word-level --lm); words by replay "
-                         "through the graph. Replaces --beam")
+                         "through the graph. Replaces --beam/--fst-decode")
     gg.add_argument("--graph-weight", type=float, default=1.0,
                     help="weight on graph costs against acoustics")
     gg.add_argument("--graph-topk", type=int, default=8,
@@ -285,6 +317,44 @@ def build_decode_graph(args, num_classes: int, units: list[str]):
             f"graph compilation failed: {e}\n"
             "Weighted determinization can blow up on non-twin graphs "
             "(L*G with homophones). Try --graph-prune 10 (on by default), "
-            "a coarser --graph-quantum or a larger --graph-max-states."
+            "a coarser --graph-quantum, a larger --graph-max-states, or "
+            "decode this graph on the host first pass (--fst-decode)."
         ) from e
     return tabs, fst, name_fn, offset
+
+
+def check_first_pass(args, lm) -> None:
+    """The rules of ``--fst-decode``: it needs ``--fst`` and replaces the
+    beam search and the unit LM."""
+    if not args.fst_decode:
+        return
+    if not args.fst:
+        raise SystemExit("--fst-decode requires --fst")
+    if args.beam or lm is not None:
+        raise SystemExit("--fst-decode is a first-pass graph decode; it "
+                         "replaces --beam/--lm")
+
+
+def first_pass_kwargs(args, lattice: bool = False) -> dict:
+    """The first pass's options from the flags (with ``lattice``, those of
+    the lattice engine too)."""
+    kw = dict(beam=args.fst_beam, max_active=args.fst_max_active,
+              acoustic_scale=args.acoustic_scale)
+    if lattice:
+        kw["lat_beam"] = args.fst_lattice_beam
+    return kw
+
+
+def wav_keys(paths) -> list[str]:
+    """Archive keys of wav files: their basenames without the extension,
+    made unique (a/x.wav, b/x.wav -> x, x-2) so that a Kaldi scp reader
+    shadows no entry."""
+    import os
+
+    keys, counts = [], {}
+    for p in paths:
+        k = os.path.splitext(os.path.basename(p))[0]
+        n = counts.get(k, 0)
+        counts[k] = n + 1
+        keys.append(k if n == 0 else f"{k}-{n + 1}")
+    return keys

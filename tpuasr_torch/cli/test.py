@@ -11,43 +11,45 @@ with ``--graph-decode`` the word error rate and the count of utterances
 whose best path reached a final state. Decoding: greedy; the beam search
 (``--beam``, ``--beam-impl``) with shallow LM fusion (``--lm-fusion``) or
 n-best rescoring by an ARPA LM (``--lm``) or a WFST (``--fst``); or the
-graph-constrained search (``--graph-decode``). ``--checkpoint`` is a
+graph-constrained search (``--graph-decode``); or the host first pass over
+``--fst`` (``--fst-decode``: word error rate and final states, as with a
+graph). ``--checkpoint`` is a
 checkpoint that training wrote, JAX's or the port's (``ckpt_*.msgpack``,
 or a checkpoint directory: its newest), or the port's ``.npz`` export
 (``tpuasr_torch.convert.save_npz``), as predict's ``--weights``.
 
-The JAX command's host-only outputs are not ported and exit with a
-message: ``--dump-loglikes`` (Kaldi archives, ROADMAP Queue 1 item 8),
-``--align`` and ``--write-segments`` (forced alignment, item 8) and
-``--fst-decode`` (the host first pass, item 9).
+Kaldi archives beside the score: ``--dump-loglikes PREFIX`` writes each
+utterance's log-probs (binary FM), ``--align PREFIX`` the per-frame labels
+of the reference transcript's CTC forced alignment (binary FV; blank 0,
+-1 where infeasible), and ``--write-segments OUT.jsonl`` (with
+``--align``) a copy of the manifest whose ``segments`` hold each token's
+aligned sample span. The log-probs stay on the card for the search and the
+alignment and are copied to the host for the first pass and the dump only.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 
 import numpy as np
+import torch
 
 from tpuasr_torch.cli.common import (add_decode_flags, add_model_flags,
-                                     build_decode_graph, fusion_tables,
+                                     build_decode_graph, check_first_pass,
+                                     first_pass_kwargs, fusion_tables,
                                      lm_symbols, load_fst, load_lm,
                                      load_model, load_units,
                                      make_word_decoder, out_frames,
                                      tokens_to_text)
-from tpuasr_torch.data import AudioLoader, LoaderConfig
-from tpuasr_torch.decode import BeamSearchConfig
+from tpuasr_torch.data import AudioLoader, LoaderConfig, write_manifest
+from tpuasr_torch.decode import BeamSearchConfig, wfst_ctc_decode
+from tpuasr_torch.features import num_frames
+from tpuasr_torch.losses import ctc_align
 from tpuasr_torch.serve.offline import Recognizer
 from tpuasr_torch.utils.device import resolve_device
+from tpuasr_torch.utils.kaldi_io import write_ark_scp
 from tpuasr_torch.utils.metrics import wer
-
-# Flags of the JAX command whose modules the port does not have yet.
-UNPORTED = {"dump_loglikes": "--dump-loglikes (Kaldi ark/scp output, "
-                             "ROADMAP Queue 1 item 8)",
-            "align": "--align (CTC forced alignment, ROADMAP Queue 1 item 8)",
-            "write_segments": "--write-segments (forced alignment, ROADMAP "
-                              "Queue 1 item 8)",
-            "fst_decode": "--fst-decode (the host first pass, ROADMAP Queue 1 "
-                          "item 9)"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -61,32 +63,37 @@ def build_parser() -> argparse.ArgumentParser:
                         "format) or an .npz from tpuasr_torch.convert")
     p.add_argument("--batch-size", type=int, default=16)
     p.add_argument("--max-label-len", type=int, default=64)
+    p.add_argument("--dump-loglikes", metavar="PREFIX", default=None,
+                   help="also write each utterance's log-probs to "
+                        "PREFIX.ark/.scp (Kaldi binary FM)")
+    p.add_argument("--align", metavar="PREFIX", default=None,
+                   help="force-align the reference transcripts and write "
+                        "the per-frame label ids to PREFIX.ark/.scp (Kaldi "
+                        "binary FV; blank 0, -1 where infeasible)")
+    p.add_argument("--write-segments", metavar="OUT.jsonl", default=None,
+                   help="with --align: write a copy of the manifest whose "
+                        "`segments` hold each token's aligned sample span")
     add_decode_flags(p)
-    g = p.add_argument_group("not ported (exit with a message)")
-    g.add_argument("--dump-loglikes", metavar="PREFIX", default=None)
-    g.add_argument("--align", metavar="PREFIX", default=None)
-    g.add_argument("--write-segments", metavar="OUT.jsonl", default=None)
-    g.add_argument("--fst-decode", action="store_true")
     return p
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    for name, what in UNPORTED.items():
-        if getattr(args, name):
-            raise SystemExit(f"{what} is not ported to tpuasr_torch")
     device = resolve_device(args.device)
     units = load_units(args.units)
-    if args.graph_decode and args.beam:
-        raise SystemExit("--graph-decode replaces --beam")
+    if args.graph_decode and (args.beam or args.fst_decode):
+        raise SystemExit("--graph-decode replaces --beam/--fst-decode")
+    if args.write_segments and not args.align:
+        raise SystemExit("--write-segments requires --align")
     lm = None if args.graph_decode else load_lm(args)
+    check_first_pass(args, lm)
     if lm is not None and not args.beam:
         raise SystemExit("--lm requires --beam (the LM applies to beam "
                          "hypotheses) or --graph-decode (composed into LG)")
-    fst, _ = (None, None) if args.graph_decode else load_fst(args)
-    if fst is not None and not args.beam:
-        raise SystemExit("--fst requires --beam for rescoring or "
-                         "--graph-decode")
+    fst, fst_osyms = (None, None) if args.graph_decode else load_fst(args)
+    if fst is not None and not (args.beam or args.fst_decode):
+        raise SystemExit("--fst requires --beam for rescoring, "
+                         "--graph-decode or --fst-decode")
     model, feat_cfg, num_classes = load_model(args.checkpoint, args, units)
     loader = AudioLoader(args.manifest,
                          LoaderConfig(batch_size=args.batch_size,
@@ -131,12 +138,37 @@ def main(argv=None) -> int:
 
     refs, hyps, wrefs, whyps = [], [], [], []
     n_final = 0
+    loglikes = []     # (utt_id, (T', C) log-probs) with --dump-loglikes
+    aligns = []       # (utt_id, (T',) frame labels) with --align
+    segments = {}     # utt_id -> [[token, s0, s1], ...] with --write-segments
     for batch in loader:
         out = recognizer(batch["wav"].shape[1])(batch["wav"],
                                                 batch["wav_lens"])
         toks_nb = out["tokens"].cpu().numpy()
         lens_nb = out["token_lens"].cpu().numpy()
         real = [j for j in range(len(batch["real"])) if batch["real"][j]]
+        ol = out["out_lens"].cpu().numpy()
+        if args.align:
+            _align_refs(batch, out, real, feat_cfg, aligns,
+                        segments if args.write_segments else None)
+        host_lp = None
+        if args.dump_loglikes or args.fst_decode:
+            host_lp = out["log_probs"].cpu().numpy()
+        if args.dump_loglikes:
+            loglikes += [(batch["ids"][j], host_lp[j, :ol[j]]) for j in real]
+        if args.fst_decode:
+            # The first pass's words come straight off the graph's output
+            # labels.
+            fd = wfst_ctc_decode(fst, host_lp, ol, **first_pass_kwargs(args))
+            for j in real:
+                n = int(fd["word_lens"][j])
+                n_final += int(bool(fd["reached_final"][j]))
+                hyp = [fst_osyms.sym(w) if fst_osyms is not None else str(w)
+                       for w in fd["words"][j, :n]]
+                wrefs.append(utt_text.get(batch["ids"][j], "").split())
+                whyps.append(hyp)
+                print(f"{batch['ids'][j]}\t{' '.join(hyp)}")
+            continue
         if graph is not None:
             reached = out["reached_final"].cpu().numpy()[:, 0]
             wordseqs = graph_tokens_to_words(gfst, toks_nb[:, 0],
@@ -173,8 +205,20 @@ def main(argv=None) -> int:
                 whyps.append([words.sym(w) for w in word_dec.decode(hyp)])
                 text = " ".join(whyps[-1])
             print(f"{batch['ids'][j]}\t{text}")
-    if graph is not None:
-        # Graph decoding emits words, not unit tokens: word-level WER only.
+    if args.dump_loglikes:
+        ark, scp = write_ark_scp(args.dump_loglikes, loglikes)
+        print(f"# wrote {len(loglikes)} loglike matrices to {ark} ({scp})")
+    if args.align:
+        ark, scp = write_ark_scp(args.align, aligns)
+        print(f"# wrote {len(aligns)} alignments to {ark} ({scp})")
+    if args.write_segments:
+        write_manifest(args.write_segments, [
+            dataclasses.replace(u, segments=segments.get(u.id, u.segments))
+            for u in loader.utts])
+        print(f"# wrote manifest with {len(segments)} aligned segment "
+              f"lists to {args.write_segments}")
+    if graph is not None or args.fst_decode:
+        # A graph emits words, not unit tokens: word-level WER only.
         print(f"utterances: {len(wrefs)}  "
               f"word-error-rate: {wer(wrefs, whyps):.4f}  "
               f"final-reached: {n_final}/{len(wrefs)}")
@@ -185,6 +229,38 @@ def main(argv=None) -> int:
         line += f"  word-error-rate: {wer(wrefs, whyps):.4f}"
     print(line)
     return 0
+
+
+def _align_refs(batch, out, real, feat_cfg, aligns, segments) -> None:
+    """Force-align the batch's reference tokens onto its log-probs (on
+    their device): each real utterance's frame labels go to ``aligns``
+    and, given ``segments``, each token's sample span [s0, s1) to it."""
+    logp, ol_d = out["log_probs"], out["out_lens"]
+    al = ctc_align(logp, torch.as_tensor(batch["tokens"], device=logp.device),
+                   ol_d, torch.as_tensor(batch["token_lens"],
+                                         device=logp.device))
+    fl = al["frame_labels"].cpu().numpy().astype(np.float32)
+    ol = ol_d.cpu().numpy()
+    for j in real:
+        aligns.append((batch["ids"][j], fl[j, :ol[j]]))
+    if segments is None:
+        return
+    st = al["token_starts"].cpu().numpy()
+    en = al["token_ends"].cpu().numpy()
+    feasible = al["feasible"].cpu().numpy()
+    hop = feat_cfg.hop_length
+    for j in real:
+        if not feasible[j]:
+            continue
+        # Output frames stride the utterance's own feature frames (not the
+        # padded batch's) by feat_len / out_len; feature frames stride the
+        # samples by hop_length.
+        T_feat = num_frames(feat_cfg, int(batch["wav_lens"][j]))
+        stride = max(1, round(T_feat / max(int(ol[j]), 1)))
+        segments[batch["ids"][j]] = [
+            [int(batch["tokens"][j][u]), int(st[j, u]) * stride * hop,
+             int(en[j, u]) * stride * hop + feat_cfg.win_length]
+            for u in range(int(batch["token_lens"][j]))]
 
 
 if __name__ == "__main__":

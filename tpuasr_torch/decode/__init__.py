@@ -1,6 +1,8 @@
 """Decoders: greedy CTC collapse, the all-class beam search (kernel K3, with
 shallow LM fusion), the top-P scan search (LM fusion, decoding graphs,
-resumable state), and the host-side lexicon, WFST and graph builders.
+resumable state), the host-side lexicon, WFST and graph builders, the host
+first pass over a WFST with its lattices and n-best (``fst_decode``), and
+confidence scores (``confidence``).
 
 ``ctc_beam_search`` is the all-class kernel search (the JAX package's
 ``ctc_beam_search_pallas``); the scan search, the JAX package's
@@ -8,7 +10,12 @@ resumable state), and the host-side lexicon, WFST and graph builders.
 """
 
 from tpuasr_torch.decode.beam import beam_scan, ctc_beam_search
+from tpuasr_torch.decode.confidence import align_confidence, beam_posterior
 from tpuasr_torch.decode.fst import WFST, lexicon_to_fst, rescore_nbest_fst
+from tpuasr_torch.decode.fst_decode import (wfst_ctc_decode,
+                                            wfst_ctc_decode_nbest,
+                                            wfst_ctc_lattice,
+                                            write_lattice_text)
 from tpuasr_torch.decode.graph import (GraphTables, compile_graph_tables,
                                        compose, determinize,
                                        graph_tokens_to_words, ngram_to_fst)
@@ -36,9 +43,11 @@ def get_beam_search(impl: str = "auto"):
 
 
 __all__ = ["BeamSearchConfig", "GraphTables", "Lexicon", "LexiconDecoder",
-           "NEG_INF", "SymbolTable", "WFST", "apply_score_bias", "beam_scan",
+           "NEG_INF", "SymbolTable", "WFST", "align_confidence",
+           "apply_score_bias", "beam_posterior", "beam_scan",
            "beam_init_state", "beam_results", "compile_graph_tables",
            "compose", "ctc_beam_search", "ctc_beam_search_xla",
            "determinize", "get_beam_search", "graph_tokens_to_words",
            "greedy_decode", "lexicon_to_fst", "ngram_to_fst",
-           "rescore_nbest_fst"]
+           "rescore_nbest_fst", "wfst_ctc_decode", "wfst_ctc_decode_nbest",
+           "wfst_ctc_lattice", "write_lattice_text"]
