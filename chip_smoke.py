@@ -152,8 +152,9 @@ Phases, each fatal on failure:
      Phase 3 holds K5-bf16, K5b-bf16, K7b-bf16 (T'=249, H=512, B=16 and
      64) and K2b-bf16 (deepspeech_var's D=512 and 768, H=384, B=16)
      against their plain versions, timed beside their bound and
-     torch.nn.GRU in bf16, and tells the lean recurrence's rounding of
-     dhp apart from a kernel that skips it (``lean_round_control``);
+     torch.nn.GRU in bf16 (K5b-, K7b- and K2b-bf16's phases timed apart),
+     and tells the lean recurrence's rounding of dhp apart from none
+     (``lean_round_control``);
  14. the host first pass over the bench LG (native/wfst_decode.cc and
      native/wfst_lattice.cc, built at first use by
      tpuasr_torch/native/build.py) on config 5's int8 arm: the arm's batch
@@ -1491,9 +1492,9 @@ def bwd_phases(gru_mod, key, args) -> str:
     call ("K7b", those of gru_scan_bidir_bwd) timed apart with CUDA events
     (mean of 10): the pre-scan products (hp, and K2b's xp), the lean
     recurrence, the post-scan products (the weight gradients, and K2b's
-    dx); and the recurrence's plan. With bf16 streams the recurrence runs
-    over their f32 upcasts in its bf16 mode, as the wrappers run it (the
-    upcasts are not timed)."""
+    dx); and the recurrence's plan. With bf16 streams the recurrence is
+    the tensor-core body over the streams as they are, as the wrappers run
+    it."""
     if key == "K5b":
         xp, ysp, wh, mask, dys, rev = args
         T, B, _ = xp.shape
@@ -1524,16 +1525,12 @@ def bwd_phases(gru_mod, key, args) -> str:
         hpf, hpb = pre()
         dirs = [(xpf, hpf, yspf, dysf, whf), (xpb, hpb, yspb, dysb, whb)]
     H = dirs[0][-1].shape[0]
-    mode = 0
-    if dirs[0][-1].dtype == torch.bfloat16:
-        f32 = torch.float32
-        dirs = [(a.to(f32), hp, y.to(f32), d.to(f32), w.to(f32))
-                for a, hp, y, d, w in dirs]
-        mode = gru_mod._LEAN_ROUND_DHP | (
-            0 if key == "K2b" else gru_mod._LEAN_DXP_BF16)
-    plan = gru_mod._lean_plan(B, H, ndir, gru_mod._sm_count(mask.device))
+    bf16 = dirs[0][-1].dtype == torch.bfloat16
+    lean = gru_mod._lean_bf16 if bf16 else gru_mod._lean
+    plan = gru_mod._lean_plan(B, H, ndir, gru_mod._sm_count(mask.device),
+                              bf16)
     m2 = mask.reshape(T, B).contiguous()
-    outs = gru_mod._lean(plan, dirs, m2, rev, mode)
+    outs = lean(plan, dirs, m2, rev)
     if key == "K2b":
         def post():
             return gru_mod._xfb_post(x, ysp, wx, *outs[0])
@@ -1541,7 +1538,7 @@ def bwd_phases(gru_mod, key, args) -> str:
         def post():
             return [gru_mod._dwh(d[2], o[1]) for d, o in zip(dirs, outs)]
     pre_ms, post_ms = cuda_ms(pre, 10), cuda_ms(post, 10)
-    rec_ms = cuda_ms(lambda: gru_mod._lean(plan, dirs, m2, rev, mode), 10)
+    rec_ms = cuda_ms(lambda: lean(plan, dirs, m2, rev), 10)
     return (f"phases: pre-scan products {pre_ms:.3f} ms, lean recurrence "
             f"{rec_ms:.3f} ms ({rec_ms / T * 1e3:.2f} us a step; U={plan.U},"
             f" {plan.rg} row group(s), {plan.ndir} direction(s) a grid of "
@@ -3589,21 +3586,24 @@ BF16_GRAD_REL = 2.0 ** -6
 BF16_STEP_TOL = 2.0 ** -8
 
 
-# The lean recurrence's kRoundDhp against a kernel that ignores it. Rows
+# The lean recurrence's rounding of dhp in bf16, held apart from none. Rows
 # never mix in the backward, so a flipped bf16 rounding of dhp rides only
 # its own row: over the first 8 BPTT steps, the median over rows of dhp's
 # relative L2 error is within 2^-14 of the plain version that rounds dhp
-# for the rounded mode and beyond it for the unrounded one (on the CPU at
-# this shape: f64 sums for dhp@Wh^T 7.4e-8 away, no rounding 4.6e-4).
+# and beyond it from the plain version that does not (on the CPU at this
+# shape: f64 sums for dhp@Wh^T 7.4e-8 away from the rounding one, the
+# unrounded one 4.6e-4 away). The tensor-core body always rounds (its ring
+# holds bf16), so the unrounded arm is the plain version with wh in f32.
 LEAN_ROUND_GATE = 2.0 ** -14
 
 
 def lean_round_control(gru_mod, T, gen) -> None:
-    """Phase 3's negative control for the lean recurrence's bf16 mode:
-    K5b-bf16's phase b (T'=249, B=16, H=512, full rows, bf16 streams'
-    f32 upcasts) with kRoundDhp | kDxpBf16 and with kDxpBf16 alone, each
-    against gru_bwd_lean_plain with wh in bf16, the median row's error over
-    the first 8 BPTT steps (gated) and over the whole scan (printed)."""
+    """Phase 3's negative control for the lean recurrence's bf16 body:
+    K5b-bf16's phase b (T'=249, B=16, H=512, full rows, bf16 streams)
+    against gru_bwd_lean_plain with wh in bf16 (dhp rounded for dhp@Wh^T)
+    and with wh's values in f32 (no rounding), the median row's error over
+    the first 8 BPTT steps (gated: within the first, beyond the second)
+    and over the whole scan (printed)."""
     dev = torch.device("cuda")
     bf, f32 = torch.bfloat16, torch.float32
     B, H = TRAIN_B, HIDDEN
@@ -3615,32 +3615,44 @@ def lean_round_control(gru_mod, T, gen) -> None:
     xp, wh, dys = rnd(T, B, 3 * H), rnd(H, 3 * H, scale=H ** -0.5), \
         rnd(T, B, H)
     ysp = gru_mod.prev_states(gru_mod.gru_scan_plain(xp, wh, mask), False)
-    up = (xp.to(f32), gru_mod._hp(ysp, wh), ysp.to(f32), dys.to(f32),
-          wh.to(f32))
-    _, want = gru_mod.gru_bwd_lean_plain(*up[:3], wh, mask, up[3])
-    plan = gru_mod._lean_plan(B, H, 1, gru_mod._sm_count(dev))
+    hp = gru_mod._hp(ysp, wh)
+    plan = gru_mod._lean_plan(B, H, 1, gru_mod._sm_count(dev), True)
+    (_, dhp), = gru_mod._lean_bf16(plan, [(xp, hp, ysp, dys, wh)],
+                                   mask.reshape(T, B), False)
     errs = {}
-    for name, mode in (("rounded", gru_mod._LEAN_ROUND_DHP
-                        | gru_mod._LEAN_DXP_BF16),
-                       ("unrounded", gru_mod._LEAN_DXP_BF16)):
-        (_, dhp), = gru_mod._lean(plan, [up], mask.reshape(T, B), False,
-                                  mode)
+    for name, w in (("rounding", wh), ("unrounded", wh.to(f32))):
+        _, want = gru_mod.gru_bwd_lean_plain(xp.to(f32), hp, ysp.to(f32), w,
+                                             mask, dys.to(f32))
         errs[name] = [((dhp[sl] - want[sl]).norm(dim=(0, 2))
                        / want[sl].norm(dim=(0, 2))).median().item()
                       for sl in (slice(T - 8, T), slice(0, T))]
-    r, u = errs["rounded"], errs["unrounded"]
-    phase(f"[3 K5b-bf16 kRoundDhp control] T={T} B={B} H={H}: dhp relative "
-          f"L2 error against the plain version, median row, first 8 BPTT "
-          f"steps / whole scan: kRoundDhp|kDxpBf16 {r[0]:.3e} / "
-          f"{r[1]:.3e}, kDxpBf16 alone {u[0]:.3e} / {u[1]:.3e} (gate "
-          f"{LEAN_ROUND_GATE:.3e}: "
-          f"the first within, the second beyond)")
+    r, u = errs["rounding"], errs["unrounded"]
+    phase(f"[3 K5b-bf16 dhp rounding control] T={T} B={B} H={H}: the "
+          f"kernel's dhp relative L2 error, median row, first 8 BPTT steps "
+          f"/ whole scan: against the plain version that rounds dhp "
+          f"{r[0]:.3e} / {r[1]:.3e}, against the unrounded one {u[0]:.3e} "
+          f"/ {u[1]:.3e} (gate {LEAN_ROUND_GATE:.3e}: the first within, "
+          f"the second beyond)")
     if not r[0] <= LEAN_ROUND_GATE < u[0]:
-        fail("the lean recurrence's kRoundDhp is not told apart from a "
-             "kernel that ignores it")
+        fail("the lean recurrence's rounding of dhp is not told apart from "
+             "none")
 
 
-def bf16_train_kernels(record, gen) -> None:
+# The bound of a bf16 backward counts the work of its route: the bf16
+# products hp = ysp Wh and dhp Wh^T, and the weight gradients as three bf16
+# products each (dhp, or K2b's dxp, split into hi + mid + lo), all on the
+# tensor cores. The yardstick before (those gradients as one f32 product
+# on the FMA units) is printed beside it.
+BF16_BOUND_NOTE = "the f32-FMA weight gradients' bound"
+
+
+def bf16_bwd_ops(macs: int) -> dict:
+    """Operations of K5b-bf16 (K7b-bf16 with both directions' macs), macs =
+    T B H 3H a direction: hp, dhp Wh^T, and dWh's three split terms."""
+    return {"bf16": 2 * macs * (1 + 1 + 3)}
+
+
+def bf16_train_kernels(record, gen, card) -> None:
     """Phase 3 for the bf16 forms of K5, K5b, K7b and K2b (config 3's bf16
     points: T'=249, H=512, B=16 and 64; K2b at the deepspeech_var step's
     D=512 and 768, H=384, B=16): each against its plain version, two calls
@@ -3705,7 +3717,8 @@ def bf16_train_kernels(record, gen) -> None:
                 bms = cuda_ms(lambda: gru_mod.gru_scan_bwd(*args), 10)
                 pbms = cuda_ms(lambda: gru_mod.gru_scan_bwd_plain(*args), 1)
                 bd = bound_mixed(nbytes(xp, wh, mask, ys), {"bf16": 2 * macs})
-                bbd = bound_mixed(nbytes(*args[:5], *got),
+                bbd = bound_mixed(nbytes(*args[:5], *got), bf16_bwd_ops(macs))
+                old = bound_mixed(nbytes(*args[:5], *got),
                                   {"bf16": 4 * macs, "fp32": 2 * macs})
                 lib = library_gru_ms(T, Bn, 2 * H, H, bf, False)
                 blib = library_gru_ms(T, Bn, 2 * H, H, bf, True)
@@ -3713,8 +3726,9 @@ def bf16_train_kernels(record, gen) -> None:
                         f"bound {bd[0]:.4f} ms ({bd[1]}) torch.nn.GRU bf16 "
                         f"forward {lib:.3f} ms; K5b-bf16 kernel {bms:.3f} ms "
                         f"plain {pbms:.3f} ms bound {bbd[0]:.4f} ms "
-                        f"({bbd[1]}) torch.nn.GRU bf16 backward {blib:.3f} "
-                        f"ms; {bwd_phases(gru_mod, 'K5b', args)}")
+                        f"({bbd[1]}; {BF16_BOUND_NOTE} {old[0]:.4f} ms) "
+                        f"torch.nn.GRU bf16 backward {blib:.3f} ms; "
+                        f"{bwd_phases(gru_mod, 'K5b', args)} [{card}]")
                 t5, t5b = (ms, pms, bd, lib), (bms, pbms, bbd, blib)
             phase(msg)
             if not (err <= BF16_YS_TOL and same_f and same and all(
@@ -3747,14 +3761,16 @@ def bf16_train_kernels(record, gen) -> None:
             macs = 2 * T * Bn * H * 3 * H
             ms = cuda_ms(lambda: gru_mod.gru_scan_bidir_bwd(*bargs), 10)
             pms = cuda_ms(lambda: gru_mod.gru_scan_bidir_bwd_plain(*bargs), 1)
-            bd = bound_mixed(nbytes(*bargs, *got),
-                             {"bf16": 4 * macs, "fp32": 2 * macs})
+            bd = bound_mixed(nbytes(*bargs, *got), bf16_bwd_ops(macs))
+            old = bound_mixed(nbytes(*bargs, *got),
+                              {"bf16": 4 * macs, "fp32": 2 * macs})
             lib = library_gru_ms(T, Bn, 2 * H, H, bf, True,
                                  bidirectional=True)
             msg += (f"; kernel {ms:.3f} ms plain {pms:.3f} ms bound "
-                    f"{bd[0]:.4f} ms ({bd[1]}) torch.nn.GRU bf16 "
+                    f"{bd[0]:.4f} ms ({bd[1]}; {BF16_BOUND_NOTE} "
+                    f"{old[0]:.4f} ms) torch.nn.GRU bf16 "
                     f"bidirectional backward {lib:.3f} ms; "
-                    f"{bwd_phases(gru_mod, 'K7b', bargs)}")
+                    f"{bwd_phases(gru_mod, 'K7b', bargs)} [{card}]")
             t7 = (ms, pms, bd, lib)
         phase(msg)
         if not (same and all(e <= t for e, t in zip(errs, tols))):
@@ -3791,12 +3807,16 @@ def bf16_train_kernels(record, gen) -> None:
                 pms = cuda_ms(lambda: gru_mod.gru_scan_xfused_bwd_plain(
                     *args), 1)
                 bd = bound_mixed(nbytes(*args[:7], *got), {
+                    "bf16": 2 * n * (2 * D + 2 * Hv) + 6 * n * (D + Hv)})
+                old = bound_mixed(nbytes(*args[:7], *got), {
                     "bf16": 2 * n * (2 * D + 2 * Hv),
                     "fp32": 2 * n * (D + Hv)})
                 lib = library_gru_ms(T, TRAIN_B, D, Hv, bf, True)
                 msg += (f"; kernel {ms:.3f} ms plain {pms:.3f} ms bound "
-                        f"{bd[0]:.4f} ms ({bd[1]}) torch.nn.GRU bf16 "
-                        f"backward {lib:.3f} ms")
+                        f"{bd[0]:.4f} ms ({bd[1]}; {BF16_BOUND_NOTE} "
+                        f"{old[0]:.4f} ms) torch.nn.GRU bf16 backward "
+                        f"{lib:.3f} ms; {bwd_phases(gru_mod, 'K2b', args)} "
+                        f"[{card}]")
                 t2 = (ms, pms, bd, lib)
             phase(msg)
             if not (same and all(e <= t for e, t in zip(errs, tols))
@@ -4605,7 +4625,7 @@ def main() -> int:
     # K9 and K7 at config 5's and config 3's shapes; K7b at config 3's.
     conv_bidir_kernels(record, gen)
     bidir_bwd_kernels(record, gen)
-    bf16_train_kernels(record, gen)
+    bf16_train_kernels(record, gen, card)
 
     # K8 and K8b at config 4's shapes.
     capsnet_kernels(record, gen)

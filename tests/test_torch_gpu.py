@@ -1582,6 +1582,22 @@ def test_lean_and_k5b_plans_match_kernel_smem(dev):
             assert lean(H, plan.U, plan.kc) == plan.smem
 
 
+def test_lean_bf16_plan_matches_kernel_smem(dev):
+    """The bf16 lean plan's shared-memory reckoning
+    (ops/gru.py::_lean_plan(..., bf16=True)) is the kernel's own on this
+    card (tpuasr_gru_lean_bf16_smem), at the trained widths and ragged
+    ones, one and two directions."""
+    lean = _build.lib().tpuasr_gru_lean_bf16_smem
+    lean.argtypes = [ctypes.c_int] * 2
+    lean.restype = ctypes.c_longlong
+    n_sm = gru_mod._sm_count(dev)
+    for B, H in ((16, 512), (64, 512), (128, 512), (16, 384), (7, 40),
+                 (20, 130), (16, 640), (683, 1024), (16, 1056)):
+        for ndir in (1, 2):
+            plan = gru_mod._lean_plan(B, H, ndir, n_sm, bf16=True)
+            assert lean(H, plan.U) == plan.smem
+
+
 def test_k7_f32_plan_matches_kernel_smem(dev):
     """K7's f32 plan (ops/gru.py::_bidir_f32_plan) and the one-direction
     plan of K5 (_f32_rec_plan) reckon the shared memory of
@@ -1616,6 +1632,26 @@ def test_weight_gradient_product(dev, M, N1, N2, ones):
         want = a.T @ b
         if ones:
             want = torch.cat([want, b.sum(0, keepdim=True)])
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-5 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("M,N1,N2,ones", [(3984, 512, 1536, False),
+                                          (3984, 768, 1152, True),
+                                          (37, 70, 120, True),
+                                          (1, 3, 5, True),
+                                          (2049, 130, 390, False)])
+def test_weight_gradient_product_bf16(dev, M, N1, N2, ones):
+    """Phase c's bf16 product (a bf16, b f32 split into three bf16 terms on
+    the tensor cores) within 1e-5 of its largest magnitude of its plain
+    version (the split's three products in full float32: both sum exact
+    products in f32, in other orders), the same bits on two calls."""
+    g = torch.Generator().manual_seed(9)
+    a = torch.randn(M, N1, generator=g).to(dev, torch.bfloat16)
+    b = torch.randn(M, N2, generator=g).to(dev)
+    got = gru_mod._tn_product(a, b, ones)
+    assert torch.equal(got, gru_mod._tn_product(a, b, ones))
+    want = gru_mod.tn_product_split_plain(a, b, ones)
     torch.testing.assert_close(got, want, rtol=0,
                                atol=1e-5 * want.abs().max().item())
 
@@ -1894,46 +1930,46 @@ def test_k7b_bf16(dev, H, B, T):
         _bf16_close(a, w)
 
 
-# The lean recurrence's kRoundDhp, held apart from the sum-order noise. Rows
-# never mix in the backward, so a flipped bf16 rounding of dhp (an f32 sum
-# in another order on the other side of a rounding boundary) rides only
-# its own row. Over the first 8 BPTT steps, the median over rows of dhp's
-# relative L2 error: the rounded mode within 2^-14 of the plain version
-# that rounds dhp, a kernel that ignored the bit beyond it. On the CPU at
-# these inputs' shape (T=249, B=16, H=512), the plain version with f64
-# sums for dhp@Wh^T gave 7.4e-8 and the unrounded plain version 4.6e-4
-# (over the whole scan, each row's flips ride: 3.0e-4 and 5.3e-4).
+# The lean recurrence's rounding of dhp, held apart from the sum-order
+# noise. Rows never mix in the backward, so a flipped bf16 rounding of dhp
+# (an f32 sum in another order on the other side of a rounding boundary)
+# rides only its own row. Over the first 8 BPTT steps, the median over rows
+# of dhp's relative L2 error: the kernel within 2^-14 of the plain version
+# that rounds dhp, and beyond it from the plain version that does not. On
+# the CPU at these inputs' shape (T=249, B=16, H=512), the plain version
+# with f64 sums for dhp@Wh^T gave 7.4e-8 and the unrounded plain version
+# 4.6e-4 (over the whole scan, each row's flips ride: 3.0e-4 and 5.3e-4).
 LEAN_ROUND_GATE = 2.0 ** -14
 
 
 @pytest.mark.parametrize("reverse", [False, True])
 def test_lean_bf16_mode_rounds_dhp(dev, reverse):
-    """A negative control for the lean recurrence's bf16 mode: the kernel
-    on the same f32 upcasts of bf16 streams with kRoundDhp | kDxpBf16
-    and with kDxpBf16 alone, each against gru_bwd_lean_plain with wh in
-    bf16 (which rounds dhp): the first passes LEAN_ROUND_GATE over the
-    first 8 BPTT steps (the median row), the second fails it."""
+    """A negative control for the lean recurrence's bf16 body (which always
+    rounds: its ring holds bf16): the kernel's dhp against
+    gru_bwd_lean_plain with wh in bf16 (which rounds dhp) passes
+    LEAN_ROUND_GATE over the first 8 BPTT steps (the median row), and
+    against the plain version with wh's values in f32 (no rounding) fails
+    it."""
     T, B, H = 249, 16, 512
     xp, wh, _, dys = _scan_case(dev, H, B, T)
     mask = torch.ones((T, B, 1), device=dev)
     xp, wh, dys = xp.to(BF), wh.to(BF), dys.to(BF)
     ysp = prev_states(gru_scan_plain(xp, wh, mask, reverse), reverse)
     f32 = torch.float32
-    up = (xp.to(f32), gru_mod._hp(ysp, wh), ysp.to(f32), dys.to(f32),
-          wh.to(f32))
-    _, want = gru_mod.gru_bwd_lean_plain(*up[:3], wh, mask, up[3], reverse)
-    plan = gru_mod._lean_plan(B, H, 1, gru_mod._sm_count(dev))
+    hp = gru_mod._hp(ysp, wh)
+    plan = gru_mod._lean_plan(B, H, 1, gru_mod._sm_count(dev), bf16=True)
+    (_, dhp), = gru_mod._lean_bf16(plan, [(xp, hp, ysp, dys, wh)],
+                                   mask.reshape(T, B), reverse)
     first = slice(0, 8) if reverse else slice(T - 8, T)
 
-    def err(mode):
-        (_, dhp), = gru_mod._lean(plan, [up], mask.reshape(T, B), reverse,
-                                  mode)
+    def err(w):
+        _, want = gru_mod.gru_bwd_lean_plain(xp.to(f32), hp, ysp.to(f32), w,
+                                             mask, dys.to(f32), reverse)
         w = want[first]
         return ((dhp[first] - w).norm(dim=(0, 2))
                 / w.norm(dim=(0, 2))).median().item()
 
-    rounded = err(gru_mod._LEAN_ROUND_DHP | gru_mod._LEAN_DXP_BF16)
-    unrounded = err(gru_mod._LEAN_DXP_BF16)
+    rounded, unrounded = err(wh), err(wh.to(f32))
     assert rounded <= LEAN_ROUND_GATE < unrounded, (rounded, unrounded)
 
 

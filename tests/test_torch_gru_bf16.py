@@ -30,7 +30,8 @@ from tpuasr.ops.pallas_gru import gru_scan_xfused as j_xfused
 from tpuasr_torch.ops import gru as gru_mod
 from tpuasr_torch.ops.gru import (gru_bwd_lean_plain, gru_scan,
                                   gru_scan_bidir, gru_scan_bwd_plain,
-                                  gru_scan_xfused, prev_states)
+                                  gru_scan_xfused, prev_states, split_bf16,
+                                  tn_product_split_plain)
 
 from torch_bf16_common import check_model_grads
 
@@ -172,6 +173,77 @@ def test_lean_plain_bf16_is_k5b_phase_b(reverse):
     np.testing.assert_allclose(dwh.to(TBF).float().numpy(),
                                want_dwh.float().numpy(), rtol=2.0 ** -7,
                                atol=0)
+
+
+def test_split_bf16_is_exact():
+    """Phase c's split of an f32 value into three bf16 terms: hi + mid +
+    lo is the value exactly (f64 sums), each term holds a bf16 value, and
+    |mid| <= 2^-8 |hi|, |lo| <= 2^-16 |hi| (each term the rounding
+    remainder of the one before), over eight decades and signed zeros."""
+    rng = np.random.default_rng(5)
+    v = (rng.standard_normal(200_000)
+         * 10.0 ** rng.uniform(-4, 4, 200_000)).astype(np.float32)
+    v[:4] = [0.0, -0.0, 1.0, np.float32(1 + 2 ** -23)]
+    t = torch.tensor(v)
+    hi, mid, lo = split_bf16(t)
+    assert all(x.dtype == TBF for x in (hi, mid, lo))
+    total = hi.double() + mid.double() + lo.double()
+    assert torch.equal(total, t.double())
+    assert (mid.double().abs() <= 2.0 ** -8 * hi.double().abs()).all()
+    assert (lo.double().abs() <= 2.0 ** -16 * hi.double().abs()).all()
+
+
+@pytest.mark.parametrize("M,N1,N2,ones", [(3984, 512, 1536, False),
+                                          (3984, 384, 1152, False),
+                                          (3984, 768, 1152, True)])
+def test_split_product_matches_float64(M, N1, N2, ones):
+    """The plain version of phase c's bf16 product (a bf16, b f32 split
+    into three bf16 terms, three products in f32) at phase c's shapes
+    (T'=249 x B=16 rows: K5b-bf16's dWh at H=512, K2b-bf16's dWh and dWx
+    with db at H=384, D=768) against a^T b in float64: every product is
+    exact, so the error is the f32 sums' alone: within sqrt(3M) 2^-24
+    (|a|^T |b|) elementwise, the typical size of rounding errors over
+    three sums of M terms (these inputs stay under 0.01 of it, as the
+    plain f32 product a^T b does); a product over b rounded to one bf16
+    term lands about 50 times beyond it."""
+    rng = np.random.default_rng(6)
+    a = torch.tensor(rng.standard_normal((M, N1)).astype(np.float32)).to(TBF)
+    b = torch.tensor(rng.standard_normal((M, N2)).astype(np.float32))
+    got = tn_product_split_plain(a, b, ones).double()
+    a64 = a.double()
+    if ones:
+        a64 = torch.cat([a64, a64.new_ones((M, 1))], dim=1)
+    want = a64.T @ b.double()
+    bound = (3 * M) ** 0.5 * 2.0 ** -24 * (a64.abs().T @ b.double().abs())
+    assert got.shape == want.shape
+    assert ((got - want).abs() <= bound).all()
+    one_term = (a64.T @ b.to(TBF).double())
+    assert ((one_term - want).abs() > bound).any()
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_k5b_bf16_phases_with_the_split_product_match_jax(reverse):
+    """K5b-bf16's three phases as the card runs them, plainly: hp on bf16
+    values with f32 sums, the lean recurrence with dhp rounded for
+    dhp@Wh^T, dWh = ysp^T dhp by the split-bf16 product, rounded to bf16
+    at the end -- against jax.vjp of JAX's gru_scan on the same bf16
+    inputs (dxp and dwh within REL of the largest magnitude)."""
+    x, wx, wh, b, mask, dys = _case(7)
+    xp = (x.reshape(T * B, D) @ wx + b).reshape(T, B, 3 * H)
+    _, vjp = jax.vjp(lambda a, w: j_scan(a, w, jnp.asarray(mask), reverse),
+                     jnp.asarray(xp, JBF), jnp.asarray(wh, JBF))
+    dxp_j, dwh_j = vjp(jnp.asarray(dys, JBF))
+    xpt, wht = torch.tensor(xp).to(TBF), torch.tensor(wh).to(TBF)
+    m = torch.tensor(mask)
+    ysp = prev_states(gru_mod.gru_scan_plain(xpt, wht, m, reverse), reverse)
+    f32 = torch.float32
+    hp = (ysp.reshape(T * B, H).to(f32) @ wht.to(f32)).reshape(T, B, 3 * H)
+    dxp, dhp = gru_bwd_lean_plain(xpt.to(f32), hp, ysp.to(f32), wht, m,
+                                  torch.tensor(dys).to(TBF).to(f32), reverse)
+    dwh = tn_product_split_plain(ysp.reshape(T * B, H),
+                                 dhp.reshape(T * B, 3 * H)).to(TBF)
+    _close(dxp.to(TBF), dxp_j, "dxp")
+    _close(dwh, dwh_j, "dwh")
 
 
 def test_bf16_refuses_mixed_streams():

@@ -9,12 +9,17 @@ configurations serve or train, the plan must fit; a shape it cannot hold
 raises ValueError before any launch.
 """
 
+import re
+from pathlib import Path
+
 import pytest
 import torch
 
 from tpuasr_torch.ops.gru import (_MODE_K2, _MODE_Q8, _MODE_Q8_REC,
-                                  _SMEM_BUDGET, _bidir_f32_plan,
-                                  _bidir_f32_smem, _f32_rec_plan, _lean_plan,
+                                  _SMEM_BUDGET, RowGroupPlan,
+                                  _bidir_f32_plan, _bidir_f32_smem,
+                                  _f32_rec_plan, _lean_bf16_k3,
+                                  _lean_bf16_ld, _lean_bf16_smem, _lean_plan,
                                   _lean_rows, _lean_smem, _scan_plan,
                                   _tn_slices, gru_scan_plain)
 
@@ -230,6 +235,109 @@ def test_backward_plans_raise_past_the_width(H, n_sm):
         _lean_plan(16, 2 * H, 1, n_sm)
     with pytest.raises(ValueError):
         _bidir_f32_plan(16, H, n_sm)
+
+
+# The lean recurrence's bf16 body (csrc/gru_lean.cu, gru_lean_bf16_kernel):
+# Wh's rows of U = 8, 16 or 32 units resident in bf16 over the whole 3H
+# contraction, no chunks; the bf16 streams' backward must plan wherever the
+# bf16 forward does.
+@pytest.mark.parametrize("ndir", [1, 2])
+@pytest.mark.parametrize("H", WIDTHS + (40, 130, 1056))
+@pytest.mark.parametrize("B", BATCHES)
+def test_lean_bf16_plan_covers_every_row_once_within_budget(B, H, ndir):
+    plan = _lean_plan(B, H, ndir, N_SM, bf16=True)
+    assert plan.U in (8, 16, 32)
+    assert plan.smem == _lean_bf16_smem(H, plan.U)
+    assert plan.smem <= _SMEM_BUDGET <= SMEM_MAX
+    assert plan.kc == _lean_bf16_k3(H) >= 3 * H and plan.kc % 32 == 0
+    assert plan.grid == plan.ndir * plan.rg * -(-H // plan.U) <= N_SM
+    assert plan.ndir in (1, ndir)
+    _check_rows(B, plan.rg)
+
+
+@pytest.mark.parametrize("B,H,ndir,want", [
+    (16, 512, 1, (32, 1, 16)), (64, 512, 1, (32, 4, 64)),
+    (128, 512, 1, (32, 8, 128)), (16, 512, 2, (32, 1, 32)),
+    (64, 512, 2, (32, 4, 128)), (128, 512, 2, (32, 4, 128)),
+    (16, 384, 1, (32, 1, 12))])
+def test_lean_bf16_plans_at_the_trained_shapes(B, H, ndir, want):
+    """At the trained shapes (config 3's H=512 at B=16, 64 and 128, one
+    direction for K5b-bf16 and two for K7b-bf16; deepspeech_var's H=384 at
+    B=16 for K2b-bf16) the bf16 body takes 32 units a block (a step stages
+    a row group's rows once a block, so the fewest blocks that leave 16
+    rows a block stage the fewest bytes), every row once, within the
+    budget: (U, row groups, grid)."""
+    plan = _lean_plan(B, H, ndir, N_SM, bf16=True)
+    assert (plan.U, plan.rg, plan.grid) == want
+    assert plan.ndir == ndir and plan.smem <= _SMEM_BUDGET
+    _check_rows(B, plan.rg)
+
+
+def test_lean_bf16_plan_holds_every_width_the_bf16_forward_does():
+    """Every H the bf16 forward's recurrence plans (``_scan_plan`` in bf16,
+    one direction) the bf16 backward plans too; it raises ValueError past
+    H=2112 on 132 SMs (16 units a block, 132 blocks)."""
+    widest = 0
+    for H in range(32, 2200, 32):
+        try:
+            _scan_plan(16, H, H, _MODE_K2, torch.bfloat16, n_sm=N_SM)
+        except ValueError:
+            continue
+        widest = H
+        _lean_plan(16, H, 1, N_SM, bf16=True)
+        _lean_plan(683, H, 2, N_SM, bf16=True)
+    assert widest >= 1024
+    _lean_plan(16, 2112, 1, N_SM, bf16=True)
+    with pytest.raises(ValueError):
+        _lean_plan(16, 2113, 1, N_SM, bf16=True)
+
+
+def _c_returns(src: str, name: str) -> str:
+    """The expression a one-statement C function ``name`` returns, as
+    Python: casts dropped, integer division floored (all operands are
+    non-negative), comparisons read as 0 or 1."""
+    m = re.search(name + r"\([^)]*\)\s*\{\s*return\s+(.*?);\s*\}", src,
+                  re.S)
+    assert m, name
+    expr = re.sub(r"static_cast<\w+>", "", m.group(1))
+    return expr.replace("/", "//")
+
+
+def test_lean_bf16_smem_is_the_kernels_formula():
+    """``_lean_bf16_smem`` (and the row and contraction it rests on) is
+    csrc/gru_lean.cu's lean_bf16_smem_bytes as written in the source, at
+    every width up to 2112 and every U the plan takes."""
+    src = (Path(__file__).resolve().parents[1] / "tpuasr_torch" / "csrc"
+           / "gru_lean.cu").read_text()
+    consts = dict(kPiece=int(re.search(r"kPiece = (\d+);", src).group(1)),
+                  kThreads=512, kR=16)
+    consts["kWarps"] = consts["kThreads"] // 32
+    k3 = _c_returns(src, "lean_bf16_k3")
+    ld = _c_returns(src, "lean_bf16_ld")
+    smem = _c_returns(src, "lean_bf16_smem_bytes")
+    for H in range(1, 2113, 7):
+        env = dict(consts, H=H)
+        env["lean_bf16_k3"] = lambda h: eval(k3, dict(env, H=h))
+        env["lean_bf16_ld"] = lambda h: int(eval(ld, dict(env, H=h)))
+        assert env["lean_bf16_k3"](H) == _lean_bf16_k3(H)
+        assert env["lean_bf16_ld"](H) == _lean_bf16_ld(H)
+        for U in (8, 16, 32):
+            assert eval(smem, dict(env, U=U)) == _lean_bf16_smem(H, U)
+
+
+@pytest.mark.parametrize("B,H,ndir,want", [
+    (16, 512, 1, RowGroupPlan(4, 1, 1536, 124928, 128, 1)),
+    (64, 512, 1, RowGroupPlan(16, 4, 1536, 198656, 128, 1)),
+    (128, 512, 1, RowGroupPlan(16, 4, 1536, 198656, 128, 1)),
+    (16, 512, 2, RowGroupPlan(8, 1, 1536, 149504, 128, 2)),
+    (64, 512, 2, RowGroupPlan(16, 2, 1536, 198656, 128, 2)),
+    (128, 512, 2, RowGroupPlan(16, 2, 1536, 198656, 128, 2)),
+    (16, 384, 1, RowGroupPlan(4, 1, 1152, 94208, 96, 1)),
+    (64, 384, 1, RowGroupPlan(16, 4, 1152, 149504, 96, 1))])
+def test_lean_f32_plans_are_pinned(B, H, ndir, want):
+    """The f32 lean plans at the trained shapes stay as they were: the f32
+    body is unchanged beside the bf16 one."""
+    assert _lean_plan(B, H, ndir, N_SM) == want
 
 
 @pytest.mark.parametrize("M,N1,N2", [(3984, 512, 1536), (15936, 769, 1152),

@@ -2,8 +2,9 @@
 // float32 forward recurrence of K5, K2's f32 recurrence and K7's f32
 // forward; csrc/gru_lean.cu: the lean BPTT recurrence of K2b, K5b and K7b;
 // csrc/gru_scan.cu: K2, K4 and K7's bf16 forward): the block shape, the
-// group barrier of a cooperative launch, cp.async staging, the warps'
-// reduce-scatter and the occupancy-checked cooperative launch.
+// group barrier of a cooperative launch, cp.async staging, the bf16
+// tensor-core product and ldmatrix, the warps' reduce-scatter and the
+// occupancy-checked cooperative launch.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -77,6 +78,42 @@ __device__ __forceinline__ void cp_async_wait_group() {
 __device__ __forceinline__ void cp_async_wait() {
   cp_async_commit();
   cp_async_wait_group<0>();
+}
+
+// d (16 x 8 f32) += a (16 x 16 bf16, row-major) b (16 x 8 bf16, col), on
+// the tensor cores: exact products, f32 sums. Fragments as mma.sync
+// m16n8k16 lays them out: lane (g, c) = (lane / 4, lane % 4) holds a's rows
+// g and g + 8 at k 2c, 2c+1 (a[0], a[1]) and 2c+8, 2c+9 (a[2], a[3]), b's
+// column g at the same k (b[0], b[1]), and d's rows g and g + 8 at columns
+// 2c, 2c+1.
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a,
+                                         const uint32_t* b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Four 8 x 8 b16 matrices from shared memory, one register each (lanes
+// 8i .. 8i+7 give matrix i's row addresses); with trans, each transposed
+// (lane (g, c) then holds rows 2c, 2c+1 of column g).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a));
 }
 
 // Sum of v over the 32 lanes of the warp, scattered: v holds kR groups of

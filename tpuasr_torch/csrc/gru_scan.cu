@@ -132,11 +132,7 @@ template <> struct Mma<false> {   // bf16 x bf16 -> f32
   using Acc = float;
   static __device__ __forceinline__ void run(float* d, const uint32_t* a,
                                              const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+    mma_bf16(d, a, b);
   }
 };
 template <> struct Mma<true> {    // s8 x s8 -> s32, exact
@@ -172,16 +168,8 @@ __device__ __forceinline__ void load_b(uint32_t* b, const unsigned char* t,
   b[1] = r[4];
 }
 
-// Four 8 x 8 b16 matrices from shared memory, one register each (lanes
-// 8i .. 8i+7 give matrix i's row addresses): an A fragment or two B
-// fragments of the 32-byte step layout above.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(a));
-}
+// ldmatrix_x4 (gru_coop.cuh) gives an A fragment or two B fragments of the
+// 32-byte step layout above.
 
 
 // ---- 1. the projection ----------------------------------------------------

@@ -608,11 +608,69 @@ def _row_group_plan(B: int, H: int, K: int, ndir: int, n_sm: int, smem_fn,
     return RowGroupPlan(U, rg, kc, smem, ndir * rg * -(-H // U), ndir)
 
 
-def _lean_plan(B: int, H: int, ndir: int = 1,
-               n_sm: int = 132) -> RowGroupPlan:
-    """The plan of the lean recurrence (``_row_group_plan`` over the 3H
-    contraction of dhp @ Wh^T) at batch B and width H for ndir directions
-    (1: K2b, K5b; 2: K7b) on a card of n_sm SMs."""
+_LEAN_PIECE = 32            # kPiece in csrc/gru_lean.cu: columns a piece
+
+
+def _lean_bf16_k3(H: int) -> int:
+    """The bf16 body's contraction (lean_bf16_k3): 3H rounded up to whole
+    pieces of 32 columns, the ring's row."""
+    return _round_up(3 * H, _LEAN_PIECE)
+
+
+def _lean_bf16_ld(H: int) -> int:
+    """A resident bf16 row of Wh (lean_bf16_ld): 32 columns more where the
+    contraction is a multiple of 64 (no bank taken twice by a B
+    fragment)."""
+    k3 = _lean_bf16_k3(H)
+    return k3 + _LEAN_PIECE * (k3 % 64 == 0)
+
+
+def _lean_bf16_smem(H: int, U: int) -> int:
+    """Shared memory of a bf16 lean block (lean_bf16_smem_bytes): Wh's
+    rows of its U units in bf16, the warps' 16 x U f32 sums of a pass."""
+    return (2 * U * _lean_bf16_ld(H)
+            + 4 * (_REC_THREADS // 32) * _LEAN_ROWS * U)
+
+
+def _lean_bf16_plan(B: int, H: int, ndir: int, n_sm: int) -> RowGroupPlan:
+    """The bf16 body's plan: for each U in 8, 16, 32 (n8 tiles of the
+    tensor-core product) whose ndir * ceil(H / U) unit groups fit the SMs
+    and whose block holds all of the 3H contraction within the budget, the
+    rows split into as many row groups as the SMs left allow (no fewer than
+    16 rows a group). The fewest rows a block wins, the larger U on a tie:
+    a block stages its rows' whole dhp[t] whatever its U, so fewer blocks
+    stage fewer bytes and meet at a smaller barrier. Two directions share a
+    grid where they fit, else a launch each; ValueError where nothing
+    fits."""
+    options = []
+    for U in (8, 16, 32):
+        ug = -(-H // U)
+        smem = _lean_bf16_smem(H, U)
+        if ndir * ug > n_sm or smem > _SMEM_BUDGET:
+            continue
+        rg = max(1, min(n_sm // (ndir * ug), -(-B // 16)))
+        options.append((-(-B // rg), -U, rg, smem))
+    if not options:
+        if ndir == 2:
+            return _lean_bf16_plan(B, H, 1, n_sm)
+        raise ValueError(
+            f"the lean GRU backward in bf16 cannot hold H={H} on {n_sm} "
+            f"SMs: no U of 8, 16, 32 units a block fits {_SMEM_BUDGET} "
+            f"bytes of shared memory with ceil(H / U) blocks resident")
+    _, neg_u, rg, smem = min(options)
+    return RowGroupPlan(-neg_u, rg, _lean_bf16_k3(H), smem,
+                        ndir * rg * -(-H // -neg_u), ndir)
+
+
+def _lean_plan(B: int, H: int, ndir: int = 1, n_sm: int = 132,
+               bf16: bool = False) -> RowGroupPlan:
+    """The plan of the lean recurrence at batch B and width H for ndir
+    directions (1: K2b, K5b; 2: K7b) on a card of n_sm SMs: in f32
+    ``_row_group_plan`` over the 3H contraction of dhp @ Wh^T; with
+    ``bf16`` the tensor-core body's ``_lean_bf16_plan`` (kc is then the
+    whole contraction, K3)."""
+    if bf16:
+        return _lean_bf16_plan(B, H, ndir, n_sm)
     return _row_group_plan(B, H, 3 * H, ndir, n_sm, _lean_smem,
                            "the lean GRU backward")
 
@@ -635,29 +693,22 @@ def _f32_rec_plan(B: int, H: int, n_sm: int = 132) -> RowGroupPlan:
                            "the f32 GRU recurrence (K5, K2 in f32)")
 
 
-_LEAN_ROUND_DHP, _LEAN_DXP_BF16 = 1, 2     # kRoundDhp, kDxpBf16
-
-
-def _lean(plan: RowGroupPlan, dirs, mask2, reverse, mode=0):
-    """Phase b: one (dxp, dhp) (T, B, 3H) for each direction's
+def _lean(plan: RowGroupPlan, dirs, mask2, reverse):
+    """Phase b in f32: one (dxp, dhp) (T, B, 3H) f32 for each direction's
     (xp, hp, ysp, dys, wh), all f32 and contiguous, under mask2 (T, B); the
     directions share one launch where ``plan.ndir`` is 2, else a launch
-    each. dhp is f32; dxp f32, or bf16 with ``_LEAN_DXP_BF16`` in
-    ``mode``; ``_LEAN_ROUND_DHP`` rounds dhp to bf16 for dhp@Wh^T (the
-    bf16 streams, whose wh holds bf16 values)."""
+    each."""
     T, B, H3 = dirs[0][0].shape
     H = H3 // 3
     dev = dirs[0][0].device
     fn = _build.lib().tpuasr_gru_lean
-    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 9
+    fn.argtypes = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 8
                    + [ctypes.c_longlong, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     groups = [dirs] if plan.ndir == len(dirs) else [[d] for d in dirs]
-    dxp_dtype = (torch.bfloat16 if mode & _LEAN_DXP_BF16
-                 else torch.float32)
     outs = []
     for group in groups:
-        dxp = [torch.empty_like(d[0], dtype=dxp_dtype) for d in group]
+        dxp = [torch.empty_like(d[0]) for d in group]
         dhp = [torch.empty_like(d[0]) for d in group]
         dh = torch.zeros((len(group), B, H), dtype=torch.float32, device=dev)
         ptrs = [[*map(_build.ptr, (*d, dxp[i], dhp[i], dh[i]))]
@@ -667,9 +718,47 @@ def _lean(plan: RowGroupPlan, dirs, mask2, reverse, mode=0):
         with torch.cuda.device(dev):
             code = fn(*ptrs[0], *ptrs[-1], _build.ptr(mask2),
                       _build.ptr(bar), T, B, H, int(bool(reverse)), plan.U,
-                      plan.rg, plan.kc, len(group), mode, plan.smem,
+                      plan.rg, plan.kc, len(group), plan.smem,
                       _build.stream_ptr(mask2))
         _build.check(code, "gru lean recurrence")
+        outs += list(zip(dxp, dhp))
+    return outs
+
+
+def _lean_bf16(plan: RowGroupPlan, dirs, mask2, reverse):
+    """Phase b of the bf16 streams (``_lean_plan(..., bf16=True)``): one
+    (dxp, dhp) for each direction's (xp, hp, ysp, dys, wh), contiguous: xp
+    bf16 (K5b, K7b) or f32 (K2b, phase a's unrounded sums), hp f32, ysp,
+    dys and wh bf16, read as they are. dhp (T, B, 3H) f32, unrounded; dxp
+    in xp's dtype. dhp is rounded to bf16 for dhp@Wh^T only, into a
+    two-step ring (2, B, K3) bf16 a direction."""
+    T, B, H3 = dirs[0][0].shape
+    H = H3 // 3
+    dev = dirs[0][0].device
+    fn = _build.lib().tpuasr_gru_lean_bf16
+    fn.argtypes = ([ctypes.c_void_p] * 20 + [ctypes.c_int] * 8
+                   + [ctypes.c_longlong, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    groups = [dirs] if plan.ndir == len(dirs) else [[d] for d in dirs]
+    outs = []
+    for group in groups:
+        n = len(group)
+        dxp = [torch.empty_like(d[0]) for d in group]
+        dhp = [torch.empty(d[0].shape, dtype=torch.float32, device=dev)
+               for d in group]
+        dh = torch.zeros((n, B, H), dtype=torch.float32, device=dev)
+        ring = torch.zeros((n, 2, B, _lean_bf16_k3(H)), dtype=torch.bfloat16,
+                           device=dev)
+        ptrs = [[*map(_build.ptr, (*d, dxp[i], dhp[i], dh[i], ring[i]))]
+                for i, d in enumerate(group)]
+        bar = _barrier(dev, plan.ndir * plan.rg)
+        # With one direction, its pointers stand for the second, unread.
+        with torch.cuda.device(dev):
+            code = fn(*ptrs[0], *ptrs[-1], _build.ptr(mask2),
+                      _build.ptr(bar), T, B, H, int(bool(reverse)), plan.U,
+                      plan.rg, n, int(group[0][0].dtype == torch.float32),
+                      plan.smem, _build.stream_ptr(mask2))
+        _build.check(code, "gru lean recurrence (bf16)")
         outs += list(zip(dxp, dhp))
     return outs
 
@@ -706,11 +795,13 @@ def _tn_slices(M: int, N1: int, N2: int, n_sm: int) -> int:
 
 
 def _tn_product(a, b, ones=False):
-    """a^T b (N1, N2) f32 over the M rows of a (M, N1) and b (M, N2), rows
-    contiguous; with ``ones``, one more row: the column sums of b. Phase c
-    (csrc/gru_lean.cu, tpuasr_gemm_tn): each of S slices of the rows summed
-    in row order, then the slices in slice order, so every call gives the
-    same bits."""
+    """a^T b (N1, N2) f32 over the M rows of a (M, N1), f32 or bf16, and b
+    (M, N2) f32, rows contiguous; with ``ones``, one more row: the column
+    sums of b. Phase c (csrc/gru_lean.cu): each of S slices of the rows
+    summed in row order, then the slices in slice order, so every call
+    gives the same bits; f32 a on the FMA tiles (tpuasr_gemm_tn), bf16 a on
+    the tensor cores with b split into three bf16 terms
+    (tpuasr_gemm_tn_bf16; ``tn_product_split_plain`` is its function)."""
     M, n1a = a.shape
     N2 = b.shape[1]
     n1 = n1a + int(ones)
@@ -718,7 +809,8 @@ def _tn_product(a, b, ones=False):
     c = torch.empty((n1, N2), dtype=torch.float32, device=a.device)
     parts = (torch.empty((S, n1, N2), dtype=torch.float32, device=a.device)
              if S > 1 else None)
-    fn = _build.lib().tpuasr_gemm_tn
+    fn = (_build.lib().tpuasr_gemm_tn_bf16 if a.dtype == torch.bfloat16
+          else _build.lib().tpuasr_gemm_tn)
     fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
                    + [ctypes.c_int] * 2 + [ctypes.c_void_p])
@@ -739,8 +831,33 @@ def _hp(ysp, wh):
     return _mm(ysp.reshape(T * B, H), wh).reshape(T, B, 3 * H)
 
 
+def split_bf16(v):
+    """f32 v as three bf16 terms (hi, mid, lo) with hi + mid + lo == v
+    exactly: a float's 24 significant bits in three pieces of 8, each
+    remainder exact in f32 (what csrc/gru_lean.cu's split3 computes)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    hi = v.to(bf)
+    r1 = v - hi.to(f32)
+    mid = r1.to(bf)
+    return hi, mid, (r1 - mid.to(f32)).to(bf)
+
+
+def tn_product_split_plain(a, b, ones=False):
+    """Plain version of phase c's bf16 product: a (M, N1) bf16, b (M, N2)
+    f32 -> a^T b (N1 (+1 with ``ones``: b's column sums), N2) f32 as the
+    sum of a^T t over b's three bf16 terms t (``split_bf16``), each product
+    of bf16 values exact in f32."""
+    f32 = torch.float32
+    a32 = a.to(f32)
+    if ones:
+        a32 = torch.cat([a32, a32.new_ones((a32.shape[0], 1))], dim=1)
+    with full_fp32():
+        return sum(a32.T @ t.to(f32) for t in split_bf16(b))
+
+
 def _dwh(ysp, dhp):
-    """Phase c's dWh = ysp^T dhp (H, 3H) over all T*B rows."""
+    """Phase c's dWh = ysp^T dhp (H, 3H) over all T*B rows (ysp f32, or
+    bf16 on the split-bf16 tensor-core product)."""
     T, B, H = ysp.shape
     return _tn_product(ysp.reshape(T * B, H), dhp.reshape(T * B, 3 * H))
 
@@ -827,16 +944,16 @@ def _xfb_pre(x, ysp, wx, b, wh):
 
 def _xfb_post(x, ysp, wx, dxp, dhp):
     """K2b's phase c: (dx, dwx, db, dwh) from dxp and dhp (T, B, 3H) f32,
-    unrounded; x, ysp and wx f32, or bf16 (then dx = bf16(dxp) @ Wx^T on
-    the bf16 tiles, written in bf16, and dwx and dwh rounded to bf16 from
-    the f32 sums)."""
+    unrounded; x, ysp and wx f32, or bf16 (then dwx, db and dwh on the
+    split-bf16 tensor-core product, dx = bf16(dxp) @ Wx^T on the bf16
+    tiles, written in bf16, and dwx and dwh rounded to bf16 from the f32
+    sums)."""
     T, B, D = x.shape
     H3 = wx.shape[1]
     dxp2 = dxp.reshape(T * B, H3)
-    f32 = torch.float32
-    dwx_db = _tn_product(x.reshape(T * B, D).to(f32), dxp2, ones=True)
-    dwh = _dwh(ysp.to(f32), dhp)
-    if x.dtype == f32:
+    dwx_db = _tn_product(x.reshape(T * B, D), dxp2, ones=True)
+    dwh = _dwh(ysp, dhp)
+    if x.dtype == torch.float32:
         dx = _mm(dxp2, wx.T).reshape(T, B, D)
         return dx, dwx_db[:D], dwx_db[D], dwh
     bf = torch.bfloat16
@@ -863,10 +980,11 @@ def gru_scan_xfused_bwd(x, ysp, wx, b, wh, mask, dys, reverse=False):
     all f32 (every output f32) or all bf16 (JAX's bf16 streams: dx, dwx
     and dwh in bf16, db in f32). On the card, in three phases: xp = x@Wx+b
     and hp = ysp@Wh over all T*B rows, the lean recurrence (``_lean_plan``:
-    a shape it cannot hold raises ValueError before any launch; in bf16 it
-    rounds dhp for dhp@Wh^T), then dWh, dWx, db and dx over all rows;
-    every product on hand-written tiles, in a fixed order. One count a
-    call, on ``launches`` (f32) or ``bf16.launches``."""
+    a shape it cannot hold raises ValueError before any launch; in bf16
+    the tensor-core body over the bf16 streams and the f32 xp, dhp rounded
+    for dhp@Wh^T), then dWh, dWx, db and dx over all rows; every product
+    on hand-written tiles, in a fixed order. One count a call, on
+    ``launches`` (f32) or ``bf16.launches``."""
     if x.device.type == "cpu":
         return gru_scan_xfused_bwd_plain(x, ysp, wx, b, wh, mask, dys,
                                          reverse)
@@ -888,13 +1006,11 @@ def gru_scan_xfused_bwd(x, ysp, wx, b, wh, mask, dys, reverse=False):
     if x.numel() == 0 or H == 0:
         return (torch.zeros_like(x), torch.zeros_like(wx),
                 torch.zeros_like(b), torch.zeros_like(wh))
-    plan = _lean_plan(B, H, 1, _sm_count(x.device))
     bf16 = x.dtype == torch.bfloat16
+    plan = _lean_plan(B, H, 1, _sm_count(x.device), bf16)
     xp, hp = _xfb_pre(x, ysp, wx, b, wh)
-    f32 = torch.float32
-    (dxp, dhp), = _lean(plan, [(xp, hp, ysp.to(f32), dys.to(f32),
-                                wh.to(f32))], mask2, reverse,
-                        _LEAN_ROUND_DHP if bf16 else 0)
+    (dxp, dhp), = (_lean_bf16 if bf16 else _lean)(
+        plan, [(xp, hp, ysp, dys, wh)], mask2, reverse)
     (gru_scan_xfused_bwd.bf16 if bf16 else gru_scan_xfused_bwd).launches += 1
     return _xfb_post(x, ysp, wx, dxp, dhp)
 
@@ -1112,10 +1228,10 @@ def gru_scan_bwd(xp, ysp, wh, mask, dys, reverse=False):
     the same dtype). On the card, in three phases at one direction:
     hp = ysp@Wh over all T*B rows, the lean recurrence
     (``_lean_plan(B, H, 1)``: a shape it cannot hold raises ValueError
-    before any launch; in bf16 over the streams' f32 upcasts, dhp rounded
-    for dhp@Wh^T and dxp written in bf16), then dWh = ysp^T dhp over all
-    rows, in a fixed order (rounded to bf16 at the end in bf16). One count
-    a call, on ``launches`` (f32) or ``bf16.launches``."""
+    before any launch; in bf16 the tensor-core body over the bf16 streams,
+    dhp rounded for dhp@Wh^T and dxp written in bf16), then dWh = ysp^T
+    dhp over all rows, in a fixed order (rounded to bf16 at the end in
+    bf16). One count a call, on ``launches`` (f32) or ``bf16.launches``."""
     if xp.device.type == "cpu":
         return gru_scan_bwd_plain(xp, ysp, wh, mask, dys, reverse)
     if xp.device.type != "cuda":
@@ -1127,7 +1243,8 @@ def gru_scan_bwd(xp, ysp, wh, mask, dys, reverse=False):
     _build.check_tensor("dys", dys, xp.device, dt, (T, B, H))
     if xp.numel() == 0:
         return torch.empty_like(xp), torch.zeros_like(wh)
-    plan = _lean_plan(B, H, 1, _sm_count(xp.device))
+    plan = _lean_plan(B, H, 1, _sm_count(xp.device),
+                      xp.dtype == torch.bfloat16)
     (dxp, dwh), = _lean_dirs(plan, [(xp, ysp, dys, wh)], mask2, reverse)
     (gru_scan_bwd.bf16 if xp.dtype == torch.bfloat16
      else gru_scan_bwd).launches += 1
@@ -1141,18 +1258,16 @@ gru_scan_bwd.bf16 = types.SimpleNamespace(launches=0)
 def _lean_dirs(plan, dirs, mask2, reverse):
     """The three phases of K5b and K7b: for each direction's
     (xp, ysp, dys, wh), all f32 or all bf16, hp = ysp@Wh (on the bf16
-    tiles for bf16), the lean recurrence over the f32 upcasts (in bf16 dhp
-    rounded for dhp@Wh^T and dxp written in bf16), then dWh = ysp^T dhp
-    from the unrounded dhp, cast to wh's dtype -> [(dxp, dwh)] in the
-    streams' dtype. In f32 every cast is the tensor itself."""
-    f32 = torch.float32
-    mode = (_LEAN_ROUND_DHP | _LEAN_DXP_BF16
-            if dirs[0][0].dtype == torch.bfloat16 else 0)
-    up = [(xp.to(f32), _hp(ysp, wh), ysp.to(f32), dys.to(f32), wh.to(f32))
-          for xp, ysp, dys, wh in dirs]
-    outs = _lean(plan, up, mask2, reverse, mode)
-    return [(dxp, _dwh(u[2], dhp).to(d[3].dtype))
-            for (dxp, dhp), u, d in zip(outs, up, dirs)]
+    tiles for bf16), the lean recurrence over the streams as they are (in
+    bf16 the tensor-core body: dhp rounded for dhp@Wh^T, dxp written in
+    bf16), then dWh = ysp^T dhp from the unrounded dhp (split-bf16 in
+    bf16), cast to wh's dtype -> [(dxp, dwh)] in the streams' dtype. In
+    f32 the cast is the tensor itself."""
+    lean = _lean_bf16 if dirs[0][0].dtype == torch.bfloat16 else _lean
+    outs = lean(plan, [(xp, _hp(ysp, wh), ysp, dys, wh)
+                       for xp, ysp, dys, wh in dirs], mask2, reverse)
+    return [(dxp, _dwh(ysp, dhp).to(wh.dtype))
+            for (dxp, dhp), (_, ysp, _, wh) in zip(outs, dirs)]
 
 
 class _GRUScan(torch.autograd.Function):
@@ -1377,7 +1492,7 @@ def gru_scan_bidir_bwd(xpf, xpb, yspf, yspb, whf, whb, mask, dysf, dysb):
     if xpf.numel() == 0:
         return (torch.empty_like(xpf), torch.empty_like(xpb),
                 torch.zeros_like(whf), torch.zeros_like(whb))
-    plan = _lean_plan(B, H, 2, _sm_count(xpf.device))
+    plan = _lean_plan(B, H, 2, _sm_count(xpf.device), dt == torch.bfloat16)
     (dxpf, dwhf), (dxpb, dwhb) = _lean_dirs(
         plan, [(xpf, yspf, dysf, whf), (xpb, yspb, dysb, whb)], mask2,
         False)
